@@ -10,12 +10,22 @@ Phases (any failure exits non-zero):
      version on the card at the full width of examples/maml/params.yml;
   3. serve a few requests through ``AdaptiveTTS`` with seeded random
      weights and the kernel as the decode backend, and check the
-     waveforms and the kernel's launch count.
+     waveforms and the kernel's launch count;
+  4. hold the segment kernel, chained over all steps, against the
+     whole-loop kernel (bit for bit) and the plain segment chain, its
+     state after one segment, and a B = 4 row against B = 1;
+  5. stream the requests through ``synthesize_stream``: mel and length
+     against the offline path, one launch per segment;
+  6. multiplex four staggered streams through ``StreamMultiplexer``:
+     each equals its solo stream and agrees with the same stream decoded
+     by the plain segment, one launch per tick;
+  7. serve /synthesize and /synthesize_stream from ``TTSServer``.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists each kernel with its launches on the serving
-path, its error against the plain version and both times.
+the line before it lists each kernel with its launches on its main
+path (phase 3 for the whole loop, phase 5 for the segments), its error
+against the plain version and both times.
 """
 
 from __future__ import annotations
@@ -187,6 +197,390 @@ def kernel_vs_plain(tts, device, seed: int = 0) -> dict:
     return res
 
 
+SEG = 16             # streaming segment length (decoder steps)
+SEG_ROW_ATOL = 1e-5  # a B = 4 row against its B = 1 decode
+STREAM_ATOL = 1e-4   # streamed mel against the offline mel
+MUX_ATOL = 1e-5      # a muxed stream's mel against its solo stream
+
+
+def _chain(seg_fn, S: int, n_seg: int):
+    """Run segments of n_seg steps (the last one shorter) until S steps;
+    returns the step-concatenated mels, gates, aligns and the final
+    state.  ``seg_fn(state, step, n) -> (state, mels, gates, aligns)``."""
+    import torch
+
+    st, parts, step = None, [], 0
+    while step < S:
+        n = min(n_seg, S - step)
+        st, *o = seg_fn(st, step, n)
+        parts.append(o)
+        step += n
+    mels, gates, aligns = (torch.cat(x, dim=1 if i == 2 else -1)
+                           for i, x in enumerate(zip(*parts)))
+    return mels, gates, aligns, st
+
+
+def segment_vs_plain(tts, device, gate_bias0, seed: int = 1) -> dict:
+    """Phase 4: the segment kernel chained over all S steps against the
+    whole-loop kernel (bit for bit) and the plain segment chain, at full
+    width with the model's own gate bias; its state after one segment;
+    and each row of a B = 4 chain against that row decoded alone."""
+    import torch
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.models.decoder import (
+        decoder_infer_segment,
+        decoder_stream_init,
+    )
+
+    dcfg = tts.cfg.decoder_config()._replace(early_stopping=False)
+    decoder = tts.model.decoder
+    bias = decoder.gate_layer.linear_layer.bias
+    served_bias = bias.detach().clone()
+    S, E, r = dcfg.max_decoder_steps, dcfg.encoder_embedding_dim, \
+        dcfg.n_frames_per_step
+    g = torch.Generator().manual_seed(seed)
+    res = {"max_abs_err": 0.0}
+
+    def kernel_chain(enc, pin, maskf, masks):
+        B, T = enc.shape[:2]
+
+        def seg(st, step, n):
+            st = st or decoder_stream_init(dcfg, B, T, device=device)
+            return CD.cuda_decoder_segment(
+                decoder, dcfg, enc, pin, maskf,
+                masks[step: step + n].contiguous(), st, n)
+        return _chain(seg, S, SEG)
+
+    def plain_chain(enc, lens, masks):
+        B, T = enc.shape[:2]
+
+        def seg(st, step, n):
+            st = st or decoder_stream_init(dcfg, B, T, device=device)
+            return decoder_infer_segment(decoder, dcfg, enc, lens,
+                                         masks[step: step + n], st, n)
+        return _chain(seg, S, SEG)
+
+    with torch.no_grad():
+        bias.copy_(gate_bias0)
+    try:
+        for B in (1, 4):
+            enc = torch.randn(B, T_IN, E, generator=g).to(device)
+            lens = torch.tensor([T_IN, 97, 110, 64][:B], device=device)
+            masks = CD.prenet_masks(dcfg, S, B, g, device=device)
+            pin, maskf = CD.segment_inputs(decoder, dcfg, enc, lens)
+            whole = CD.cuda_decoder_infer(decoder, dcfg, enc, lens, masks)
+            kern = kernel_chain(enc, pin, maskf, masks)
+            plain = plain_chain(enc, lens, masks)
+            torch.cuda.synchronize()
+            same = (torch.equal(kern[0], whole[0])
+                    and torch.equal(kern[1].repeat_interleave(r, 1),
+                                    whole[1])
+                    and torch.equal(kern[2], whole[2])
+                    and torch.equal(kern[3]["mel_lengths"], whole[3]))
+            print(f"  B={B}: segment chain (n_seg {SEG}) == whole-loop "
+                  f"kernel bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"B={B}: segment chain != whole loop")
+            for name, a, b, cut in zip(("mels", "gates", "aligns"),
+                                       kern[:3], plain[:3],
+                                       (CHECK_STEPS * r, CHECK_STEPS,
+                                        CHECK_STEPS)):
+                win = a[..., :cut] if name != "aligns" else a[:, :cut]
+                ref = b[..., :cut] if name != "aligns" else b[:, :cut]
+                err = float((win - ref).abs().max())
+                whole_err = float((a - b).abs().max())
+                print(f"  B={B} {name}: segment kernel vs plain segment "
+                      f"max|d| first {CHECK_STEPS} steps {err:.3e}, whole "
+                      f"run {whole_err:.3e}")
+                if not err <= ATOL:
+                    raise AssertionError(f"segment vs plain, B={B}, {name}:"
+                                         f" {err} > {ATOL}")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+
+            # the state after one segment, the transition agent included
+            st0 = decoder_stream_init(dcfg, B, T_IN, device=device)
+            ks = CD.cuda_decoder_segment(decoder, dcfg, enc, pin, maskf,
+                                         masks[:SEG].contiguous(), st0, SEG)
+            ps = decoder_infer_segment(decoder, dcfg, enc, lens,
+                                       masks[:SEG], st0, SEG)
+            kc, pc = ks[0]["carry"], ps[0]["carry"]
+            errs = {
+                "decoder_input": ks[0]["decoder_input"]
+                - ps[0]["decoder_input"],
+                **{f: getattr(kc, f) - getattr(pc, f) for f in kc._fields
+                   if f != "attn_state"},
+                **{f: getattr(kc.attn_state, f) - getattr(pc.attn_state, f)
+                   for f in ("attention_weights", "attention_weights_cum",
+                             "alpha", "u")},
+            }
+            worst = max(float(v.abs().max()) for v in errs.values())
+            print(f"  B={B}: state after one segment, max|d| over every "
+                  f"field (u included) {worst:.3e}; u max|d| "
+                  f"{float(errs['u'].abs().max()):.3e}")
+            if not worst <= ATOL or not (
+                    torch.equal(ks[0]["not_finished"],
+                                ps[0]["not_finished"])
+                    and torch.equal(ks[0]["mel_lengths"],
+                                    ps[0]["mel_lengths"])):
+                raise AssertionError("state after one segment differs")
+
+            launches = CD.SEG_LAUNCHES
+            k_ms = _time_ms(lambda: kernel_chain(enc, pin, maskf, masks), 3)
+            n_launch = (CD.SEG_LAUNCHES - launches) // 3
+            w_ms = _time_ms(lambda: CD.cuda_decoder_infer(
+                decoder, dcfg, enc, lens, masks), 3)
+            p_ms = _time_ms(lambda: plain_chain(enc, lens, masks), 1)
+            res["ms"], res["plain_ms"] = k_ms, p_ms
+            print(f"  B={B}: segment kernel {1e3 * k_ms / S:.1f} us/step "
+                  f"({n_launch} launches of <= {SEG} steps), whole-loop "
+                  f"kernel {1e3 * w_ms / S:.1f}, plain segment "
+                  f"{1e3 * p_ms / S:.1f} us/step ({S} steps, T_in {T_IN})")
+
+        # rows against B = 1: once on these inputs, once with the gate
+        # bias shifted (as in phase 2) so that the rows stop at steps of
+        # their own; the stop steps are the chains' mel_lengths
+        gates = plain[1][:, :200]
+        shift = 0.05 - float(gates.max(dim=1).values.min())
+        for label, delta in (("gate as is", 0.0),
+                             (f"gate shifted {shift:+.3f}", shift)):
+            with torch.no_grad():
+                bias.copy_(gate_bias0 + delta)
+            four = kernel_chain(enc, pin, maskf, masks)
+            worst, ml_one = 0.0, []
+            for b in range(4):
+                one = kernel_chain(
+                    enc[b:b + 1].contiguous(), pin[b:b + 1].contiguous(),
+                    maskf[b:b + 1].contiguous(),
+                    masks[:, :, b:b + 1].contiguous())
+                for a, o in zip(four[:3], one[:3]):
+                    worst = max(worst, float((a[b:b + 1] - o).abs().max()))
+                ml_one.append(int(one[3]["mel_lengths"][0]))
+            ml_four = four[3]["mel_lengths"].tolist()
+            # the stop decisions: each row's steps up to its firing one
+            prob = torch.sigmoid(four[1])
+            closest = min(
+                float((prob[b, : ml + 1] - dcfg.gate_threshold).abs().min())
+                for b, ml in enumerate(four[3]["mel_lengths"].tolist()))
+            print(f"  B=4 rows vs B=1 ({label}): max|d| {worst:.3e}; stop "
+                  f"steps B=4 {ml_four}, B=1 {ml_one}; closest gate to the "
+                  f"threshold {closest:.3e}")
+            if not worst <= SEG_ROW_ATOL or ml_four != ml_one:
+                raise AssertionError("a B = 4 row differs from its B = 1 "
+                                     "decode")
+            if delta and min(ml_four) >= S:
+                raise AssertionError("shifted gate: no row stopped")
+    finally:
+        with torch.no_grad():
+            bias.copy_(served_bias)
+    return res
+
+
+def stream_requests(tts, device) -> int:
+    """Phase 5: stream the four texts one after another through
+    ``synthesize_stream`` with the CUDA decode backend: the streamed mel
+    against the offline mel, the streamed Griffin-Lim length against the
+    offline wav's, one segment-kernel launch per segment.  Returns the
+    launches of the four Griffin-Lim streams (the main path)."""
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+
+    emb = np.random.default_rng(0).standard_normal(
+        tts.cfg.speaker_embedding_dim).astype(np.float32)
+    sr = tts.params["audio_params"]["sample_rate"]
+    S = tts.cfg.max_decoder_steps
+    n_seg = -(-S // SEG)
+    for i, text in enumerate(TEXTS):
+        off = tts.synthesize(text, spk_emb=emb, seed=i, vocoder="none")
+        mel = np.concatenate(list(tts.synthesize_stream(
+            text, spk_emb=emb, seed=i, vocoder="none", segment_steps=SEG)),
+            axis=-1)
+        err = (float(np.abs(mel - off).max()) if mel.shape == off.shape
+               else float("inf"))
+        print(f"  stream #{i} mel: {mel.shape[1]} frames (offline "
+              f"{off.shape[1]}), max|d| vs offline {err:.3e}")
+        if not err <= STREAM_ATOL:
+            raise AssertionError(f"streamed mel #{i} differs: {err}")
+    total = 0
+    for i, text in enumerate(TEXTS):
+        want = len(tts.synthesize(text, spk_emb=emb, seed=i))
+        torch.cuda.synchronize()
+        CD.SEG_LAUNCHES = 0
+        t0 = time.perf_counter()
+        n, t_first, n_chunks = 0, None, 0
+        for chunk in tts.synthesize_stream(text, spk_emb=emb, seed=i,
+                                           segment_steps=SEG):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            n += len(chunk)
+            n_chunks += 1
+        wall = time.perf_counter() - t0
+        launches = CD.SEG_LAUNCHES
+        print(f"  stream #{i} griffinlim: first chunk {1e3 * t_first:.1f} "
+              f"ms, {n_chunks} chunks, {n} samples (offline {want}) in "
+              f"{wall:.3f} s, real-time factor {n / sr / wall:.1f}; "
+              f"{launches} segment-kernel launches for {n_seg} segments")
+        if n != want or launches != n_seg:
+            raise AssertionError(f"stream #{i}: {n} samples (want {want}),"
+                                 f" {launches} launches (want {n_seg})")
+        total += launches
+    return total
+
+
+def multiplex(tts, device) -> int:
+    """Phase 6: four streams joining a 4-slot CUDA multiplexer staggered;
+    each stream's mel against its solo stream and its plain-segment
+    stream at the mux's padded text length, one segment-kernel launch
+    per tick; then the same with
+    Griffin-Lim for the aggregate real-time factor.  Returns the
+    launches of that run."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.serving import AdaptiveTTS
+    from msa_tts_tpu_torch.stream_mux import StreamMultiplexer
+
+    t_cap = 128
+    sr = tts.params["audio_params"]["sample_rate"]
+    embs = [np.random.default_rng(10 + i).standard_normal(
+        tts.cfg.speaker_embedding_dim).astype(np.float32) for i in range(4)]
+
+    def run(mux, vocoder):
+        outs, firsts = {}, {}
+
+        def worker(i):
+            t0 = time.perf_counter()
+            chunks = []
+            for c in mux.stream(TEXTS[i], spk_emb=embs[i], seed=i,
+                                vocoder=vocoder):
+                if not chunks:
+                    firsts[i] = time.perf_counter() - t0
+                chunks.append(c)
+            outs[i] = np.concatenate(chunks, axis=-1)
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(4)]
+        torch.cuda.synchronize()
+        ticks0 = mux.metrics()["ticks_total"]
+        CD.SEG_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+            time.sleep(0.02)        # staggered joins: other step phases
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or len(outs) != 4:
+            raise AssertionError("a muxed stream did not finish")
+        return (outs, firsts, wall, mux.metrics()["ticks_total"] - ticks0,
+                CD.SEG_LAUNCHES)
+
+    # the same streams decoded by the plain segment at the mux's padded
+    # text length: holds the kernel at B = 4, T = t_cap, under the mux's
+    # state gather and insert, against its plain version
+    plain_tts = AdaptiveTTS(dict(tts.params, decode_backend="torch"),
+                            tts.model, device=device)
+    mux = StreamMultiplexer(tts, n_slots=4, backend="cuda", t_cap=t_cap,
+                            segment_steps=SEG)
+    try:
+        outs, _, wall, ticks, launches = run(mux, "none")
+        for i in range(4):
+            errs = []
+            for ref_tts, tol in ((tts, MUX_ATOL), (plain_tts, SERVE_ATOL)):
+                ref = np.concatenate(list(ref_tts.synthesize_stream(
+                    TEXTS[i], spk_emb=embs[i], seed=i, vocoder="none",
+                    segment_steps=SEG, text_pad_multiple=t_cap)), axis=-1)
+                errs.append(float(np.abs(outs[i] - ref).max())
+                            if outs[i].shape == ref.shape else float("inf"))
+                if not errs[-1] <= tol:
+                    raise AssertionError(
+                        f"muxed stream #{i} differs from its "
+                        f"{ref_tts.decode_backend} stream: {errs[-1]} > {tol}")
+            print(f"  muxed stream #{i} mel: {outs[i].shape[1]} frames, "
+                  f"max|d| vs solo {errs[0]:.3e} (tolerance {MUX_ATOL}), vs "
+                  f"plain-segment stream {errs[1]:.3e} (tolerance "
+                  f"{SERVE_ATOL})")
+        print(f"  mel run: {ticks} ticks, {launches} segment-kernel "
+              f"launches, {1e6 * wall / ticks:.0f} us per tick (wall)")
+        if launches != ticks:
+            raise AssertionError(f"{launches} launches for {ticks} ticks")
+        outs, firsts, wall, ticks, launches = run(mux, "griffinlim")
+        audio = sum(len(w) for w in outs.values()) / sr
+        print(f"  griffinlim run: {ticks} ticks, {launches} launches, "
+              f"{1e6 * wall / ticks:.0f} us per tick (wall), {audio:.2f} s "
+              f"of audio in {wall:.3f} s: aggregate real-time factor "
+              f"{audio / wall:.1f}; first chunks "
+              + ", ".join(f"{1e3 * firsts[i]:.0f}" for i in range(4))
+              + " ms")
+        if launches != ticks:
+            raise AssertionError(f"{launches} launches for {ticks} ticks")
+    finally:
+        mux.close()
+    return launches
+
+
+def http_server(tts, device) -> None:
+    """Phase 7: ``TTSServer(stream_multiplex=4)`` on 127.0.0.1:0, one
+    POST to /synthesize and one to /synthesize_stream; both wav bodies
+    have the offline length, and /stats counts both requests."""
+    import http.client
+    import json as _json
+
+    import numpy as np
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.server import TTSServer
+
+    emb = np.random.default_rng(0).standard_normal(
+        tts.cfg.speaker_embedding_dim).astype(np.float32)
+    hop = tts.params["audio_params"]["hop_length"]
+    want = 2 * hop * (tts.cfg.max_decoder_steps
+                      * tts.cfg.n_frames_per_step - 1)
+    server = TTSServer(tts, default_spk_emb=emb, stream_multiplex=4)
+    port = server.start()
+    try:
+        bodies = {}
+        CD.LAUNCHES = CD.SEG_LAUNCHES = 0
+        for path in ("/synthesize", "/synthesize_stream"):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            t0 = time.perf_counter()
+            conn.request("POST", path, _json.dumps({"text": TEXTS[0]}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+            conn.close()
+            print(f"  POST {path}: {resp.status}, {len(body)} bytes in "
+                  f"{time.perf_counter() - t0:.3f} s")
+            if resp.status != 200 or body[:4] != b"RIFF":
+                raise AssertionError(f"{path}: status {resp.status}")
+            bodies[path] = body
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        stats = _json.loads(conn.getresponse().read())
+        conn.close()
+        mux = stats["stream_mux"]
+        print(f"  /stats: requests_total {stats['requests_total']}, "
+              f"errors_total {stats['errors_total']}, stream_mux admitted "
+              f"{mux['admitted_total']}, completed {mux['completed_total']}"
+              f", ticks {mux['ticks_total']}; whole-loop launches "
+              f"{CD.LAUNCHES}, segment launches {CD.SEG_LAUNCHES}")
+        for path, body in bodies.items():
+            if len(body) - 44 != want:
+                raise AssertionError(f"{path}: {len(body) - 44} PCM bytes, "
+                                     f"want {want}")
+        if (stats["requests_total"] != 2 or stats["errors_total"] != 0
+                or mux["completed_total"] != 1 or CD.LAUNCHES != 1
+                or CD.SEG_LAUNCHES != mux["ticks_total"]):
+            raise AssertionError("server counts are off")
+    finally:
+        server.stop()
+
+
 TEXTS = [
     "The birch canoe slid on the smooth planks.",
     "Glue the sheet to the dark blue background.",
@@ -298,10 +692,25 @@ def main() -> int:
         model, device=device,
     )
 
+    gate_bias0 = model.decoder.gate_layer.linear_layer.bias.detach().clone()
     print("phase 2: decoder kernel vs plain PyTorch at full width")
     k = kernel_vs_plain(tts, device)
     print("phase 3: serve requests (seeded random weights, cuda decode)")
     launches = serve(tts, device)
+    print(gpu)
+    print(f"phase 4: segment kernel vs whole-loop kernel and plain segment "
+          f"at full width (n_seg {SEG})")
+    sk = segment_vs_plain(tts, device, gate_bias0)
+    print(gpu)
+    print("phase 5: stream requests through synthesize_stream (cuda)")
+    seg_launches = stream_requests(tts, device)
+    print(gpu)
+    print("phase 6: multiplex 4 staggered streams (cuda engine, t_cap 128)")
+    multiplex(tts, device)
+    print(gpu)
+    print("phase 7: HTTP server with stream_multiplex=4")
+    http_server(tts, device)
+    print(gpu)
 
     print(json.dumps({"kernels": [{
         "name": "decoder_loop",
@@ -312,6 +721,15 @@ def main() -> int:
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
+    }, {
+        "name": "decoder_segment",
+        "route": "cuda",
+        "source": "msa_tts_tpu_torch/csrc/decoder_loop.cu",
+        "replaces": "msa_tts_tpu/models/pallas_decoder.py:553",
+        "launches": seg_launches,
+        "max_abs_err": sk["max_abs_err"],
+        "ms": sk["ms"],
+        "plain_ms": sk["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,9 +1,14 @@
-// Whole-loop Tacotron-2 inference decoder for Hopper (sm_90a).
+// Tacotron-2 inference decoder kernels for Hopper (sm_90a).
 //
-// Replaces msa_tts_tpu/models/pallas_decoder.py::make_pallas_decoder_infer
-// (step body _bind_step): the whole autoregressive loop, early exit
-// included, runs in ONE persistent cooperative launch.  Each step is a
-// sequence of phases separated by grid-wide barriers:
+// decoder_loop_kernel replaces
+// msa_tts_tpu/models/pallas_decoder.py::make_pallas_decoder_infer (step
+// body _bind_step): the whole autoregressive loop, early exit included,
+// runs in ONE persistent cooperative launch.  decoder_segment_kernel
+// replaces make_pallas_decoder_segment: a fixed number of steps from a
+// carried state, no early exit, for streaming; chained segments give
+// the whole-loop kernel's bits.  Both run one shared step function
+// (decoder_step).  Each step is a sequence of phases separated by
+// grid-wide barriers:
 //
 //   1. prenet layer 1      (one block per output unit, its threads
 //                           splitting the dot product)
@@ -420,19 +425,38 @@ __device__ void load_resident(const Params& p, float* s_wres) {
   __syncthreads();
 }
 
+// The transition agent of row b, by one warp:
+// u[b] = sigmoid(w_ta · [ctx, attention h] + b_ta), written by lane 0.
+// The energy phase of step t computes step t-1's agent with it, and the
+// segment kernel its last step's, so both give the same bits.
+__device__ void agent_u(const Params& p, int b, const float* ah,
+                        float* u_out) {
+  const int lane = threadIdx.x & 31;
+  const float* ctx = p.ctx + (size_t)b * p.E;
+  const float* h = ah + (size_t)b * p.H;
+  float z = 0.0f;
+  for (int i = lane; i < p.E; i += 32)
+    z = fmaf(__ldcg(ctx + i), __ldg(p.w_ta + i), z);
+  for (int i = lane; i < p.H; i += 32)
+    z = fmaf(__ldcg(h + i), __ldg(p.w_ta + p.E + i), z);
+  z = warp_sum(z);
+  if (lane == 0) u_out[b] = sigmoidf_(z + __ldg(p.b_ta));
+}
+
 // Phase 5: the energy of every (row b, encoder position tt), one warp
 // each: e = v · tanh(pq[b] + loc[tt] + pin[b, tt]) + v_b, masked to -1e30
 // where asked.  loc[tt, f] is the K-tap conv over the previous and the
 // cumulative attention weights, zero-padded (K-1)/2 per side, followed
-// (in the dense) by the F -> A projection.  From the second step on, B
-// more warps compute the transition agent of the previous step,
-// u = sigmoid(w_ta · [ctx, attention h] + b_ta): ctx and the previous h
-// are still intact here, and phase 6 is the first to read u.
+// (in the dense) by the F -> A projection.  With ``agent`` (every step
+// of a launch but its first: the carried u is already current there), B
+// more warps compute the transition agent of the previous step: ctx and
+// the previous h are still intact here, and phase 6 is the first to
+// read u.
 __device__ void energy_phase(const Params& p, const float* s_wres, float* sm,
-                             int t, int cur) {
-  const int T = p.T, A = p.A, F = p.F, K = p.K, E = p.E, H = p.H;
+                             bool agent, int cur) {
+  const int T = p.T, A = p.A, F = p.F, K = p.K;
   const int items = p.B * T;
-  const int n_ta = (t > 0 && p.fwd && p.tagent) ? p.B : 0;
+  const int n_ta = (agent && p.fwd && p.tagent) ? p.B : 0;
   if ((int)blockIdx.x >= items + n_ta) return;   // warp 0 has item blockIdx
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* s_wd = s_wres;                     // see load_resident
@@ -446,14 +470,7 @@ __device__ void energy_phase(const Params& p, const float* s_wres, float* sm,
   const float* cum = p.cum[cur];
   for (int item = worker; item < items + n_ta; item += NW * gridDim.x) {
     if (item >= items) {
-      const int b = item - items;
-      const float* ctx = p.ctx + (size_t)b * E;
-      const float* ah = p.ah[cur] + (size_t)b * H;
-      float z = 0.0f;
-      for (int i = lane; i < E; i += 32) z = fmaf(__ldcg(ctx + i), __ldg(p.w_ta + i), z);
-      for (int i = lane; i < H; i += 32) z = fmaf(__ldcg(ah + i), __ldg(p.w_ta + E + i), z);
-      z = warp_sum(z);
-      if (lane == 0) p.u[b] = sigmoidf_(z + __ldg(p.b_ta));
+      agent_u(p, item - items, p.ah[cur], p.u);
       continue;
     }
     const int b = item / T, tt = item - b * T;
@@ -623,16 +640,107 @@ __device__ void attention_slice(const Params& p, float* sm, float* s_red,
   }
 }
 
+// A block's shared memory: the not_finished (B) and mel_lengths (B)
+// rows and the alive count, the reduction scratch, the resident
+// attention weights, then the phases' working space.
+struct Smem {
+  int* nf; int* mlen; int* alive;
+  float* red; float* wres; float* body;
+};
+
+__device__ Smem smem_views(const Params& p, unsigned char* raw) {
+  Smem s;
+  s.nf = reinterpret_cast<int*>(raw);
+  s.mlen = s.nf + p.B;
+  s.alive = s.mlen + p.B;
+  s.red = reinterpret_cast<float*>(raw + int_header_bytes(p.B));
+  s.wres = reinterpret_cast<float*>(raw + header_bytes(p.B));
+  s.body = s.wres + resident_floats(p.A, p.F, p.K);
+  return s;
+}
+
+// Context slices per row: enough to use the grid, at least 32 wide.  A
+// slice only moves columns of E between blocks; each column's sum is
+// taken in the same order whatever the count, so a row's values do not
+// depend on B or on the grid.
+__device__ int context_slices(const Params& p) {
+  int nslice = (int)gridDim.x / p.B;
+  if (nslice > (p.E + 31) / 32) nslice = (p.E + 31) / 32;
+  return nslice < 1 ? 1 : nslice;
+}
+
+// One decoder step, phases 1-8 and the stop bookkeeping: the body both
+// kernels share (the counterpart of pallas_decoder.py::_bind_step).
+// ``t`` is the step's index in this launch: it picks the double buffers
+// (t & 1 holds the state the step reads) and indexes the prenet masks,
+// the outputs and the phase stamps.  Returns the number of rows still
+// unfinished, the same in every block.
+__device__ int decoder_step(const Params& p, cg::grid_group& grid,
+                            const Smem& s, int t, int nslice) {
+  const int B = p.B;
+  const int cur = t & 1, nxt = cur ^ 1;
+  stamp(p, t, 0);
+
+  linear_phase<LIN_PRENET>(p, s.body, s.red, p.P, p.MR, p.w_pre1, p.din,
+                           p.MR, nullptr, 0, p.p1, 0, t);
+  grid.sync();
+  stamp(p, t, 1);
+  linear_phase<LIN_PRENET>(p, s.body, s.red, p.P, p.P, p.w_pre2, p.p1, p.P,
+                           nullptr, 0, p.p2, 1, t);
+  grid.sync();
+  stamp(p, t, 2);
+  lstm_phase(s.body, s.red, B, p.H, p.w_att, p.b_att,
+             p.p2, p.P, p.ctx, p.E, p.ah[cur], p.H,
+             p.ac[cur], p.ah[nxt], p.ac[nxt]);
+  grid.sync();
+  stamp(p, t, 3);
+  linear_phase<LIN_QUERY>(p, s.body, s.red, p.A, p.H, p.w_q, p.ah[nxt], p.H,
+                          nullptr, 0, p.pq, 0, t);
+  grid.sync();
+  stamp(p, t, 4);
+  energy_phase(p, s.wres, s.body, t > 0, cur);
+  grid.sync();
+  stamp(p, t, 5);
+  for (int item = blockIdx.x; item < B * nslice; item += gridDim.x)
+    attention_slice(p, s.body, s.red, item / nslice, item % nslice, nslice,
+                    t, cur);
+  grid.sync();
+  stamp(p, t, 6);
+  lstm_phase(s.body, s.red, B, p.Hd, p.w_dec, p.b_dec,
+             p.ah[nxt], p.H, p.ctx, p.E, p.dh[cur], p.Hd,
+             p.dc[cur], p.dh[nxt], p.dc[nxt]);
+  grid.sync();
+  stamp(p, t, 7);
+  linear_phase<LIN_PROJ>(p, s.body, s.red, p.MR + 1, p.Hd + p.E, p.w_pg,
+                         p.dh[nxt], p.Hd, p.ctx, p.E, nullptr, 0, t);
+  grid.sync();
+  stamp(p, t, 8);
+
+  // a row stops once sigmoid(gate) <= threshold is false; mel_lengths
+  // counts the steps after which it is still unfinished
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int b = 0; b < B; ++b) {
+      const float g = __ldcg(p.gates + (size_t)t * B + b);
+      const int dec = sigmoidf_(g) <= p.gate_threshold ? 1 : 0;
+      s.nf[b] *= dec;
+      s.mlen[b] += s.nf[b];
+      n += s.nf[b];
+    }
+    *s.alive = n;
+  }
+  __syncthreads();
+  const int alive = *s.alive;
+  stamp(p, t, 9);
+  return alive;
+}
+
 __global__ void __launch_bounds__(NT)
 decoder_loop_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* s_nf = reinterpret_cast<int*>(smem_raw);
-  int* s_mlen = s_nf + p.B;
-  int* s_alive = s_mlen + p.B;
-  float* s_red = reinterpret_cast<float*>(smem_raw + int_header_bytes(p.B));
-  float* s_wres = reinterpret_cast<float*>(smem_raw + header_bytes(p.B));
-  float* sm = s_wres + resident_floats(p.A, p.F, p.K);
+  const Smem s = smem_views(p, smem_raw);
 
   const int B = p.B, T = p.T;
   const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
@@ -653,101 +761,131 @@ decoder_loop_kernel(Params p) {
   }
   for (size_t i = gtid; i < (size_t)B; i += gsize) p.u[i] = 0.5f;
   for (size_t i = gtid; i < (size_t)B * p.MR; i += gsize) p.din[i] = 0.0f;
-  for (int b = threadIdx.x; b < B; b += NT) { s_nf[b] = 1; s_mlen[b] = 0; }
-  load_resident(p, s_wres);
+  for (int b = threadIdx.x; b < B; b += NT) { s.nf[b] = 1; s.mlen[b] = 0; }
+  load_resident(p, s.wres);
   grid.sync();
 
+  const int nslice = context_slices(p);
   int alive = B;
   int t = 0;
-  // context slices per row: enough to use the grid, at least 32 wide
-  int nslice = (int)gridDim.x / B;
-  if (nslice > (p.E + 31) / 32) nslice = (p.E + 31) / 32;
-  if (nslice < 1) nslice = 1;
   for (; t < p.S; ++t) {
     if (p.early && alive == 0) break;          // identical in every block
-    const int cur = t & 1, nxt = cur ^ 1;
-    stamp(p, t, 0);
-
-    linear_phase<LIN_PRENET>(p, sm, s_red, p.P, p.MR, p.w_pre1, p.din,
-                             p.MR, nullptr, 0, p.p1, 0, t);
-    grid.sync();
-    stamp(p, t, 1);
-    linear_phase<LIN_PRENET>(p, sm, s_red, p.P, p.P, p.w_pre2, p.p1, p.P,
-                             nullptr, 0, p.p2, 1, t);
-    grid.sync();
-    stamp(p, t, 2);
-    lstm_phase(sm, s_red, B, p.H, p.w_att, p.b_att,
-               p.p2, p.P, p.ctx, p.E, p.ah[cur], p.H,
-               p.ac[cur], p.ah[nxt], p.ac[nxt]);
-    grid.sync();
-    stamp(p, t, 3);
-    linear_phase<LIN_QUERY>(p, sm, s_red, p.A, p.H, p.w_q, p.ah[nxt], p.H,
-                            nullptr, 0, p.pq, 0, t);
-    grid.sync();
-    stamp(p, t, 4);
-    energy_phase(p, s_wres, sm, t, cur);
-    grid.sync();
-    stamp(p, t, 5);
-    for (int item = blockIdx.x; item < B * nslice; item += gridDim.x)
-      attention_slice(p, sm, s_red, item / nslice, item % nslice, nslice,
-                      t, cur);
-    grid.sync();
-    stamp(p, t, 6);
-    lstm_phase(sm, s_red, B, p.Hd, p.w_dec, p.b_dec,
-               p.ah[nxt], p.H, p.ctx, p.E, p.dh[cur], p.Hd,
-               p.dc[cur], p.dh[nxt], p.dc[nxt]);
-    grid.sync();
-    stamp(p, t, 7);
-    linear_phase<LIN_PROJ>(p, sm, s_red, p.MR + 1, p.Hd + p.E, p.w_pg,
-                           p.dh[nxt], p.Hd, p.ctx, p.E, nullptr, 0, t);
-    grid.sync();
-    stamp(p, t, 8);
-
-    // a row stops once sigmoid(gate) <= threshold is false; mel_lengths
-    // counts the steps after which it is still unfinished
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int n = 0;
-      for (int b = 0; b < B; ++b) {
-        const float g = __ldcg(p.gates + (size_t)t * B + b);
-        const int dec = sigmoidf_(g) <= p.gate_threshold ? 1 : 0;
-        s_nf[b] *= dec;
-        s_mlen[b] += s_nf[b];
-        n += s_nf[b];
-      }
-      *s_alive = n;
-    }
-    __syncthreads();
-    alive = *s_alive;
-    stamp(p, t, 9);
+    alive = decoder_step(p, grid, s, t, nslice);
   }
   if (blockIdx.x == 0) {
-    for (int b = threadIdx.x; b < B; b += NT) p.mel_lengths[b] = s_mlen[b];
+    for (int b = threadIdx.x; b < B; b += NT) p.mel_lengths[b] = s.mlen[b];
     if (threadIdx.x == 0) p.n_steps[0] = t;
   }
 }
 
-}  // namespace
+// ---------------------------------------------------------------------
+// Segment kernel (replaces pallas_decoder.py::make_pallas_decoder_segment)
+// ---------------------------------------------------------------------
 
-extern "C" {
+// The carried stream state, in the order of the JAX kernel's st_shapes:
+// din (B, MR), ah / ac (B, H), dh / dc (B, Hd), ctx (B, E), aw / cum /
+// alpha (B, T), u (B); then not_finished and mel_lengths (B) as ints.
+enum SegField {
+  S_DIN, S_AH, S_AC, S_DH, S_DC, S_CTX, S_AW, S_CUM, S_ALPHA, S_U,
+  N_SEG_F
+};
+constexpr int N_SEG_PTRS = 2 * N_SEG_F + 4;   // in, out, nf/mlen in, out
 
-size_t decoder_loop_scratch_floats(const int* dims) {
-  return scratch_floats(dims);
+struct SegState {
+  const float* in[N_SEG_F];
+  float* out[N_SEG_F];
+  const int* nf_in; const int* mlen_in;
+  int* nf_out; int* mlen_out;
+};
+
+__device__ size_t seg_field_floats(const Params& p, int f) {
+  const size_t B = p.B;
+  switch (f) {
+    case S_DIN: return B * p.MR;
+    case S_AH: case S_AC: return B * p.H;
+    case S_DH: case S_DC: return B * p.Hd;
+    case S_CTX: return B * p.E;
+    case S_U: return B;
+    default: return B * p.T;                 // aw, cum, alpha
+  }
 }
 
-size_t decoder_loop_smem_bytes(const int* dims) { return smem_bytes(dims); }
-
-const char* decoder_loop_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+// The scratch buffer that holds field f for the state of double-buffer
+// index k (0 at entry, S & 1 after S steps).
+__device__ float* seg_field_ptr(const Params& p, int f, int k) {
+  switch (f) {
+    case S_DIN: return p.din;
+    case S_AH: return p.ah[k];
+    case S_AC: return p.ac[k];
+    case S_DH: return p.dh[k];
+    case S_DC: return p.dc[k];
+    case S_CTX: return p.ctx;
+    case S_AW: return p.aw;
+    case S_CUM: return p.cum[k];
+    case S_ALPHA: return p.alpha[k];
+    default: return p.u;
+  }
 }
 
-// Launch the whole decode on ``stream``; returns a cudaError_t code
-// (0 = launched).  ``ptrs``: N_PTRS device pointers in Ptr order, the
-// last (phase_ns) null unless the caller times the phases;
-// ``dims``: N_DIMS ints in Dim order; ``fparams``: {keep, threshold}.
-int decoder_loop_launch(const void* const* ptrs, const int* dims,
-                        const float* fparams, void* stream) {
-  Params p;
+// p.S fixed steps (the segment length) from the carried state, with no
+// early exit: rows past their gate keep computing, as in the JAX
+// segment kernel.  The carried u is already the agent of the step
+// before the segment, so the first step skips the deferred agent
+// (decoder_step passes t > 0), and after the last step a tail computes
+// that step's agent with the same device function before the state is
+// written out — without it the carried u would be one step stale and
+// every later segment would drift from the whole-loop kernel.
+__global__ void __launch_bounds__(NT)
+decoder_segment_kernel(Params p, SegState st) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem s = smem_views(p, smem_raw);
+  const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
+  const size_t gsize = (size_t)gridDim.x * NT;
+
+  for (int f = 0; f < N_SEG_F; ++f) {
+    const size_t n = seg_field_floats(p, f);
+    float* dst = seg_field_ptr(p, f, 0);
+    for (size_t i = gtid; i < n; i += gsize) dst[i] = __ldg(st.in[f] + i);
+  }
+  for (int b = threadIdx.x; b < p.B; b += NT) {
+    s.nf[b] = __ldg(st.nf_in + b);
+    s.mlen[b] = __ldg(st.mlen_in + b);
+  }
+  load_resident(p, s.wres);
+  grid.sync();
+
+  const int nslice = context_slices(p);
+  for (int t = 0; t < p.S; ++t) decoder_step(p, grid, s, t, nslice);
+
+  // every phase of the last step has passed its barrier: the state is
+  // final in buffer S & 1, and nothing reads the scratch u any more
+  const int fin = p.S & 1;
+  if (p.fwd && p.tagent) {
+    const int worker = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+    for (int b = worker; b < p.B; b += NW * gridDim.x)
+      agent_u(p, b, p.ah[fin], st.out[S_U]);
+  } else {
+    for (size_t i = gtid; i < (size_t)p.B; i += gsize)
+      st.out[S_U][i] = __ldcg(p.u + i);
+  }
+  for (int f = 0; f < S_U; ++f) {
+    const size_t n = seg_field_floats(p, f);
+    const float* src = seg_field_ptr(p, f, fin);
+    for (size_t i = gtid; i < n; i += gsize) st.out[f][i] = __ldcg(src + i);
+  }
+  if (blockIdx.x == 0) {
+    for (int b = threadIdx.x; b < p.B; b += NT) {
+      st.nf_out[b] = s.nf[b];
+      st.mlen_out[b] = s.mlen[b];
+    }
+  }
+}
+
+// Fill the kernel parameters from the C entry's arrays (see
+// decoder_loop_launch) and carve the scratch buffer.
+void fill_params(Params& p, const void* const* ptrs, const int* dims,
+                 const float* fparams) {
   p.enc = (const float*)ptrs[P_ENC];
   p.pin = (const float*)ptrs[P_PIN];
   p.mask = (const float*)ptrs[P_MASK];
@@ -799,11 +937,15 @@ int decoder_loop_launch(const void* const* ptrs, const int* dims,
   p.p2 = s; s += B * p.P;
   p.pq = s; s += B * p.A;
   p.e = s; s += B * p.T;
+}
 
+// One cooperative launch of ``kernel`` on ``stream``: two blocks an SM
+// where they fit, else one.  Returns a cudaError_t code.
+int launch_cooperative(const void* kernel, void** args, const int* dims,
+                       void* stream) {
   const size_t smem = smem_bytes(dims);
   cudaError_t e = cudaFuncSetAttribute(
-      decoder_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, n_sm = 0, coop = 0, occ = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -813,16 +955,69 @@ int decoder_loop_launch(const void* const* ptrs, const int* dims,
                                   dev)) != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, decoder_loop_kernel, NT, smem)) != cudaSuccess)
+           &occ, kernel, NT, smem)) != cudaSuccess)
     return (int)e;
   if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int grid = n_sm * (occ < 2 ? occ : 2);
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)decoder_loop_kernel,
-                                  dim3(grid), dim3(NT), args, smem,
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+extern "C" {
+
+size_t decoder_loop_scratch_floats(const int* dims) {
+  return scratch_floats(dims);
+}
+
+size_t decoder_loop_smem_bytes(const int* dims) { return smem_bytes(dims); }
+
+const char* decoder_loop_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Launch the whole decode on ``stream``; returns a cudaError_t code
+// (0 = launched).  ``ptrs``: N_PTRS device pointers in Ptr order, the
+// last (phase_ns) null unless the caller times the phases;
+// ``dims``: N_DIMS ints in Dim order; ``fparams``: {keep, threshold}.
+int decoder_loop_launch(const void* const* ptrs, const int* dims,
+                        const float* fparams, void* stream) {
+  Params p;
+  fill_params(p, ptrs, dims, fparams);
+  void* args[] = {&p};
+  return launch_cooperative((const void*)decoder_loop_kernel, args, dims,
+                            stream);
+}
+
+// Launch one segment of dims[D_S] steps on ``stream``; returns a
+// cudaError_t code.  ``ptrs``: the N_PTRS pointers of
+// decoder_loop_launch (mels, gates, aligns and the prenet masks sized by
+// the segment; mel_lengths and n_steps unused), then N_SEG_PTRS state
+// pointers: the N_SEG_F float fields in, the same out, then
+// not_finished in, mel_lengths in, not_finished out, mel_lengths out
+// (int32).  In and out must not overlap.
+int decoder_segment_launch(const void* const* ptrs, const int* dims,
+                           const float* fparams, void* stream) {
+  Params p;
+  fill_params(p, ptrs, dims, fparams);
+  SegState st;
+  const void* const* sp = ptrs + N_PTRS;
+  for (int f = 0; f < N_SEG_F; ++f) {
+    st.in[f] = (const float*)sp[f];
+    st.out[f] = (float*)sp[N_SEG_F + f];
+  }
+  st.nf_in = (const int*)sp[2 * N_SEG_F];
+  st.mlen_in = (const int*)sp[2 * N_SEG_F + 1];
+  st.nf_out = (int*)sp[2 * N_SEG_F + 2];
+  st.mlen_out = (int*)sp[2 * N_SEG_F + 3];
+  void* args[] = {&p, &st};
+  return launch_cooperative((const void*)decoder_segment_kernel, args, dims,
+                            stream);
+}
+
+int decoder_segment_n_ptrs(void) { return N_PTRS + N_SEG_PTRS; }
 
 }  // extern "C"

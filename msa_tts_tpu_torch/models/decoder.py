@@ -81,12 +81,23 @@ class Postnet(nn.Module):
         self.convolutions = nn.ModuleList(convs)
 
 
-def postnet_apply(postnet: Postnet, x):
+def postnet_apply(postnet: Postnet, x, *, width: int | None = None):
     """Eval-mode postnet on (B, n_mel, T): conv → BN → tanh (except the
-    last layer)."""
+    last layer).
+
+    ``width`` makes the stack behave as if the input were only ``width``
+    frames wide inside the T-frame buffer: every column at or past
+    ``width`` is zeroed before EVERY conv (past the first layer BN turns
+    them non-zero, so one mask up front is not enough).  Columns below
+    ``width`` of the result then equal the postnet of ``x[..., :width]``;
+    the streaming path runs each window at one padded width this way."""
     n = len(postnet.convolutions)
     pad = (postnet.kernel_size - 1) // 2
+    valid = (None if width is None
+             else torch.arange(x.shape[-1], device=x.device) < width)
     for i, conv_bn in enumerate(postnet.convolutions):
+        if valid is not None:
+            x = torch.where(valid, x, 0.0)
         conv = conv_bn[0].conv
         x = N.batchnorm1d(
             conv_bn[1], N.conv1d(x, conv.weight, conv.bias, padding=pad)
@@ -296,3 +307,59 @@ def decoder_infer(decoder: Decoder, cfg: DecoderConfig, encoder_outputs,
     return (*parse_decoder_outputs(cfg, mels, gates, aligns),
             s["mel_lengths"],
             torch.tensor(t, dtype=torch.int32, device=device))
+
+
+# --------------------------------------------------------------------------
+# Streaming (segmented) inference
+# --------------------------------------------------------------------------
+
+def decoder_stream_init(cfg: DecoderConfig, batch: int, t_in: int, *,
+                        device, dtype=torch.float32) -> dict:
+    """Initial carried state for segmented decoding: what
+    ``decoder_infer``'s loop carries, plus the absolute ``step``."""
+    return dict(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        decoder_input=torch.zeros(
+            batch, cfg.n_mel_channels * cfg.n_frames_per_step,
+            dtype=dtype, device=device,
+        ),
+        carry=_init_carry(cfg, batch, t_in, device=device, dtype=dtype),
+        not_finished=torch.ones(batch, dtype=torch.int32, device=device),
+        mel_lengths=torch.zeros(batch, dtype=torch.int32, device=device),
+    )
+
+
+@torch.no_grad()
+def decoder_infer_segment(decoder: Decoder, cfg: DecoderConfig,
+                          encoder_outputs, input_lengths, pre_masks,
+                          state: dict, n_seg: int):
+    """Run ``n_seg`` steps from ``state``, with no early exit: rows past
+    their gate keep computing, and the caller stops asking for segments.
+    The plain PyTorch version of the CUDA segment kernel
+    (``cuda_decoder.cuda_decoder_segment``).
+
+    ``pre_masks``: (n_seg, 2, B, P) raw 0/1 prenet masks for the
+    segment's steps.  Returns ``(new_state, mels (B, n_mel, n_seg·r),
+    gates (B, n_seg), alignments (B, n_seg, T_in))``.  Chained segments
+    run the same ops as ``decoder_infer`` and reproduce it exactly."""
+    B, T_in, _ = encoder_outputs.shape
+    MR = cfg.n_mel_channels * cfg.n_frames_per_step
+    device, dtype = encoder_outputs.device, encoder_outputs.dtype
+    mask = sequence_mask(input_lengths, T_in)
+    prep_fn, attn_step_fn = _attn_fns(cfg)
+    processed_inputs = prep_fn(decoder.attention_layer, encoder_outputs)
+
+    mels = torch.zeros(n_seg, B, MR, dtype=dtype, device=device)
+    gates = torch.zeros(n_seg, B, dtype=dtype, device=device)
+    aligns = torch.zeros(n_seg, B, T_in, dtype=dtype, device=device)
+    s = {k: state[k] for k in
+         ("decoder_input", "carry", "not_finished", "mel_lengths")}
+    for t in range(n_seg):
+        s, (mels[t], gates[t], aligns[t]) = _infer_step(
+            decoder, cfg, attn_step_fn, encoder_outputs,
+            processed_inputs, mask, pre_masks[t], s,
+        )
+    s["step"] = state["step"] + n_seg
+    mel_outputs, _, alignments = parse_decoder_outputs(cfg, mels, gates,
+                                                       aligns)
+    return s, mel_outputs, gates.transpose(0, 1), alignments

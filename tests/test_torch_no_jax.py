@@ -1,6 +1,7 @@
 """The port imports no jax: in a fresh interpreter where ``import jax``
-fails, every ``msa_tts_tpu_torch`` module imports and the tiny CPU slice
-runs from text to a wav file."""
+fails, every ``msa_tts_tpu_torch`` module imports (serving, stream_mux
+and server among them), the tiny CPU slice runs from text to a wav
+file, and one stream and one multiplexed stream run to their end."""
 
 import os
 import subprocess
@@ -46,6 +47,22 @@ tts = AdaptiveTTS({"model": mp, "audio_params": audio}, model)
 wav = tts.synthesize("hello world", spk_emb=np.zeros(8, np.float32))
 assert wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all()
 save_wav(sys.argv[1], wav, audio["sample_rate"])
+
+from msa_tts_tpu_torch import server, stream_mux
+assert {"msa_tts_tpu_torch.serving", "msa_tts_tpu_torch.stream_mux",
+        "msa_tts_tpu_torch.server"} <= set(names)
+emb = np.zeros(8, np.float32)
+solo = np.concatenate(list(tts.synthesize_stream(
+    "hello world", spk_emb=emb, segment_steps=5, text_pad_multiple=16)))
+mux = stream_mux.StreamMultiplexer(tts, n_slots=2, t_cap=16,
+                                   segment_steps=5)
+try:
+    muxed = np.concatenate(list(mux.stream("hello world", spk_emb=emb)))
+finally:
+    mux.close()
+assert solo.shape == muxed.shape and len(solo) > 0
+assert np.isfinite(muxed).all()
+assert server.TTSServer(tts, default_spk_emb=emb).servable_vocoders()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert bad == ["jax"], bad       # only the blocked placeholder
 print("modules", len(names))
