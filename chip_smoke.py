@@ -19,13 +19,26 @@ Phases (any failure exits non-zero):
   6. multiplex four staggered streams through ``StreamMultiplexer``:
      each equals its solo stream and agrees with the same stream decoded
      by the plain segment, one launch per tick;
-  7. serve /synthesize and /synthesize_stream from ``TTSServer``.
+  7. serve /synthesize and /synthesize_stream from ``TTSServer``;
+  8. hold the WaveRNN sample-loop kernel against its plain PyTorch
+     version at the default width (B = 44 folds, T = 3,850 samples), f32
+     and bf16 weights, mixture-of-logistics and Gaussian outputs;
+  9. serve requests, a batch and a stream through ``AdaptiveTTS`` with a
+     WaveRNN and a HiFi-GAN (v1) attached: lengths, ranges, one
+     sample-loop launch per vocoded call, a batch row against its solo
+     vocoding;
+ 10. hold the LSTM-cell kernel against its plain version (B = 16,
+     H = 1024) and run its 400-step scan.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel with its launches on its main
-path (phase 3 for the whole loop, phase 5 for the segments), its error
-against the plain version and both times.
+path (phase 3 for the whole loop, phase 5 for the segments, phase 9 for
+the sample loop, phase 10's scan for the cell), its error against the
+plain version, both times, and the least time the card could take for
+the same work (``bound_ms``: the larger of bytes over 3.35 TB/s and
+operations over the peak rate of their type, weights counted once per
+step where a step must read them all again).
 """
 
 from __future__ import annotations
@@ -85,6 +98,11 @@ SHIPPED_AUDIO = {
     "win_length": 1024,
 }
 
+# the card's published peaks (NVIDIA H100 SXM data sheet)
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
 ATOL = 1e-4          # kernel vs plain, f32, first CHECK_STEPS steps
 CHECK_STEPS = 64
 T_IN = 120
@@ -100,6 +118,30 @@ def _gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def _bound(n_bytes: float, n_ops: float, peak_flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate
+    and operations over the peak rate of their type."""
+    t_b, t_o = n_bytes / HBM_BPS, n_ops / peak_flops
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _decoder_bound(tts, B: int, S: int, *io):
+    """Decoder kernels: every step reads all packed weights again (82 MB
+    in f32 at the shipped width, more than the L2 holds) and does two
+    operations per weight and row; ``io`` are the launch's other inputs
+    and outputs, counted once."""
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+
+    w = CD._packed_params(tts.model.decoder, tts.cfg.decoder_config())
+    n_w = sum(t.numel() for t in w.values())
+    return _bound(S * 4.0 * n_w + _nbytes(*io), S * 2.0 * n_w * B,
+                  F32_FLOPS)
 
 
 def _time_ms(fn, n: int) -> float:
@@ -162,8 +204,12 @@ def kernel_vs_plain(tts, device, seed: int = 0) -> dict:
             lambda: decoder_infer(decoder, dcfg, enc, lens, masks), 1
         )
         res["ms"], res["plain_ms"] = k_ms, p_ms
+        res["bound_ms"], res["bound_by"] = _decoder_bound(
+            tts, B, S, enc, masks, *kern[:3])
         print(f"  B={B}: kernel {1e3 * k_ms / S:.1f} us/step, plain "
-              f"{1e3 * p_ms / S:.1f} us/step ({S} steps, T_in {T_IN})")
+              f"{1e3 * p_ms / S:.1f} us/step, bound "
+              f"{1e3 * res['bound_ms'] / S:.1f} us/step by "
+              f"{res['bound_by']} ({S} steps, T_in {T_IN})")
 
     # early stopping at B = 4 on the same inputs: shift the gate bias (the
     # gate does not feed back, so the trajectory is unchanged) so that
@@ -332,6 +378,8 @@ def segment_vs_plain(tts, device, gate_bias0, seed: int = 1) -> dict:
                 decoder, dcfg, enc, lens, masks), 3)
             p_ms = _time_ms(lambda: plain_chain(enc, lens, masks), 1)
             res["ms"], res["plain_ms"] = k_ms, p_ms
+            res["bound_ms"], res["bound_by"] = _decoder_bound(
+                tts, B, S, enc, masks, *kern[:3])
             print(f"  B={B}: segment kernel {1e3 * k_ms / S:.1f} us/step "
                   f"({n_launch} launches of <= {SEG} steps), whole-loop "
                   f"kernel {1e3 * w_ms / S:.1f}, plain segment "
@@ -581,6 +629,411 @@ def http_server(tts, device) -> None:
         server.stop()
 
 
+# --------------------------------------------------------------------
+# Phases 8-10: the vocoder kernels
+# --------------------------------------------------------------------
+
+GEN_B, GEN_T = 44, 3850   # folds of a ~6 s utterance; target + 2·overlap
+GEN_RUN_ATOL = 1e-4       # f32, whole run: the summation orders differ
+                          # and the loop feeds that back 3,850 times
+GEN_FLIP = 1e-3           # a row "left" the plain trajectory beyond this
+# bf16 weights round every product's input to bf16, where a last-bit
+# difference of the f32 sums moves a value by 2^-8 relative, and in the
+# mixture output such a jump can change the chosen component.  So: a
+# looser bound over the first steps for the Gaussian output (no discrete
+# choice), and for both outputs over the whole run the share of samples
+# beyond GEN_FLIP (a row that leaves comes back within a few steps; a
+# quarter of the rows leave at least once in 3,850 steps, so the count
+# of rows that ever left says nothing here)
+GEN_BF16_ATOL = 2e-2
+GEN_BF16_SHARE = 5e-3
+# fewer than 16 rows (a stream window folds to 8): one row's excursion of
+# ~100 samples is already 3e-3 of the run, so the share gets more room;
+# the f32 comparison at the same rows is the tight one
+GEN_BF16_SHARE_FEW = 2e-2
+# HiFi-GAN v1 (the JAX package's serving benchmark's generator)
+HIFIGAN_V1 = dict(
+    resblock="1", upsample_rates=[8, 8, 2, 2],
+    upsample_kernel_sizes=[16, 16, 4, 4], upsample_initial_channel=512,
+    resblock_kernel_sizes=[3, 7, 11],
+    resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+)
+
+
+def _gen_bound(w: dict, B: int, T: int, bf16: bool, *io):
+    """Sample loop: two operations per matrix weight, row and step.  Its
+    bytes are each input once: the weights too (15 MB in f32 at the
+    default width, which the 50 MB L2 or the SMs' shared memory can hold
+    for the whole launch, so no step has to read them from HBM again),
+    the conditioning and noise streams, and the output (``io``)."""
+    from msa_tts_tpu_torch.vocoders.cuda_gen import _MATRICES
+
+    n_mat = sum(w[k].numel() for k in _MATRICES if w[k] is not None)
+    held = [t for t in w.values() if t is not None]
+    return _bound(_nbytes(*held, *io), T * 2.0 * n_mat * B,
+                  BF16_FLOPS if bf16 else F32_FLOPS)
+
+
+def _judge_gen(kern, plain, mode: str, tag: str, label: str) -> float:
+    """Hold the kernel's samples (rows, T) against the plain loop's from
+    the same inputs; returns max |d| over the first CHECK_STEPS steps.
+    f32: (a) every row within ATOL over the first steps, (b) the
+    Gaussian output within GEN_RUN_ATOL over the whole run, (c) at most
+    max(1, 2 %) of the rows ever beyond GEN_FLIP (the mixture choice is
+    discrete: a near tie may flip).  bf16: the Gaussian output within
+    GEN_BF16_ATOL over the first steps, and the share of samples beyond
+    GEN_FLIP over the whole run (GEN_BF16_SHARE, or GEN_BF16_SHARE_FEW
+    below 16 rows)."""
+    import torch
+
+    if kern.shape != plain.shape:
+        raise AssertionError(f"{label}: shapes {tuple(kern.shape)} and "
+                             f"{tuple(plain.shape)}")
+    if not torch.isfinite(kern).all() or kern.abs().max() > 1.0:
+        raise AssertionError(f"{label}: samples not finite or outside "
+                             "[-1, 1]")
+    B, n = kern.shape[0], CHECK_STEPS
+    d = (kern - plain).abs()
+    head, whole = float(d[:, :n].max()), float(d.max())
+    over = d > GEN_FLIP
+    rows = over.any(dim=1)
+    firsts = sorted(int(over[b].float().argmax())
+                    for b in range(B) if rows[b])
+    share = float(over.float().mean())
+    print(f"  {label}: {B} rows, max|d| first {n} steps {head:.3e}, whole "
+          f"run {whole:.3e}; rows ever beyond {GEN_FLIP}: "
+          f"{int(rows.sum())}/{B} (first steps {firsts[:12]}), share of "
+          f"samples beyond it {share:.2e}")
+    if tag == "f32":
+        if not head <= ATOL:
+            raise AssertionError(f"{label} first steps: {head}")
+        if mode == "GAUSS" and not whole <= GEN_RUN_ATOL:
+            raise AssertionError(f"{label} whole run: {whole}")
+        if int(rows.sum()) > max(1, int(0.02 * B)):
+            raise AssertionError(f"{label}: {int(rows.sum())} rows of {B} "
+                                 "left the plain trajectory")
+    else:
+        if mode == "GAUSS" and not head <= GEN_BF16_ATOL:
+            raise AssertionError(f"{label} first steps: {head}")
+        limit = GEN_BF16_SHARE if B >= 16 else GEN_BF16_SHARE_FEW
+        if not share <= limit:
+            raise AssertionError(f"{label}: share {share} > {limit}")
+    return head
+
+
+def gen_kernel_vs_plain(device, seed: int = 0) -> dict:
+    """Phase 8: the sample-loop kernel against the plain loop at the
+    default WaveRNN width, from seeded weights, conditioning and noise."""
+    import torch
+
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    B, T = GEN_B, GEN_T
+    res = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0}
+    inputs = {}
+    for mode in ("MOL", "GAUSS"):
+        cfg = W.WaveRNNConfig(mode=mode)
+        g = torch.Generator().manual_seed(seed)
+        model = W.WaveRNNModel(cfg, g).to(device)
+        mels_up = torch.randn(B, T, cfg.n_mels, generator=g).to(device)
+        aux = torch.randn(B, T, cfg.res_out_dims, generator=g).to(device)
+        n1, n2 = W.generation_noise(cfg, g, T, B, device=device)
+        for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+            gp = W.cast_generation_params(model, dtype)
+            ist, ar = W.hoisted_inputs(gp, cfg, mels_up, aux)
+            w = G.kernel_weights(gp, cfg)
+            inputs[mode, tag] = (cfg, gp, w, ist, ar, n1, n2)
+            kern = G.cuda_generate(w, cfg, ist, ar, n1, n2)
+            torch.cuda.synchronize()
+            k_ms = _time_ms(
+                lambda: G.cuda_generate(w, cfg, ist, ar, n1, n2), 2)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = W.sample_loop(gp, cfg, ist, ar, n1, n2)
+            end.record()
+            torch.cuda.synchronize()
+            p_ms = start.elapsed_time(end)
+            b_ms, b_by = _gen_bound(w, B, T, dtype is not None, ist, ar,
+                                    n1, n2, kern)
+            print(f"  {mode} {tag}: kernel {1e3 * k_ms / T:.1f} us/step, "
+                  f"plain {1e3 * p_ms / T:.1f} us/step, bound "
+                  f"{1e3 * b_ms / T:.2f} us/step by {b_by} ({T} steps)")
+            head = _judge_gen(kern, plain, mode, tag, f"{mode} {tag}")
+            key = "max_abs_err" if tag == "f32" else "max_abs_err_bf16"
+            res[key] = max(res[key], head)
+            if mode == "MOL":
+                res[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                bound_by=b_by)
+
+    # other batches, MOL: one row, the fold rows the serving phase gives
+    # the kernel (a stream window 8, a 1,000-frame request 80, a batch of
+    # four 320), and the folds of four ~6 s utterances
+    cfg, gp, w, ist, ar, n1, n2 = inputs["MOL", "f32"]
+    _, gpb, wb, _, _, _, _ = inputs["MOL", "bf16"]
+    t_plain = 200
+    for B2 in (1, 8, 80, 4 * GEN_B, 320):
+        reps = -(-B2 // B)
+        big = [x.repeat(1, reps, *([1] * (x.dim() - 2)))[:, :B2].contiguous()
+               for x in (ist, ar, n1, n2)]
+        line = f"  MOL B={B2}:"
+        for tag, ww, pp in (("f32", w, gp), ("bf16", wb, gpb)):
+            k_ms = _time_ms(lambda: G.cuda_generate(ww, cfg, *big), 1)
+            p_ms = _time_ms(lambda: W.sample_loop(
+                pp, cfg, *(x[:t_plain] for x in big)), 1)
+            line += (f" {tag} kernel {1e3 * k_ms / T:.1f} us/step, plain "
+                     f"{1e3 * p_ms / t_plain:.1f} us/step (plain over "
+                     f"{t_plain} steps);")
+        print(line)
+    return res
+
+
+def serve_vocoders(tts, device) -> int:
+    """Phase 9: one request, one batch of four and one stream per neural
+    vocoder through ``AdaptiveTTS`` (cuda decode, cuda sample loop, bf16
+    sample-loop weights as by default); returns the sample-loop kernel's
+    launches on that path.  Then, outside that count: the kernel at the
+    fold rows this path gave it against the plain loop, a batch row
+    against its solo vocoding, and a request's stages."""
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders.hifigan import Generator, HiFiGAN
+    from msa_tts_tpu_torch.vocoders.wavernn import (
+        WaveRNN,
+        WaveRNNConfig,
+        _fold_counts,
+        generation_noise,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    wcfg = WaveRNNConfig()
+    voc = WaveRNN(cfg=wcfg, generator=g, gen_backend="cuda", device=device)
+    tts.attach_vocoder("wavernn", voc)
+    tts.attach_vocoder("hifigan", HiFiGAN.from_params(
+        Generator(HIFIGAN_V1, SHIPPED_AUDIO["n_mels"], g), HIFIGAN_V1))
+    emb = np.random.default_rng(0).standard_normal(
+        tts.cfg.speaker_embedding_dim).astype(np.float32)
+    hop, sr = SHIPPED_AUDIO["hop_length"], SHIPPED_AUDIO["sample_rate"]
+    n_frames = tts.cfg.max_decoder_steps * tts.cfg.n_frames_per_step
+    want = {"wavernn": (n_frames - 1) * hop, "hifigan": n_frames * hop}
+    target, overlap = 2_750, 550        # generate_batch's defaults
+    L = target + 2 * overlap
+
+    def check(w, name):
+        if (w.shape != (want[name],) or not np.isfinite(w).all()
+                or np.abs(w).max() > 1.0):
+            raise AssertionError(f"{name}: wav of shape {w.shape} (want "
+                                 f"{want[name]}), not finite or outside "
+                                 "[-1, 1]")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def draw(seed, n_frames_):
+        """One utterance's noise for a mel of that many frames."""
+        _, n_pad = _fold_counts(-(-n_frames_ // 32) * 32 * hop, target,
+                                overlap)
+        return generation_noise(wcfg, torch.Generator().manual_seed(seed),
+                                L, n_pad, device=device)
+
+    # the per-utterance WaveRNN noise of the batch, drawn here so that a
+    # row can be vocoded again alone from the same noise
+    noises = [draw(100 + i, n_frames) for i in range(len(TEXTS))]
+
+    # ---- the main path: every launch from here to the count is served
+    G.GEN_LAUNCHES = 0
+    calls = 0
+    for name in ("wavernn", "hifigan"):
+        w, dt = timed(lambda: tts.synthesize(TEXTS[0], spk_emb=emb, seed=0,
+                                             vocoder=name))
+        check(w, name)
+        calls += name == "wavernn"
+        print(f"  {name} synthesize: {dt:.3f} s wall, {len(w)} samples, "
+              f"real-time factor {len(w) / sr / dt:.2f}")
+        kw = {"voc_noise": noises} if name == "wavernn" else {}
+        batch, dt = timed(lambda: tts.synthesize_batch(
+            TEXTS, spk_emb=emb, seed=2, vocoder=name, **kw))
+        for w in batch:
+            check(w, name)
+        calls += name == "wavernn"
+        n = sum(len(w) for w in batch)
+        print(f"  {name} synthesize_batch x{len(TEXTS)}: {dt:.3f} s wall, "
+              f"aggregate real-time factor {n / sr / dt:.2f}")
+        if G.GEN_LAUNCHES != calls:
+            raise AssertionError(f"{G.GEN_LAUNCHES} sample-loop launches "
+                                 f"after {calls} WaveRNN calls")
+        if name == "wavernn":
+            wavernn_batch = batch
+    for name in ("wavernn", "hifigan"):
+        before = G.GEN_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n, t_first, n_chunks = 0, None, 0
+        for chunk in tts.synthesize_stream(TEXTS[1], spk_emb=emb, seed=1,
+                                           vocoder=name, segment_steps=SEG):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            if not np.isfinite(chunk).all() or np.abs(chunk).max() > 1.0:
+                raise AssertionError(f"{name} stream: bad chunk")
+            n += len(chunk)
+            n_chunks += 1
+        wall = time.perf_counter() - t0
+        windows = G.GEN_LAUNCHES - before
+        print(f"  {name} stream: first chunk {1e3 * t_first:.1f} ms, "
+              f"{n_chunks} chunks, {n} samples in {wall:.3f} s, real-time "
+              f"factor {n / sr / wall:.2f}; {windows} sample-loop launches")
+        if n != want[name] or windows != (n_chunks if name == "wavernn"
+                                          else 0):
+            raise AssertionError(f"{name} stream: {n} samples (want "
+                                 f"{want[name]}), {windows} launches for "
+                                 f"{n_chunks} windows")
+    launches = G.GEN_LAUNCHES
+    print(f"  sample-loop launches on the served path: {launches} (2 calls "
+          f"and {launches - 2} stream windows)")
+
+    # ---- comparisons, not counted above
+    # the kernel at the fold rows that path gave it (a 72-frame stream
+    # window, a request, the batch of four) against the plain loop: the
+    # same weights, mels and noise through a twin with gen_backend
+    # "torch", compared on the folded samples before the crossfade
+    mels = [torch.as_tensor(m).to(device) for m in tts.synthesize_batch(
+        TEXTS, spk_emb=emb, seed=2, vocoder="none")]
+    window = mels[1][:, :72].contiguous()
+    cases = (("stream window", [window], [draw(200, 72)]),
+             ("request", mels[:1], noises[:1]),
+             ("batch of 4", mels, noises))
+    for gen_dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        pair = [WaveRNN(voc.model, wcfg, gen_dtype=gen_dtype,
+                        gen_backend=backend, device=device)
+                for backend in ("cuda", "torch")]
+        for label, ms, ns in cases:
+            padded, _ = voc._pad_batch(ms)
+            (kern, nf), (plain, _) = (
+                v._run_folded(padded, target, overlap, ns) for v in pair)
+            _judge_gen(kern.flatten(0, 1), plain.flatten(0, 1), wcfg.mode,
+                       tag, f"{label}, {tag}, kernel vs plain loop")
+    # each row of the batch against its own mel vocoded alone from the
+    # same noise: the kernel's rows do not depend on the batch, so only
+    # the upsampling network's batch size differs
+    for i, mel in enumerate(mels):
+        solo = tts._vocode([mel], "wavernn", None,
+                           voc_noise=noises[i: i + 1])[0]
+        d = np.abs(solo - wavernn_batch[i])
+        share = float((d > GEN_FLIP).mean())
+        print(f"  wavernn batch row {i} vs solo: max|d| {d.max():.3e}, "
+              f"share of samples beyond {GEN_FLIP}: {share:.2e} "
+              f"(tolerance {GEN_BF16_SHARE})")
+        if solo.shape != wavernn_batch[i].shape or share > GEN_BF16_SHARE:
+            raise AssertionError(f"batched wavernn row {i} differs from "
+                                 "its solo vocoding")
+    # where a vocoded request's time goes (warm): the decode, then the
+    # vocoder's stages, each closed by a device synchronisation
+    _, t_mel = timed(lambda: tts.synthesize(TEXTS[0], spk_emb=emb, seed=0,
+                                            vocoder="none"))
+    mel = mels[0]
+    n_pad = noises[0][1].shape[1]
+    g1 = torch.Generator().manual_seed(7)
+    noise, t_noise = timed(lambda: generation_noise(wcfg, g1, L, n_pad,
+                                                    device=device))
+    padded, _ = voc._pad_batch([mel])
+    _, t_dev = timed(lambda: voc._run_folded(padded, target, overlap,
+                                             [noise]))
+    _, t_all = timed(lambda: voc.generate_batch([mel], noises=[noise],
+                                                verbose=False))
+    _, t_hifi = timed(lambda: tts._vocode([mel], "hifigan", None))
+    print(f"  stages of one request, s: text to mel {t_mel:.4f}; WaveRNN "
+          f"noise draw on the host and copy {t_noise:.4f}, upsample + fold "
+          f"+ sample loop ({n_pad} rows) {t_dev:.4f}, the whole "
+          f"generate_batch with noise given {t_all:.4f} (copy back and "
+          f"crossfade {t_all - t_dev:.4f}); HiFi-GAN {t_hifi:.4f}")
+    return launches
+
+
+def lstm_cell_vs_plain(device, seed: int = 0) -> dict:
+    """Phase 10: the LSTM-cell kernel against its plain version at
+    B = 16, H = 1024, f32 and bf16 weights, then its 400-step scan; and
+    the time of the library's kernels for the same function on the same
+    inputs: the product ``h @ w_hh_t`` (cuBLAS) and the fused pointwise
+    LSTM cell that ``nn.LSTMCell`` runs after its products, given
+    ``x_proj`` as the input gates, so no input product is done."""
+    import torch
+
+    from msa_tts_tpu_torch.experimental import cuda_lstm_cell as C
+
+    B, H, T = 16, 1024, 400
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.randn(T, B, 4 * H, generator=g).to(device)
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(device)
+    h0, c0 = (torch.randn(B, H, generator=g).to(device) for _ in range(2))
+    res = {}
+    for ww, tag, tol in ((w, "f32", 1e-5), (w.to(torch.bfloat16), "bf16",
+                                            1e-5)):
+        hk, ck = C.cuda_lstm_cell(xs[0], h0, c0, ww)
+        torch.cuda.synchronize()
+        hr, cr = C.lstm_cell_reference(xs[0], h0, c0, ww)
+        err = max(float((hk - hr).abs().max()), float((ck - cr).abs().max()))
+        print(f"  cell {tag}: max|d| {err:.3e} (tolerance {tol}; the plain "
+              "version rounds the same h and weights, sums in f32)")
+        if not err <= tol:
+            raise AssertionError(f"lstm cell {tag}: {err} > {tol}")
+        res[f"max_abs_err_{tag}"] = err
+    res["max_abs_err"] = res.pop("max_abs_err_f32")
+
+    C.CELL_LAUNCHES = 0
+    hs, (hT, cT) = C.lstm_scan(xs, h0, c0, w)
+    torch.cuda.synchronize()
+    res["launches"] = C.CELL_LAUNCHES
+    hp, (hpT, cpT) = C.lstm_scan(xs, h0, c0, w, backend="torch")
+    err = max(float((hs - hp).abs().max()), float((cT - cpT).abs().max()))
+    print(f"  scan of {T} steps: {res['launches']} launches, max|d| vs the "
+          f"plain scan {err:.3e} (tolerance 1e-4)")
+    if res["launches"] != T or not err <= 1e-4:
+        raise AssertionError("lstm scan: launches or values are off")
+
+    def library_cell(x_proj, h, c, w_hh_t):
+        hy, cy, _ = torch.ops.aten._thnn_fused_lstm_cell(
+            x_proj, torch.mm(h, w_hh_t), c)
+        return hy, cy
+
+    out = (torch.empty_like(h0), torch.empty_like(c0))
+    with torch.no_grad():
+        for ww, tag in ((w, "f32"), (w.to(torch.bfloat16), "bf16")):
+            k_ms = _time_ms(lambda: C.lstm_scan(xs, h0, c0, ww), 3) / T
+            p_ms = _time_ms(lambda: C.lstm_scan(xs, h0, c0, ww,
+                                                backend="torch"), 3) / T
+            lib = C._validate(xs[0], h0, c0, ww, *out)
+            one_ms = _time_ms(
+                lambda: C._launch(lib, xs[0], h0, c0, ww, *out), 2000)
+            b_ms, b_by = _bound(
+                _nbytes(ww, xs[0], h0, c0, h0, c0), 8.0 * H * H * B,
+                F32_FLOPS if tag == "f32" else BF16_FLOPS)
+            print(f"  {tag}: kernel in the scan {1e3 * k_ms:.1f} us/step, "
+                  f"plain scan {1e3 * p_ms:.1f} us/step, kernel launched "
+                  f"back to back {1e3 * one_ms:.1f} us, bound "
+                  f"{1e3 * b_ms:.2f} us by {b_by}")
+            if tag == "f32":
+                res.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, back_to_back_ms=one_ms)
+        hl, cl = library_cell(xs[0], h0, c0, w)
+        hr, cr = C.lstm_cell_reference(xs[0], h0, c0, w)
+        err = max(float((hl - hr).abs().max()), float((cl - cr).abs().max()))
+        if not err <= 1e-5:
+            raise AssertionError(f"the library's cell computes another "
+                                 f"function: {err}")
+        res["library_ms"] = _time_ms(
+            lambda: library_cell(xs[0], h0, c0, w), 2000)
+    print(f"  torch.mm + aten._thnn_fused_lstm_cell (f32, the same work): "
+          f"{1e3 * res['library_ms']:.1f} us per call")
+    return res
+
+
 TEXTS = [
     "The birch canoe slid on the smooth planks.",
     "Glue the sheet to the dark blue background.",
@@ -665,6 +1118,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
+    build.prebuild(["decoder_loop", "wavernn_loop", "lstm_cell"])
     CD._lib()
     print(f"phase 1: kernels built/loaded in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -711,6 +1165,18 @@ def main() -> int:
     print("phase 7: HTTP server with stream_multiplex=4")
     http_server(tts, device)
     print(gpu)
+    print(f"phase 8: WaveRNN sample-loop kernel vs plain PyTorch at the "
+          f"default width (B {GEN_B}, T {GEN_T})")
+    gk = gen_kernel_vs_plain(device)
+    print(gpu)
+    print("phase 9: serve with WaveRNN and HiFi-GAN attached (cuda decode, "
+          "cuda sample loop)")
+    gen_launches = serve_vocoders(tts, device)
+    print(gpu)
+    print("phase 10: LSTM-cell kernel vs plain PyTorch (B 16, H 1024) and "
+          "its 400-step scan")
+    ck = lstm_cell_vs_plain(device)
+    print(gpu)
 
     print(json.dumps({"kernels": [{
         "name": "decoder_loop",
@@ -721,6 +1187,9 @@ def main() -> int:
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,
     }, {
         "name": "decoder_segment",
         "route": "cuda",
@@ -730,6 +1199,28 @@ def main() -> int:
         "max_abs_err": sk["max_abs_err"],
         "ms": sk["ms"],
         "plain_ms": sk["plain_ms"],
+        "bound_ms": sk["bound_ms"],
+        "bound_by": sk["bound_by"],
+        "library_ms": None,
+    }, {
+        # the serving path's type: bf16 weight matrices, B 44, T 3,850
+        "name": "wavernn_loop",
+        "route": "cuda",
+        "source": "msa_tts_tpu_torch/csrc/wavernn_loop.cu",
+        "replaces": "msa_tts_tpu/vocoders/pallas_gen.py:228",
+        "launches": gen_launches,
+        "max_abs_err": gk["max_abs_err"],
+        "max_abs_err_bf16": gk["max_abs_err_bf16"],
+        **gk["bf16"],
+        "library_ms": None,
+        "f32": gk["f32"],
+    }, {
+        # one launch is one step: B 16, H 1024, f32, inside the scan
+        "name": "lstm_cell",
+        "route": "cuda",
+        "source": "msa_tts_tpu_torch/csrc/lstm_cell.cu",
+        "replaces": "msa_tts_tpu/experimental/pallas_lstm_cell.py:87",
+        **ck,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -51,6 +51,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 
+def _start_build(name: str, so: Path):
+    """Start nvcc for ``csrc/<name>.cu``; returns (process, tmp, t0)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish_build(name: str, so: Path, proc, tmp: Path, t0: float) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}\n{err}")
+    os.replace(tmp, so)
+    build_log[name] = (time.perf_counter() - t0, out + err)
+
+
+def prebuild(names) -> None:
+    """Build every named kernel that has no library yet, one nvcc each,
+    all started together.  A failed build raises with the compiler's
+    output."""
+    with _lock:
+        jobs = []
+        for name in names:
+            so = library_path(name)
+            if name not in _loaded and not so.exists():
+                jobs.append((name, so, *_start_build(name, so)))
+        errors = []
+        for job in jobs:               # wait for every compiler started
+            try:
+                _finish_build(*job)
+            except RuntimeError as e:
+                errors.append(e)
+        if errors:
+            raise errors[0]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its hash has no library yet, then load
     it.  A failed build raises with the compiler's output."""
@@ -60,19 +99,7 @@ def load(name: str) -> ctypes.CDLL:
             return lib
         so = library_path(name)
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name}.cu:\n{res.stdout}\n{res.stderr}"
-                )
-            os.replace(tmp, so)
-            build_log[name] = (time.perf_counter() - t0,
-                               res.stdout + res.stderr)
+            _finish_build(name, so, *_start_build(name, so))
         lib = ctypes.CDLL(str(so))
         _loaded[name] = lib
         return lib

@@ -188,6 +188,30 @@ def griffinlim_logmelspec(log_melspec, audio_params: dict, *,
     )
 
 
+def load_wav(path: str, target_sample_rate: int | None = None) -> np.ndarray:
+    """Load a wav file's first channel, normalised to peak 1.0, resampled
+    (scipy polyphase) when its rate differs from ``target_sample_rate``."""
+    import math
+
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path)
+    data = np.asarray(data, dtype=np.float32)
+    if data.ndim == 2:
+        data = data[:, 0]
+    peak = np.max(np.abs(data))
+    if peak > 0:
+        data = data / peak
+    if target_sample_rate is not None and sr != target_sample_rate:
+        from scipy.signal import resample_poly
+
+        g = math.gcd(int(target_sample_rate), int(sr))
+        data = resample_poly(
+            data, int(target_sample_rate) // g, int(sr) // g
+        ).astype(np.float32)
+    return data
+
+
 def save_wav(path: str, wav, sample_rate: int) -> None:
     """Write a 16-bit PCM wav, peak-normalised when it would clip."""
     from scipy.io import wavfile

@@ -1,4 +1,4 @@
-"""Recurrent cells and the masked BiLSTM (counterpart of
+"""Recurrent cells (LSTM, GRU) and the masked BiLSTM (counterpart of
 ``msa_tts_tpu/ops/rnn.py``).
 
 Parameters keep the torch layout (``weight_ih`` (4H, in), gates ordered
@@ -54,3 +54,43 @@ def bilstm(lstm: nn.LSTM, x, lengths):
     out, _ = lstm(packed)
     out, _ = pad_packed_sequence(out, batch_first=True, total_length=T)
     return out
+
+
+# ------------------------------------------------------------------- GRU
+
+@torch.no_grad()
+def init_gru_(module: nn.Module, generator: torch.Generator):
+    """U(±1/√H) on every weight and bias of an ``nn.GRU(Cell)``, the
+    JAX package's ``init_gru_cell`` distribution."""
+    return init_lstm_(module, generator)
+
+
+def _gru_update(gi, gh, h):
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * h
+
+
+def gru_cell(weight_ih, weight_hh, bias_ih, bias_hh, x, h):
+    """One GRU step (torch gate order r, z, n).  ``x``: (B, in);
+    ``h``: (B, H); weights in the torch (3H, in) layout."""
+    return _gru_update(x @ weight_ih.T + bias_ih,
+                       h @ weight_hh.T + bias_hh, h)
+
+
+def gru(rnn: nn.GRU, x, h0=None):
+    """Unidirectional GRU over (B, T, D) → (B, T, H) with one hoisted
+    input projection, written out step by step as the JAX package's
+    scan is.  ``rnn`` is a one-layer ``nn.GRU`` (its ``*_l0`` weights)."""
+    B, T, _ = x.shape
+    gi = x @ rnn.weight_ih_l0.T + rnn.bias_ih_l0           # (B, T, 3H)
+    h = h0 if h0 is not None else x.new_zeros(B, rnn.hidden_size)
+    outs = []
+    for t in range(T):
+        gh = h @ rnn.weight_hh_l0.T + rnn.bias_hh_l0
+        h = _gru_update(gi[:, t], gh, h)
+        outs.append(h)
+    return torch.stack(outs, dim=1)

@@ -428,11 +428,11 @@ class TTSServer:
 
     # ------------------------------------------------------ device call
     def servable_vocoders(self) -> set:
-        """Vocoders this server can return as audio: Griffin-Lim (the
-        neural vocoders are not ported yet).  The library-level
-        ``"none"`` (raw mel) is excluded: flattened mel bytes under an
-        audio/wav content type would be well-formed garbage."""
-        return {"griffinlim"}
+        """Vocoders this server can return as audio: Griffin-Lim always,
+        plus whatever was attached.  The library-level ``"none"`` (raw
+        mel) is excluded: flattened mel bytes under an audio/wav content
+        type would be well-formed garbage."""
+        return {"griffinlim"} | set(self.tts._vocoders)
 
     def _resolve_voice(self, voice_name):
         """Voice-name → (Voice | None, default spk_emb | None); raises

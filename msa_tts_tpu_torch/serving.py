@@ -7,18 +7,21 @@ of ``msa_tts_tpu/serving.py``).
     for chunk in tts.synthesize_stream("Hello there.", spk_emb=dvec):
         ...
 
-Text → phonemes (the JAX package's jax-free G2P) → Tacotron-2 with the
-decoder loop as the CUDA kernel on a GPU (its plain PyTorch version on
-the CPU) → Griffin-Lim.  ``synthesize_stream`` runs the decoder in
+Text → phonemes (``utils/g2p``) → Tacotron-2 with the decoder loop as
+the CUDA kernel on a GPU (its plain PyTorch version on the CPU) →
+Griffin-Lim, or a neural vocoder registered with ``attach_vocoder``:
+WaveRNN (its sample loop as one CUDA kernel launch for all of a batch's
+folds on a GPU) or HiFi-GAN.  ``synthesize_stream`` runs the decoder in
 segments (the CUDA segment kernel on a GPU) through a delayed-exact
-postnet and chunked Griffin-Lim.  Each request draws its prenet dropout
-masks and its Griffin-Lim starting phase from a ``torch.Generator``
-seeded by the request's ``seed``; the parity tests inject both instead.
+postnet and a chunked vocoder.  Each request draws its prenet dropout
+masks, its Griffin-Lim starting phase and its WaveRNN sampling noise
+from a ``torch.Generator`` seeded by the request's ``seed``; the parity
+tests inject them instead.  The mel stays on the device from the decoder
+to the vocoder.
 
 Not in this version (each raises ``NotImplementedError``): speaker
 adaptation (``adapt``), ``.ckpt`` (flax msgpack) checkpoints,
-``infer_dtype: bfloat16``, ``parallel`` dp/tp serving, and the WaveRNN
-and HiFi-GAN vocoders.
+``infer_dtype: bfloat16`` and ``parallel`` dp/tp serving.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from msa_tts_tpu.utils.g2p import N_SYMBOLS, Grapheme2Phoneme
+from .utils.g2p import N_SYMBOLS, Grapheme2Phoneme
 
 from .models.cuda_decoder import (
     check_supported,
@@ -106,6 +109,7 @@ class AdaptiveTTS:
         if resolve_kernel_backend(self.decode_backend, self.device) == "cuda":
             check_supported(self.cfg.decoder_config())
         self.g2p = Grapheme2Phoneme()
+        self._vocoders: dict = {}
         self._voice_cache: weakref.WeakKeyDictionary = (
             weakref.WeakKeyDictionary()
         )
@@ -116,7 +120,7 @@ class AdaptiveTTS:
                         *, device=None, **overrides):
         """Load ``params.yml`` and ``checkpoints/checkpoint_{id}.pt`` (the
         reference ``state_dict`` layout) from an experiment directory."""
-        from msa_tts_tpu.config import load_params
+        from .config import load_params
 
         params = load_params(os.path.join(experiment_path, "params.yml"))
         params.update(overrides)
@@ -188,11 +192,12 @@ class AdaptiveTTS:
     def synthesize(self, text: str, voice: Voice | None = None, *,
                    vocoder: str = "griffinlim", seed: int = 0,
                    spk_emb: np.ndarray | None = None, pre_masks=None,
-                   gl_phase=None) -> np.ndarray:
+                   gl_phase=None, voc_noise=None) -> np.ndarray:
         """Text → waveform as the adapted speaker (or the base model with
-        an explicit ``spk_emb``).  ``pre_masks`` (S, 2, 1, P) and
-        ``gl_phase`` inject the noise a request would otherwise draw
-        from a generator seeded with ``seed``."""
+        an explicit ``spk_emb``).  ``pre_masks`` (S, 2, 1, P), ``gl_phase``
+        and ``voc_noise`` (WaveRNN: a list with the utterance's
+        ``(noise1, noise2)`` pair) inject the noise a request would
+        otherwise draw from a generator seeded with ``seed``."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
         seq = self._phonemes(text)
         g = torch.Generator().manual_seed(seed)
@@ -202,20 +207,23 @@ class AdaptiveTTS:
             pre_masks,
         )
         n = max(int(mel_len[0]), 1) * self.cfg.n_frames_per_step
-        return self._vocode([mel[0, :, :n]], vocoder, g, gl_phase)[0]
+        return self._vocode([mel[0, :, :n]], vocoder, g, gl_phase,
+                            voc_noise)[0]
 
     def synthesize_batch(
         self, texts: Sequence[str], voice: Voice | None = None, *,
         vocoder: str = "griffinlim", seed: int = 0,
         spk_emb: np.ndarray | None = None, text_pad_multiple: int = 1,
         pad_batch_to: int | None = None, pre_masks=None, gl_phase=None,
+        voc_noise=None,
     ) -> list[np.ndarray]:
         """Batched text → waveforms: one decode over all texts.
 
         ``text_pad_multiple`` / ``pad_batch_to`` quantize the padded
         (B, T) shape; filler rows replicate row 0 and are dropped from
-        the result.  ``pre_masks`` (S, 2, Bp, P) and ``gl_phase`` inject
-        the request's noise."""
+        the result.  ``pre_masks`` (S, 2, Bp, P), ``gl_phase`` and
+        ``voc_noise`` (WaveRNN: one ``(noise1, noise2)`` pair per text)
+        inject the request's noise."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
         seqs = [self._phonemes(t) for t in texts]
         B = len(seqs)
@@ -236,19 +244,41 @@ class AdaptiveTTS:
         )
         r = self.cfg.n_frames_per_step
         mels = [mel[i, :, : max(int(mel_len[i]), 1) * r] for i in range(B)]
-        return self._vocode(mels, vocoder, g, gl_phase)
+        return self._vocode(mels, vocoder, g, gl_phase, voc_noise)
 
     # ------------------------------------------------------------ vocoders
+    def attach_vocoder(self, name: str, vocoder) -> None:
+        """Register a neural vocoder: ``name`` in {"wavernn", "hifigan"},
+        ``vocoder`` a ``vocoders.wavernn.WaveRNN`` or
+        ``vocoders.hifigan.HiFiGAN``.  It is moved to this model's
+        device, so the mel never leaves it."""
+        if name not in ("wavernn", "hifigan"):
+            raise ValueError(f"unknown vocoder name: {name}")
+        self._vocoders[name] = vocoder.to(self.device)
+
+    def _attached(self, name: str):
+        voc = self._vocoders.get(name)
+        if voc is None:
+            cls = "WaveRNN" if name == "wavernn" else "HiFiGAN"
+            raise ValueError(f"attach_vocoder({name!r}, {cls}(...)) first")
+        return voc
+
     def _vocode(self, mels: list[torch.Tensor], vocoder: str,
-                generator: torch.Generator, init_phase=None):
+                generator: torch.Generator, init_phase=None,
+                voc_noise=None):
         """Device mels (n_mel, T_i) → host waveforms (or host mels for
         ``vocoder="none"``)."""
         if vocoder == "none":
             return [m.cpu().numpy() for m in mels]
-        if vocoder in ("wavernn", "hifigan"):
-            raise NotImplementedError(
-                f"the {vocoder} vocoder is not ported yet"
-            )
+        if vocoder == "wavernn":
+            # one sample loop over every fold of every mel
+            return self._attached("wavernn").generate_batch(
+                mels, generator=generator, noises=voc_noise, verbose=False)
+        if vocoder == "hifigan":
+            voc = self._attached("hifigan")
+            wavs = (voc.inference_batch(mels) if len(mels) > 1
+                    else [voc.inference(m) for m in mels])
+            return [w.cpu().numpy() for w in wavs]
         if vocoder != "griffinlim":
             raise ValueError(f"unknown vocoder: {vocoder}")
         ap = self.params["audio_params"]
@@ -333,12 +363,16 @@ class _StreamingPostnet:
 
 class _StreamingVocoder:
     """Chunked vocoding with ±ctx frames of context, trimmed from the
-    output.  Griffin-Lim estimates the phase per window, so the chunks
-    approximate the offline waveform at their boundaries."""
+    output.  How close the chunks come to the offline waveform depends on
+    the vocoder: HiFi-GAN (feed-forward convolutions) reproduces it
+    wherever its receptive field fits inside the context; Griffin-Lim
+    estimates the phase per window; WaveRNN is autoregressive per sample,
+    so each window is a generation of its own from zero state."""
 
     def __init__(self, vocode_fn, hop: int, chunk: int, ctx: int,
                  tail_frames: int = 0):
-        self.vocode = vocode_fn       # (n_mel, W) device -> (n,) device
+        # (n_mel, W) device -> (n,) device tensor or host array
+        self.vocode = vocode_fn
         self.hop, self.chunk, self.ctx = int(hop), int(chunk), int(ctx)
         # frames the vocoder comes up short per window (Griffin-Lim
         # returns (W-1)·hop samples for W frames): a padded final window
@@ -380,8 +414,10 @@ class _StreamingVocoder:
             n = (e - s) * self.hop
             chunk = wav[o: o + n]
             self.done = e
-            if chunk.numel():
-                yield chunk.cpu().numpy().astype(np.float32, copy=False)
+            if len(chunk):
+                if isinstance(chunk, torch.Tensor):
+                    chunk = chunk.cpu().numpy()
+                yield chunk.astype(np.float32, copy=False)
             if e >= T:
                 break
 
@@ -401,7 +437,7 @@ def _postnet_ctx(cfg) -> int:
 
 def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
                    segment_steps: int, chunk_frames: int,
-                   vocode_ctx_frames: int):
+                   vocode_ctx_frames: int, voc_noise=None):
     """One stream's host-side stage stack (postnet → vocoder →
     :class:`_StreamCursor`), shared by :meth:`AdaptiveTTS.
     synthesize_stream` and the multiplexer so both run identical
@@ -410,7 +446,9 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
     ``gl_phase``: Griffin-Lim's starting phase for every window — a
     tensor, or a callable ``(n_freqs, n_frames) -> phase``; None draws
     U(-π, π) from a generator seeded with ``seed`` (the same phase for
-    every window of a shape, as the JAX package uses one key)."""
+    every window of a shape, as the JAX package uses one key).
+    ``voc_noise``: WaveRNN's ``[(noise1, noise2)]`` for every window;
+    None draws it per window from a generator seeded with ``seed``."""
     cfg = tts.cfg
     r = cfg.n_frames_per_step
     ap = tts.params["audio_params"]
@@ -425,14 +463,28 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
                              pad_to=segment_steps * r + 3 * pctx)
     if vocoder == "none":
         return _StreamCursor(cfg, r, post, _MelRelay)
-    if vocoder in ("wavernn", "hifigan"):
-        raise NotImplementedError(f"the {vocoder} vocoder is not ported yet")
-    if vocoder != "griffinlim":
+    if vocoder not in ("griffinlim", "wavernn", "hifigan"):
         raise ValueError(f"unknown vocoder: {vocoder}")
-    if vocode_ctx_frames < 1:
-        # Griffin-Lim comes up one hop short per window: with zero
-        # context every non-final chunk would silently lose a hop
-        raise ValueError("vocoder='griffinlim' needs vocode_ctx_frames >= 1")
+    if vocoder != "hifigan" and vocode_ctx_frames < 1:
+        # Griffin-Lim and WaveRNN both come up one hop short per window
+        # ((W-1)·hop samples for W frames): with zero context every
+        # non-final chunk would silently lose a hop
+        raise ValueError(
+            f"vocoder={vocoder!r} needs vocode_ctx_frames >= 1")
+    if vocoder != "griffinlim":
+        tts._attached(vocoder)          # raises now, not at the first chunk
+
+        def vocode_neural(mel):
+            # every window restarts from the stream's seed, as the JAX
+            # package hands every window the same key
+            g = torch.Generator().manual_seed(seed)
+            return tts._vocode([mel], vocoder, g, voc_noise=voc_noise)[0]
+
+        # HiFi-GAN emits exactly W·hop samples, the other two (W-1)·hop
+        voc = _StreamingVocoder(
+            vocode_neural, ap["hop_length"], chunk_frames,
+            vocode_ctx_frames, tail_frames=0 if vocoder == "hifigan" else 1)
+        return _StreamCursor(cfg, r, post, voc)
 
     n_freqs = ap["n_fft"] // 2 + 1
     min_frames = ap["n_fft"] // ap["hop_length"] + 1
@@ -577,20 +629,22 @@ def synthesize_stream(self, text: str, voice: Voice | None = None, *,
                       segment_steps: int = 16, chunk_frames: int = 40,
                       vocode_ctx_frames: int = 16,
                       text_pad_multiple: int = 1, pre_masks=None,
-                      gl_phase=None):
+                      gl_phase=None, voc_noise=None):
     """Generator: text → wav chunks (host float32), the first long before
     the last.
 
     One encode → the decoder in ``segment_steps``-step segments (the
     CUDA segment kernel on a GPU, its plain version on the CPU; chained
     segments reproduce the offline decode) → delayed-exact streaming
-    postnet → chunked Griffin-Lim.  The mel path is :meth:`synthesize`'s:
+    postnet → chunked vocoder (Griffin-Lim, or an attached WaveRNN or
+    HiFi-GAN).  The mel path is :meth:`synthesize`'s:
     ``vocoder="none"`` streams the offline mel in pieces.
 
     Noise: the prenet masks are the (S, 2, 1, P) draw :meth:`synthesize`
     makes for ``seed`` (or ``pre_masks``), sliced per segment.
     ``gl_phase`` (a tensor, or a callable ``(n_freqs, n_frames) ->
-    phase``) is every window's Griffin-Lim start phase.
+    phase``) is every window's Griffin-Lim start phase; ``voc_noise``
+    (``[(noise1, noise2)]``) every window's WaveRNN sampling noise.
 
     Mels and windows stay on the device; each segment brings its step,
     not_finished and mel_lengths to the host in one transfer, and each
@@ -620,7 +674,7 @@ def synthesize_stream(self, text: str, voice: Voice | None = None, *,
                                          pm, st, n)
 
     cursor = _stream_cursor(self, model, vocoder, seed, gl_phase, n,
-                            chunk_frames, vocode_ctx_frames)
+                            chunk_frames, vocode_ctx_frames, voc_noise)
     st = decoder_stream_init(dcfg, 1, enc.shape[1], device=self.device)
     step = 0
     while True:

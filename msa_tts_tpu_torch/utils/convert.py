@@ -99,3 +99,74 @@ def state_dict_from_jax(params_np: dict, state_np: dict,
     ):
         _conv_bn(sd, f"postnet.convolutions.{i}", layer, bn_s)
     return sd
+
+
+# ------------------------------------------------------------- vocoders
+
+def _bn(sd: dict, base: str, p: dict, s: dict):
+    sd[f"{base}.weight"] = _t(p["weight"])
+    sd[f"{base}.bias"] = _t(p["bias"])
+    sd[f"{base}.running_mean"] = _t(s["running_mean"])
+    sd[f"{base}.running_var"] = _t(s["running_var"])
+    sd[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def wavernn_state_dict_from_jax(params_np: dict, state_np: dict,
+                                cfg) -> dict:
+    """The reference-layout WaveRNN ``state_dict`` of a JAX ``(params,
+    state)`` pair given as nested dicts/lists of numpy arrays: the
+    inverse of the JAX package's ``wavernn_params_from_state_dict``.
+    ``vocoders.wavernn.WaveRNNModel(cfg)`` loads it with
+    ``strict=True``."""
+    sd: dict = {}
+    rn = "upsample.resnet"
+    rp = params_np["upsample"]["resnet"]
+    rs = state_np["upsample"]["resnet"]
+    sd[f"{rn}.conv_in.weight"] = _t(rp["conv_in"]["weight"])
+    _bn(sd, f"{rn}.batch_norm", rp["batch_norm"], rs["batch_norm"])
+    for i, (layer, st) in enumerate(zip(rp["layers"], rs["layers"])):
+        base = f"{rn}.layers.{i}"
+        sd[f"{base}.conv1.weight"] = _t(layer["conv1"]["weight"])
+        sd[f"{base}.conv2.weight"] = _t(layer["conv2"]["weight"])
+        _bn(sd, f"{base}.batch_norm1", layer["batch_norm1"],
+            st["batch_norm1"])
+        _bn(sd, f"{base}.batch_norm2", layer["batch_norm2"],
+            st["batch_norm2"])
+    sd[f"{rn}.conv_out.weight"] = _t(rp["conv_out"]["weight"])
+    sd[f"{rn}.conv_out.bias"] = _t(rp["conv_out"]["bias"])
+    # the module list interleaves [stretch, conv]: convs at odd indices,
+    # stored as (1, 1, 1, k)
+    for i, conv in enumerate(params_np["upsample"]["up_convs"]):
+        sd[f"upsample.up_layers.{2 * i + 1}.weight"] = _t(
+            np.asarray(conv["weight"])[:, :, None, :])
+    for name in ("I", "fc1", "fc2", "fc3"):
+        sd[f"{name}.weight"] = _t(params_np[name]["weight"])
+        sd[f"{name}.bias"] = _t(params_np[name]["bias"])
+    for name in ("rnn1", "rnn2"):
+        for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            sd[f"{name}.{k}_l0"] = _t(params_np[name][k])
+    return sd
+
+
+def hifigan_state_dict_from_jax(params_np: dict, h: dict) -> dict:
+    """The HiFi-GAN generator ``state_dict`` (plain, already fused
+    weights) of a JAX generator pytree given as nested dicts/lists of
+    numpy arrays: the inverse of the JAX package's
+    ``generator_params_from_state_dict``.
+    ``vocoders.hifigan.Generator(h, n_mels)`` loads it with
+    ``strict=True``."""
+    sd: dict = {}
+
+    def conv(base, p):
+        sd[f"{base}.weight"] = _t(p["weight"])
+        sd[f"{base}.bias"] = _t(p["bias"])
+
+    conv("conv_pre", params_np["conv_pre"])
+    for i, p in enumerate(params_np["ups"]):
+        conv(f"ups.{i}", p)
+    for i, block in enumerate(params_np["resblocks"]):
+        for group, convs in block.items():       # convs1/convs2 or convs
+            for j, p in enumerate(convs):
+                conv(f"resblocks.{i}.{group}.{j}", p)
+    conv("conv_post", params_np["conv_post"])
+    return sd

@@ -1,7 +1,10 @@
-"""The CUDA decoder kernel (msa_tts_tpu_torch/csrc/decoder_loop.cu)
-against its plain PyTorch version on the GPU, for every attention
-config it lowers and for ragged shapes (B = 1 and B past one staged
-chunk, T_in shorter than the location kernel, F wider than a warp).
+"""The CUDA kernels of the port against their plain PyTorch versions on
+the GPU: the decoder kernels (msa_tts_tpu_torch/csrc/decoder_loop.cu),
+and further down the WaveRNN sample-loop kernel (csrc/wavernn_loop.cu)
+and the LSTM-cell kernel (csrc/lstm_cell.cu).  The decoder kernel is
+held for every attention config it lowers and for ragged shapes (B = 1
+and B past one staged chunk, T_in shorter than the location kernel, F
+wider than a warp).
 
 Also the model's decode routing on CUDA tensors: ``auto`` and ``cuda``
 launch the kernel for a config it lowers and raise for one it does not;
@@ -469,3 +472,263 @@ def test_stream_and_mux_route_through_the_segment_kernel(device):
         StreamMultiplexer(tts, n_slots=2, t_cap=16, per_slot_params=True)
     StreamMultiplexer(tts, n_slots=2, t_cap=16, backend="torch",
                       per_slot_params=True).close()
+
+
+# ---------------------------------------------------------------------
+# WaveRNN sample-loop kernel (csrc/wavernn_loop.cu) and the LSTM-cell
+# kernel (csrc/lstm_cell.cu) against their plain PyTorch versions
+# ---------------------------------------------------------------------
+# Tolerances: f32 weights, f32 on both sides in other summation orders,
+# fed back over 37 sample steps: 1e-5.  bf16 weights round every
+# product's input to bf16, where a last-bit difference moves a value by
+# 2^-8 relative: 2e-2 over 37 steps.
+
+GEN_CFG = dict(rnn_dims=64, fc_dims=64, res_out_dims=32, n_mels=20,
+               res_blocks=2, hop_length=16, pad=2,
+               upsample_factors=(2, 2, 4))
+
+
+def _gen_case(device, B, T, dtype=None, seed=0, **over):
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    cfg = W.WaveRNNConfig(**dict(GEN_CFG, **over))
+    g = torch.Generator().manual_seed(seed)
+    model = W.WaveRNNModel(cfg, g).to(device)
+    gp = W.cast_generation_params(model, dtype)
+    mels_up = torch.randn(B, T, cfg.n_mels, generator=g).to(device)
+    aux = (torch.randn(B, T, cfg.res_out_dims, generator=g).to(device)
+           if cfg.use_aux_net else None)
+    n1, n2 = W.generation_noise(cfg, g, T, B, device=device)
+    return cfg, gp, mels_up, aux, n1, n2
+
+
+# rows: one, a partial chunk of 16, half a chunk, and the fold rows of a
+# stream window (8), an utterance (44, 80) and a batch of four (320)
+@pytest.mark.parametrize("B", [1, 5, 8, 44, 80, 320])
+@pytest.mark.parametrize("over,dtype,atol", [
+    (dict(mode="MOL"), None, 1e-5),
+    (dict(mode="GAUSS"), None, 1e-5),
+    (dict(mode="MOL", use_aux_net=False), None, 1e-5),
+    (dict(mode="GAUSS", use_aux_net=False), None, 1e-5),
+    (dict(mode="MOL"), torch.bfloat16, 2e-2),
+    (dict(mode="GAUSS"), torch.bfloat16, 2e-2),
+], ids=["mol", "gauss", "mol-noaux", "gauss-noaux", "mol-bf16",
+        "gauss-bf16"])
+def test_gen_kernel_matches_plain(device, over, dtype, atol, B):
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    T = 37                                  # odd: nothing pads T
+    cfg, gp, mels_up, aux, n1, n2 = _gen_case(device, B, T, dtype, **over)
+    ref = W.generate_samples(gp, cfg, mels_up, aux, n1, n2, backend="torch")
+    before = G.GEN_LAUNCHES
+    out = W.generate_samples(gp, cfg, mels_up, aux, n1, n2)    # auto
+    torch.cuda.synchronize()
+    assert G.GEN_LAUNCHES == before + 1
+    assert out.shape == ref.shape == (B, T)
+    assert torch.isfinite(out).all()
+    err = float((out - ref).abs().max())
+    assert err <= atol, err
+
+
+def test_gen_kernel_rows_independent_of_batch(device):
+    """A row's sums are taken in an order fixed by the widths, so from
+    the same hoisted inputs a row alone gives the bits it gives in a
+    batch (the hoisted projection is a library product outside the
+    kernel and is computed once here)."""
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    cfg, gp, mels_up, aux, n1, n2 = _gen_case(device, 21, 25)
+    w = G.kernel_weights(gp, cfg)
+    ist, ar = W.hoisted_inputs(gp, cfg, mels_up, aux)
+    full = G.cuda_generate(w, cfg, ist, ar, n1, n2)
+    for b in (0, 7, 20):
+        one = G.cuda_generate(w, cfg, *(x[:, b:b + 1].contiguous()
+                                        for x in (ist, ar, n1, n2)))
+        assert torch.equal(one[0], full[b]), b
+
+
+def test_gen_kernel_rejects_what_it_does_not_take(device):
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    cfg, gp, mels_up, aux, n1, n2 = _gen_case(device, 3, 9)
+    w = G.kernel_weights(gp, cfg)
+    ist, ar = W.hoisted_inputs(gp, cfg, mels_up, aux)
+    before = G.GEN_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        G.cuda_generate(w, cfg, ist.cpu(), ar.cpu(), n1.cpu(), n2.cpu())
+    with pytest.raises(TypeError):
+        G.cuda_generate(w, cfg, ist.double(), ar, n1, n2)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.cuda_generate(w, cfg, ist.transpose(0, 1).contiguous()
+                        .transpose(0, 1), ar, n1, n2)
+    with pytest.raises(ValueError, match="shape"):
+        G.cuda_generate(w, cfg, ist, ar, n1[:, :2], n2)
+    with pytest.raises(TypeError):
+        G.cuda_generate(dict(w, fc1_z=w["fc1_z"].half()), cfg, ist, ar,
+                        n1, n2)
+    assert G.GEN_LAUNCHES == before
+
+
+@pytest.mark.parametrize("choice,launches", [
+    ("auto", None), ("cuda", None), ("torch", 0),
+])
+def test_gen_backend_routing_for_an_unserved_config(device, choice,
+                                                    launches):
+    """A width the kernel does not serve (rnn_dims not a multiple of 4)
+    raises under ``auto`` and ``cuda`` on CUDA tensors; only ``torch``,
+    named, runs the plain loop on the card."""
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    cfg, gp, mels_up, aux, n1, n2 = _gen_case(device, 2, 5, rnn_dims=66)
+    before = G.GEN_LAUNCHES
+    if launches is None:
+        with pytest.raises(ValueError, match="multiples of 4"):
+            W.generate_samples(gp, cfg, mels_up, aux, n1, n2,
+                               backend=choice)
+    else:
+        out = W.generate_samples(gp, cfg, mels_up, aux, n1, n2,
+                                 backend=choice)
+        assert out.shape == (2, 5)
+    assert G.GEN_LAUNCHES == before
+
+
+def test_wavernn_generate_batch_through_the_kernel(device):
+    """``WaveRNN.generate_batch`` on the card: one launch for all folds
+    of all utterances, lengths as on the CPU, and the kernel's waveform
+    against the plain loop's from the same noise (f32, 1e-4)."""
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    cfg = W.WaveRNNConfig(**GEN_CFG)
+    g = torch.Generator().manual_seed(0)
+    model = W.WaveRNNModel(cfg, g)
+    mels = [torch.randn(cfg.n_mels, t, generator=g) - 4.0
+            for t in (11, 5, 1)]
+    kw = dict(target=64, overlap=16, bucket_frames=4, verbose=False)
+    outs = {}
+    for backend in ("auto", "torch"):
+        voc = W.WaveRNN(model, cfg, gen_dtype=None, gen_backend=backend,
+                        device=device)
+        before = G.GEN_LAUNCHES
+        outs[backend] = voc.generate_batch(
+            mels, generators=[torch.Generator().manual_seed(i)
+                              for i in range(3)], **kw)
+        assert G.GEN_LAUNCHES - before == (1 if backend == "auto" else 0)
+    for a, b, m in zip(outs["auto"], outs["torch"], mels):
+        assert len(a) == len(b) == max(m.shape[1] - 1, 1) * cfg.hop_length
+        assert float(abs(a - b).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-5)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H", [(16, 1024), (3, 64), (20, 256)])
+def test_lstm_cell_kernel_matches_plain(device, dtype, atol, B, H):
+    """One step, so the bf16 variant (same rounded h and weights on both
+    sides, f32 sums in another order) holds the f32 tolerance."""
+    from msa_tts_tpu_torch.experimental import cuda_lstm_cell as C
+
+    g = torch.Generator().manual_seed(B)
+    xp, h, c = (torch.randn(B, n, generator=g).to(device)
+                for n in (4 * H, H, H))
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(device).to(dtype)
+    before = C.CELL_LAUNCHES
+    hk, ck = C.cuda_lstm_cell(xp, h, c, w)
+    torch.cuda.synchronize()
+    assert C.CELL_LAUNCHES == before + 1
+    hr, cr = C.lstm_cell_reference(xp, h, c, w)
+    assert float((hk - hr).abs().max()) <= atol
+    assert float((ck - cr).abs().max()) <= atol
+
+
+def test_lstm_scan_and_refusals(device):
+    from msa_tts_tpu_torch.experimental import cuda_lstm_cell as C
+
+    T, B, H = 12, 5, 64
+    g = torch.Generator().manual_seed(0)
+    xs = torch.randn(T, B, 4 * H, generator=g).to(device)
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(device)
+    h0 = torch.zeros(B, H, device=device)
+    c0 = torch.zeros(B, H, device=device)
+    before = C.CELL_LAUNCHES
+    hs, (h, c) = C.lstm_scan(xs, h0, c0, w)
+    assert C.CELL_LAUNCHES == before + T
+    ref, (hr, cr) = C.lstm_scan(xs, h0, c0, w, backend="torch")
+    assert C.CELL_LAUNCHES == before + T
+    assert float((hs - ref).abs().max()) <= 1e-5
+    assert float((c - cr).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="CUDA"):
+        C.cuda_lstm_cell(xs[0].cpu(), h0.cpu(), c0.cpu(), w.cpu())
+    with pytest.raises(TypeError):
+        C.cuda_lstm_cell(xs[0].double(), h0, c0, w)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        C.cuda_lstm_cell(xs[0][:, :4 * 60], h0[:, :60].contiguous(),
+                         c0[:, :60].contiguous(), w[:60, :240].contiguous())
+    with pytest.raises(ValueError, match="alias"):
+        C.cuda_lstm_cell(xs[0], h0, c0, w, out=(h0, c0))
+    with pytest.raises(ValueError, match="contiguous"):
+        C.cuda_lstm_cell(xs[0], h0, c0, w.t().contiguous().t())
+
+
+def test_serving_vocodes_through_the_gen_kernel(device):
+    """``AdaptiveTTS`` with an attached WaveRNN and HiFi-GAN on the card:
+    one sample-loop launch per vocoded request or batch, wav lengths
+    (T-1)·hop and T·hop."""
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        config_from_params,
+    )
+    from msa_tts_tpu_torch.serving import AdaptiveTTS
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders.hifigan import Generator, HiFiGAN
+    from msa_tts_tpu_torch.vocoders.wavernn import WaveRNN, WaveRNNConfig
+
+    mp = dict(
+        n_mel_channels=10, n_frames_per_step=2, n_symbols=200,
+        symbols_embedding_dim=16, encoder_n_convolutions=2,
+        encoder_embedding_dim=16, encoder_kernel_size=5,
+        speaker_emb_type="static", speaker_embedding_dim=8,
+        attention_rnn_dim=20, decoder_rnn_dim=28, prenet_dim=12,
+        max_decoder_steps=12, gate_threshold=0.5, p_attention_dropout=0.1,
+        p_decoder_dropout=0.1, decoder_no_early_stopping=True,
+        postnet_embedding_dim=16, postnet_kernel_size=5,
+        postnet_n_convolutions=2, attention_params=dict(AP),
+    )
+    audio = dict(sample_rate=22050, n_fft=512, win_length=512,
+                 hop_length=128, f_min=0.0, f_max=8000.0, n_mels=10,
+                 griffinlim_iters=2)
+    g = torch.Generator().manual_seed(0)
+    tts = AdaptiveTTS({"model": mp, "audio_params": audio},
+                      Tacotron2NV(config_from_params(mp), generator=g),
+                      device=device)
+    with torch.no_grad():
+        tts.model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
+    wcfg = WaveRNNConfig(rnn_dims=32, fc_dims=32, res_out_dims=16,
+                         compute_dims=16, n_mels=10, res_blocks=2,
+                         hop_length=128, upsample_factors=(4, 4, 8))
+    tts.attach_vocoder("wavernn", WaveRNN(cfg=wcfg, generator=g))
+    h = dict(resblock="1", upsample_rates=[8, 4, 4],
+             upsample_kernel_sizes=[16, 8, 8], upsample_initial_channel=16,
+             resblock_kernel_sizes=[3, 5],
+             resblock_dilation_sizes=[[1, 3], [1, 2]])
+    tts.attach_vocoder("hifigan", HiFiGAN.from_params(
+        Generator(h, 10, g), h))
+    emb = torch.zeros(8).numpy()
+    before = G.GEN_LAUNCHES
+    one = tts.synthesize("hello world", spk_emb=emb, vocoder="wavernn")
+    many = tts.synthesize_batch(["hello", "hello world"], spk_emb=emb,
+                                vocoder="wavernn")
+    assert G.GEN_LAUNCHES == before + 2
+    for w in [one, *many]:
+        assert w.shape == (23 * 128,) and abs(w).max() <= 1.0
+    hw = tts.synthesize("hello world", spk_emb=emb, vocoder="hifigan")
+    assert hw.shape == (24 * 128,)
+    n = sum(len(c) for c in tts.synthesize_stream(
+        "hello world", spk_emb=emb, vocoder="wavernn", segment_steps=4,
+        chunk_frames=8, vocode_ctx_frames=2))
+    assert n == 23 * 128
+    assert G.GEN_LAUNCHES > before + 2

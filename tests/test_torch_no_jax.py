@@ -1,7 +1,9 @@
-"""The port imports no jax: in a fresh interpreter where ``import jax``
-fails, every ``msa_tts_tpu_torch`` module imports (serving, stream_mux
-and server among them), the tiny CPU slice runs from text to a wav
-file, and one stream and one multiplexed stream run to their end."""
+"""The port imports neither jax nor the JAX package: in a fresh
+interpreter where ``import jax`` and ``import msa_tts_tpu`` both fail,
+every ``msa_tts_tpu_torch`` module imports (serving, stream_mux and
+server among them), the tiny CPU slice runs from text to a wav file,
+one stream and one multiplexed stream run to their end, and an attached
+WaveRNN and HiFi-GAN each vocode a request."""
 
 import os
 import subprocess
@@ -12,6 +14,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["msa_tts_tpu"] = None  # and so does the JAX package
 
 import numpy as np
 import torch
@@ -63,8 +66,28 @@ finally:
 assert solo.shape == muxed.shape and len(solo) > 0
 assert np.isfinite(muxed).all()
 assert server.TTSServer(tts, default_spk_emb=emb).servable_vocoders()
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-assert bad == ["jax"], bad       # only the blocked placeholder
+from msa_tts_tpu_torch.vocoders.hifigan import Generator, HiFiGAN
+from msa_tts_tpu_torch.vocoders.wavernn import WaveRNN, WaveRNNConfig
+wcfg = WaveRNNConfig(rnn_dims=16, fc_dims=16, res_out_dims=8,
+                     compute_dims=8, n_mels=10, res_blocks=1,
+                     hop_length=128, upsample_factors=(4, 4, 8))
+tts.attach_vocoder("wavernn", WaveRNN(
+    cfg=wcfg, generator=torch.Generator().manual_seed(1)))
+h = dict(resblock="2", upsample_rates=[8, 16], upsample_kernel_sizes=[16, 32],
+         upsample_initial_channel=8, resblock_kernel_sizes=[3],
+         resblock_dilation_sizes=[[1, 3]])
+tts.attach_vocoder("hifigan", HiFiGAN.from_params(
+    Generator(h, 10, torch.Generator().manual_seed(2)), h))
+n_frames = 12 * 2
+for voc, want in (("wavernn", (n_frames - 1) * 128), ("hifigan", n_frames * 128)):
+    w = tts.synthesize("hello world", spk_emb=emb, vocoder=voc)
+    assert w.shape == (want,) and np.isfinite(w).all(), (voc, w.shape)
+assert server.TTSServer(tts, default_spk_emb=emb).servable_vocoders() == {
+    "griffinlim", "wavernn", "hifigan"}
+for blocked in ("jax", "msa_tts_tpu"):
+    bad = sorted(m for m in sys.modules
+                 if m == blocked or m.startswith(blocked + "."))
+    assert bad == [blocked], bad       # only the blocked placeholder
 print("modules", len(names))
 """
 

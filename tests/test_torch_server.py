@@ -281,6 +281,56 @@ def test_unservable_vocoder_rejected_with_400(tts):
         server.stop()
 
 
+def test_attached_vocoders_are_served():
+    """With a WaveRNN and a HiFi-GAN attached both become servable on
+    both endpoints, and the PCM is the library call's for the request's
+    seed (the JAX comparison of the same calls is in
+    test_torch_serving.py and test_torch_stream.py)."""
+    from torch_parity import vocoder_pairs
+
+    model = Tacotron2NV(config_from_params(dict(MODEL)),
+                        generator=torch.Generator().manual_seed(0))
+    own = AdaptiveTTS({"model": dict(MODEL), "audio_params": dict(AP)},
+                      model)
+    for name, (_, voc) in vocoder_pairs(AP["n_mels"],
+                                        AP["hop_length"]).items():
+        own.attach_vocoder(name, voc)
+    server = TTSServer(own, default_spk_emb=ZERO, window_ms=1.0)
+    assert server.servable_vocoders() == {"griffinlim", "wavernn",
+                                          "hifigan"}
+    port = server.start()
+    hop = AP["hop_length"]
+    n_frames = MODEL["max_decoder_steps"] * MODEL["n_frames_per_step"]
+    try:
+        for voc, want in (("hifigan", n_frames * hop),
+                          ("wavernn", (n_frames - 1) * hop)):
+            with _post(port, "/synthesize", json.dumps(
+                    {"text": "hello world", "vocoder": voc}).encode()) as r:
+                assert r.status == 200
+                body = r.read()
+            pcm = np.frombuffer(body[44:], "<i2")
+            assert len(pcm) == want, voc
+            ref = own.synthesize_batch(
+                ["hello world"], vocoder=voc, spk_emb=ZERO,
+                text_pad_multiple=server.text_pad_multiple)[0]
+            np.testing.assert_array_equal(
+                pcm, (np.clip(np.asarray(ref, np.float32), -1, 1)
+                      * 32767.0).astype("<i2"))
+        header, pcm = _stream(port, "hello world")
+        assert header[:4] == b"RIFF"
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=TIMEOUT)
+        conn.request("POST", "/synthesize_stream", json.dumps(
+            {"text": "hello world", "vocoder": "hifigan"}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert len(resp.read()) == 44 + 2 * n_frames * hop
+        conn.close()
+        assert _get(port, "/stats")["errors_total"] == 0
+    finally:
+        server.stop()
+
+
 def test_streaming_requests_counted_in_stats(tts):
     server = TTSServer(tts, default_spk_emb=ZERO, window_ms=1.0)
     port = server.start()

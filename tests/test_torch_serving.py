@@ -2,7 +2,10 @@
 against the JAX package's ``AdaptiveTTS`` on one experiment directory
 (params.yml + a reference ``.pt`` checkpoint written by the JAX
 package), with the same injected noise: mel lengths exact, mels within
-5e-5, Griffin-Lim waveforms within 1e-4 × peak."""
+5e-5, Griffin-Lim waveforms within 1e-4 × peak; with attached neural
+vocoders, HiFi-GAN waveforms within 1e-3 and WaveRNN waveforms within
+5e-3 (both take mels that already differ by up to 5e-5; WaveRNN feeds
+its samples back for 3,850 steps per fold)."""
 
 import importlib.util
 import math
@@ -21,7 +24,7 @@ from msa_tts_tpu.serving import AdaptiveTTS as JaxTTS
 from msa_tts_tpu.utils.g2p import N_SYMBOLS
 from msa_tts_tpu.utils.torch_import import save_torch_checkpoint
 from msa_tts_tpu_torch.serving import AdaptiveTTS, Voice
-from torch_parity import model_dict
+from torch_parity import jax_wavernn_noise, model_dict, vocoder_pairs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AP = dict(sample_rate=22050, n_fft=512, win_length=512, hop_length=128,
@@ -133,8 +136,12 @@ def test_not_ported_features_raise(both, experiment, tmp_path):
                   {"parallel": {"tp": 2}}):
         with pytest.raises(NotImplementedError):
             AdaptiveTTS(dict(base, **extra), tts.model)
-    with pytest.raises(NotImplementedError):
-        tts.synthesize("hi", spk_emb=EMB, vocoder="wavernn")
+    # a neural vocoder must be attached first
+    for voc in ("wavernn", "hifigan"):
+        with pytest.raises(ValueError, match="attach_vocoder"):
+            tts.synthesize("hi", spk_emb=EMB, vocoder=voc)
+    with pytest.raises(ValueError, match="unknown vocoder name"):
+        tts.attach_vocoder("melgan", object())
     with pytest.raises(NotImplementedError):
         tts.adapt([], [], EMB)
     ckpt_dir = tmp_path / "checkpoints"
@@ -146,6 +153,115 @@ def test_not_ported_features_raise(both, experiment, tmp_path):
         AdaptiveTTS.from_experiment(str(tmp_path))
     with pytest.raises(ValueError):
         AdaptiveTTS(dict(base, decode_backend="cuda"), tts.model)
+
+
+@pytest.fixture(scope="module")
+def both_vocoded(experiment):
+    """A JAX and a port AdaptiveTTS of their own with the same tiny
+    WaveRNN (f32 sample loop) and HiFi-GAN attached."""
+    jtts = JaxTTS.from_experiment(experiment)
+    tts = AdaptiveTTS.from_experiment(experiment)
+    pairs = vocoder_pairs(AP["n_mels"], AP["hop_length"])
+    for name, (jv, tv) in pairs.items():
+        jtts.attach_vocoder(name, jv)
+        tts.attach_vocoder(name, tv)
+    return jtts, tts, pairs
+
+
+def _padded_frames(mels):
+    return -(-max(m.shape[1] for m in mels) // 32) * 32
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "batch"])
+def test_synthesize_wavernn_matches_jax(both_vocoded, batched):
+    jtts, tts, pairs = both_vocoded
+    hop = AP["hop_length"]
+    texts = TEXTS if batched else TEXTS[:1]
+    # the JAX request vocodes with its default key, split per utterance
+    if batched:
+        mels = jtts.synthesize_batch(texts, vocoder="none", spk_emb=EMB)
+        ref = jtts.synthesize_batch(texts, vocoder="wavernn", spk_emb=EMB)
+    else:
+        mels = [jtts.synthesize(texts[0], vocoder="none", spk_emb=EMB)]
+        ref = [jtts.synthesize(texts[0], vocoder="wavernn", spk_emb=EMB)]
+    noise = jax_wavernn_noise(pairs["wavernn"][0], jax.random.PRNGKey(0),
+                              len(texts), _padded_frames(mels))
+    masks = _jax_masks(tts, len(texts))
+    if batched:
+        out = tts.synthesize_batch(texts, vocoder="wavernn", spk_emb=EMB,
+                                   pre_masks=masks, voc_noise=noise)
+    else:
+        out = [tts.synthesize(texts[0], vocoder="wavernn", spk_emb=EMB,
+                              pre_masks=masks, voc_noise=noise)]
+    for a, b, m in zip(out, ref, mels):
+        b = np.asarray(b)
+        assert len(a) == len(b) == max(m.shape[1] - 1, 1) * hop
+        assert np.isfinite(a).all() and np.abs(a).max() <= 1.0
+        np.testing.assert_allclose(a, b, atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "batch"])
+def test_synthesize_hifigan_matches_jax(both_vocoded, batched):
+    jtts, tts, _ = both_vocoded
+    hop = AP["hop_length"]
+    texts = TEXTS if batched else TEXTS[:1]
+    masks = _jax_masks(tts, len(texts))
+    if batched:
+        mels = jtts.synthesize_batch(texts, vocoder="none", spk_emb=EMB)
+        ref = jtts.synthesize_batch(texts, vocoder="hifigan", spk_emb=EMB)
+        out = tts.synthesize_batch(texts, vocoder="hifigan", spk_emb=EMB,
+                                   pre_masks=masks)
+    else:
+        mels = [jtts.synthesize(texts[0], vocoder="none", spk_emb=EMB)]
+        ref = [jtts.synthesize(texts[0], vocoder="hifigan", spk_emb=EMB)]
+        out = [tts.synthesize(texts[0], vocoder="hifigan", spk_emb=EMB,
+                              pre_masks=masks)]
+    for a, b, m in zip(out, ref, mels):
+        b = np.asarray(b)
+        assert a.shape == b.shape == (m.shape[1] * hop,)
+        assert np.abs(b).max() > 0.05            # not a silent generator
+        np.testing.assert_allclose(a, b, atol=1e-3, rtol=0)
+
+
+def test_seeded_wavernn_request_is_deterministic(both_vocoded):
+    _, tts, _ = both_vocoded
+    # long enough to outlast the crossfade's leading silence
+    a, b, c = (tts.synthesize(TEXTS[1], spk_emb=EMB, seed=seed,
+                              vocoder="wavernn") for seed in (4, 4, 5))
+    np.testing.assert_array_equal(a, b)
+    assert len(a) > 550 and np.abs(a).max() > 0
+    assert a.shape != c.shape or np.abs(a - c).max() > 0
+
+
+def test_port_g2p_and_config_are_equal_copies():
+    """The port keeps its own G2P and config modules (it may import
+    nothing of the JAX package): same symbols, same phoneme ids, same
+    profiles, same params."""
+    import msa_tts_tpu.config as jconfig
+    import msa_tts_tpu.utils.g2p as jg2p
+    import msa_tts_tpu_torch.config as tconfig
+    import msa_tts_tpu_torch.utils.g2p as tg2p
+
+    assert tg2p.N_SYMBOLS == jg2p.N_SYMBOLS
+    assert tg2p.char_list == jg2p.char_list
+    for text in TEXTS + ["The birch canoe slid on the smooth planks."]:
+        assert (tg2p.Grapheme2Phoneme().convert(
+            text, convert_mode="text_to_phone_to_idx")
+            == jg2p.Grapheme2Phoneme().convert(
+                text, convert_mode="text_to_phone_to_idx"))
+    jdir = os.path.join(os.path.dirname(jg2p.__file__), "profiles")
+    tdir = os.path.join(os.path.dirname(tg2p.__file__), "profiles")
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    for name in os.listdir(jdir):
+        with open(os.path.join(jdir, name), "rb") as a, \
+                open(os.path.join(tdir, name), "rb") as b:
+            assert a.read() == b.read(), name
+    yml = os.path.join(REPO, "examples", "maml", "params.yml")
+    assert tconfig.load_params(yml) == jconfig.load_params(yml)
+    assert tconfig.parse_optim_params(
+        {"optimizer_type": "Adam", "lr": "1e-3"}) == (
+            jconfig.parse_optim_params(
+                {"optimizer_type": "Adam", "lr": "1e-3"}))
 
 
 def test_chip_smoke_config_is_the_shipped_config():

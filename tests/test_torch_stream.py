@@ -10,7 +10,11 @@ package, on the same weights and noise:
 - ``synthesize_stream(vocoder="none")`` gives JAX's offline mel within
   1e-4 and the port's own offline mel within 1e-5, with equal lengths;
 - streamed Griffin-Lim chunks equal JAX's within 1e-4 × peak when both
-  start every window from JAX's phase draw.
+  start every window from JAX's phase draw;
+- with an attached HiFi-GAN or WaveRNN the streamed chunks equal JAX's
+  (1e-3 and 5e-3: the windows' mels already differ by up to 1e-4, and
+  WaveRNN feeds its samples back for 3,850 steps per fold) when WaveRNN
+  takes JAX's per-window noise.
 
 Tolerances: f32 on both sides, summed in other orders, carried through
 up to 40 autoregressive steps."""
@@ -43,7 +47,13 @@ from msa_tts_tpu_torch.models.decoder import (
 from msa_tts_tpu_torch.models.tacotron2nv import Tacotron2NV, config_from_params
 from msa_tts_tpu_torch.serving import AdaptiveTTS
 from msa_tts_tpu_torch.utils.convert import state_dict_from_jax
-from torch_parity import jax_and_port_models, model_dict, randn
+from torch_parity import (
+    jax_and_port_models,
+    jax_wavernn_noise,
+    model_dict,
+    randn,
+    vocoder_pairs,
+)
 
 ATOL = 2e-5
 
@@ -297,6 +307,56 @@ def test_streamed_griffinlim_matches_jax():
     for a, b in zip(out, ref):
         assert a.dtype == np.float32 and a.shape == b.shape
         np.testing.assert_allclose(a, b, atol=1e-4 * peak, rtol=0)
+
+
+@pytest.mark.parametrize("vocoder", ["hifigan", "wavernn"])
+def test_streamed_neural_vocoder_matches_jax(vocoder):
+    jtts, tts = _tts_pair(max_decoder_steps=20)
+    jv, tv = vocoder_pairs(AP["n_mels"], AP["hop_length"])[vocoder]
+    jtts.attach_vocoder(vocoder, jv)
+    tts.attach_vocoder(vocoder, tv)
+    masks = _jax_masks(tts)
+    kw = dict(vocoder=vocoder, spk_emb=EMB, segment_steps=8,
+              chunk_frames=12, vocode_ctx_frames=4)
+    ref = [np.asarray(c) for c in jtts.synthesize_stream("hello world",
+                                                         **kw)]
+    extra = {}
+    if vocoder == "wavernn":
+        # every 20-frame window pads to 32 frames and takes the noise of
+        # the JAX stream's one key
+        extra["voc_noise"] = jax_wavernn_noise(jv, jax.random.PRNGKey(0),
+                                               1, 32)
+    out = list(tts.synthesize_stream("hello world", pre_masks=masks,
+                                     **extra, **kw))
+    frames = MODEL["n_frames_per_step"] * 20
+    total = (frames if vocoder == "hifigan" else frames - 1) * 128
+    assert len(out) == len(ref) > 1
+    assert sum(len(c) for c in out) == total
+    atol = 1e-3 if vocoder == "hifigan" else 5e-3
+    for a, b in zip(out, ref):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, atol=atol, rtol=0)
+
+
+def test_stream_neural_vocoder_context_rules():
+    """WaveRNN comes up one hop short per window, so it needs context;
+    HiFi-GAN emits W·hop samples and streams with none.  An unattached
+    vocoder raises before the first segment."""
+    _, tts = _tts_pair(max_decoder_steps=8)
+    with pytest.raises(ValueError, match="attach_vocoder"):
+        next(tts.synthesize_stream("hello", vocoder="hifigan", spk_emb=EMB))
+    for name, voc in vocoder_pairs(AP["n_mels"], AP["hop_length"]).items():
+        tts.attach_vocoder(name, voc[1])
+    with pytest.raises(ValueError, match="vocode_ctx_frames"):
+        list(tts.synthesize_stream("hello", vocoder="wavernn",
+                                   spk_emb=EMB, vocode_ctx_frames=0))
+    chunks = list(tts.synthesize_stream(
+        "hello", vocoder="hifigan", spk_emb=EMB, vocode_ctx_frames=0,
+        chunk_frames=6, segment_steps=4))
+    assert sum(len(c) for c in chunks) == 16 * 128
+    off = tts.synthesize("hello", vocoder="hifigan", spk_emb=EMB)
+    assert len(off) == 16 * 128
 
 
 def test_stream_griffinlim_rejects_zero_context():

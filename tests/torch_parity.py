@@ -67,3 +67,75 @@ def randn(seed: int, *shape) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(shape).astype(
         np.float32
     )
+
+
+# ------------------------------------------------------------- vocoders
+
+HIFIGAN_H = dict(resblock="1", upsample_rates=[8, 4, 4],
+                 upsample_kernel_sizes=[16, 8, 8],
+                 upsample_initial_channel=16,
+                 resblock_kernel_sizes=[3, 5],
+                 resblock_dilation_sizes=[[1, 3], [1, 2]])
+
+
+def vocoder_pairs(n_mels: int, hop: int = 128, mode: str = "MOL",
+                  seed: int = 0):
+    """Tiny WaveRNN and HiFi-GAN vocoders for a serving config of
+    ``n_mels`` and ``hop`` (128 = 4·4·8 = 8·4·4), each as the JAX
+    package's object and the port's with the same weights:
+    ``{"wavernn": (jax, port), "hifigan": (jax, port)}``.  The WaveRNNs
+    keep f32 sample-loop weights, so that the two sides differ by
+    summation order only."""
+    from msa_tts_tpu.vocoders import hifigan as JH
+    from msa_tts_tpu.vocoders import wavernn as JW
+    from msa_tts_tpu_torch.utils.convert import (
+        hifigan_state_dict_from_jax,
+        wavernn_state_dict_from_jax,
+    )
+    from msa_tts_tpu_torch.vocoders import hifigan as TH
+    from msa_tts_tpu_torch.vocoders import wavernn as TW
+
+    assert hop == 128
+    kw = dict(mode=mode, rnn_dims=32, fc_dims=32, res_out_dims=16,
+              compute_dims=16, n_mels=n_mels, res_blocks=2, hop_length=hop,
+              pad=2, upsample_factors=(4, 4, 8))
+    jcfg, tcfg = JW.WaveRNNConfig(**kw), TW.WaveRNNConfig(**kw)
+    params, state = JW.init_wavernn(jax.random.PRNGKey(seed), jcfg)
+    model = TW.WaveRNNModel(tcfg)
+    model.load_state_dict(wavernn_state_dict_from_jax(
+        jax.device_get(params), jax.device_get(state), tcfg), strict=True)
+    jw = JW.WaveRNN(params=params, state=state, cfg=jcfg, gen_dtype=None,
+                    gen_backend="xla")
+    tw = TW.WaveRNN(model, tcfg, gen_dtype=None)
+
+    hp = JH.init_generator(jax.random.PRNGKey(seed + 1), HIFIGAN_H,
+                           n_mels=n_mels)
+    rng = np.random.default_rng(seed)
+    hp = jax.tree_util.tree_map(       # unit-order weights, not N(0, 0.01)
+        lambda x: jax.numpy.asarray(
+            (np.asarray(x) * 20 + rng.normal(0, 0.05, x.shape))
+            .astype(np.float32)), hp)
+    gen = TH.Generator(HIFIGAN_H, n_mels)
+    gen.load_state_dict(hifigan_state_dict_from_jax(
+        jax.device_get(hp), HIFIGAN_H), strict=True)
+    return {"wavernn": (jw, tw),
+            "hifigan": (JH.HiFiGAN.from_params(hp, HIFIGAN_H),
+                        TH.HiFiGAN.from_params(gen, HIFIGAN_H))}
+
+
+def jax_wavernn_noise(jvoc, rng, n_utts: int, n_frames_padded: int,
+                      target: int = 2_750, overlap: int = 550):
+    """The sampling noise ``WaveRNN.generate_batch(mels, rng=rng)`` of
+    the JAX package draws for ``n_utts`` mels padded to
+    ``n_frames_padded`` frames: one ``(noise1, noise2)`` numpy pair per
+    utterance, for the port's ``noises=`` / ``voc_noise=``."""
+    from msa_tts_tpu.vocoders import wavernn as JW
+
+    cfg = jvoc.cfg
+    _, n_pad = JW._fold_counts(n_frames_padded * cfg.hop_length, target,
+                               overlap)
+    out = []
+    for key in jax.random.split(rng, n_utts):
+        n1, n2 = JW._generation_noise(cfg, key, target + 2 * overlap, n_pad)
+        out.append((np.array(n1), np.array(n2)))
+    return out
