@@ -22,7 +22,9 @@ Phases (any failure exits non-zero):
   7. serve /synthesize and /synthesize_stream from ``TTSServer``;
   8. hold the WaveRNN sample-loop kernel against its plain PyTorch
      version at the default width (B = 44 folds, T = 3,850 samples), f32
-     and bf16 weights, mixture-of-logistics and Gaussian outputs;
+     and bf16 weights, mixture-of-logistics and Gaussian outputs; time it
+     at the served fold rows, print a step's time by phase from the
+     kernel's clock stamps, and what one grid barrier costs;
   9. serve requests, a batch and a stream through ``AdaptiveTTS`` with a
      WaveRNN and a HiFi-GAN (v1) attached: lengths, ranges, one
      sample-loop launch per vocoded call, a batch row against its solo
@@ -660,16 +662,18 @@ HIFIGAN_V1 = dict(
 )
 
 
-def _gen_bound(w: dict, B: int, T: int, bf16: bool, *io):
+def _gen_bound(gp: dict, B: int, T: int, bf16: bool, *io):
     """Sample loop: two operations per matrix weight, row and step.  Its
-    bytes are each input once: the weights too (15 MB in f32 at the
-    default width, which the 50 MB L2 or the SMs' shared memory can hold
-    for the whole launch, so no step has to read them from HBM again),
+    bytes are each input once: the sample-loop weights ``gp`` too (15 MB
+    in f32 at the default width, which the 50 MB L2 or the SMs' shared
+    memory can hold for the whole launch, so no step has to read them
+    from HBM again; the kernel's packed copy of them is its own affair),
     the conditioning and noise streams, and the output (``io``)."""
-    from msa_tts_tpu_torch.vocoders.cuda_gen import _MATRICES
+    from msa_tts_tpu_torch.vocoders.wavernn import GEN_LAYERS
 
-    n_mat = sum(w[k].numel() for k in _MATRICES if w[k] is not None)
-    held = [t for t in w.values() if t is not None]
+    held = [t for name in GEN_LAYERS for t in gp[name].values()]
+    n_mat = sum(t.numel() for name in GEN_LAYERS if name != "I"
+                for k, t in gp[name].items() if k.startswith("weight"))
     return _bound(_nbytes(*held, *io), T * 2.0 * n_mat * B,
                   BF16_FLOPS if bf16 else F32_FLOPS)
 
@@ -755,7 +759,7 @@ def gen_kernel_vs_plain(device, seed: int = 0) -> dict:
             end.record()
             torch.cuda.synchronize()
             p_ms = start.elapsed_time(end)
-            b_ms, b_by = _gen_bound(w, B, T, dtype is not None, ist, ar,
+            b_ms, b_by = _gen_bound(gp, B, T, dtype is not None, ist, ar,
                                     n1, n2, kern)
             print(f"  {mode} {tag}: kernel {1e3 * k_ms / T:.1f} us/step, "
                   f"plain {1e3 * p_ms / T:.1f} us/step, bound "
@@ -773,7 +777,7 @@ def gen_kernel_vs_plain(device, seed: int = 0) -> dict:
     cfg, gp, w, ist, ar, n1, n2 = inputs["MOL", "f32"]
     _, gpb, wb, _, _, _, _ = inputs["MOL", "bf16"]
     t_plain = 200
-    for B2 in (1, 8, 80, 4 * GEN_B, 320):
+    for B2 in (1, 8, GEN_B, 80, 4 * GEN_B, 320):
         reps = -(-B2 // B)
         big = [x.repeat(1, reps, *([1] * (x.dim() - 2)))[:, :B2].contiguous()
                for x in (ist, ar, n1, n2)]
@@ -786,6 +790,30 @@ def gen_kernel_vs_plain(device, seed: int = 0) -> dict:
                      f"{1e3 * p_ms / t_plain:.1f} us/step (plain over "
                      f"{t_plain} steps);")
         print(line)
+        # where a step's time goes (bf16, block 0's clock stamps): the
+        # stamped launch must give the samples of the unstamped one
+        stamps = torch.zeros(T, G.N_STAMPS, dtype=torch.int64, device=device)
+        plain_out = G.cuda_generate(wb, cfg, *big)
+        stamped = G.cuda_generate(wb, cfg, *big, phase_ns=stamps)
+        torch.cuda.synchronize()
+        if not torch.equal(stamped, plain_out):
+            raise AssertionError(f"B={B2}: the stamped launch's samples "
+                                 "differ from the unstamped one's")
+        bd = G.phase_breakdown(stamps)
+        total = sum(v for d in bd.values() for v in d.values())
+        if not (stamps > 0).all() or not 0.0 < total < 1e4:
+            raise AssertionError(f"B={B2}: clock stamps missing or "
+                                 f"{total} us a step")
+        print(f"    bf16 us/step by phase ({'/'.join(G.PARTS)}): "
+              + ", ".join(f"{ph} " + "/".join(f"{v:.2f}" for v in d.values())
+                          for ph, d in bd.items())
+              + f"; sum {total:.1f}")
+    # the step barrier alone: a launch of grid barriers and nothing else
+    res["barrier_us"] = G.barrier_us(device=device)
+    print(f"  one grid barrier (grid.sync(), one block of 512 threads per "
+          f"SM) alone: {res['barrier_us']:.3f} us")
+    if not 0.0 < res["barrier_us"] < 100.0:
+        raise AssertionError(f"barrier time {res['barrier_us']}")
     return res
 
 
@@ -942,6 +970,8 @@ def serve_vocoders(tts, device) -> int:
     g1 = torch.Generator().manual_seed(7)
     noise, t_noise = timed(lambda: generation_noise(wcfg, g1, L, n_pad,
                                                     device=device))
+    if noise[0].device.type != "cuda":
+        raise AssertionError("WaveRNN noise was not drawn on the card")
     padded, _ = voc._pad_batch([mel])
     _, t_dev = timed(lambda: voc._run_folded(padded, target, overlap,
                                              [noise]))
@@ -949,7 +979,7 @@ def serve_vocoders(tts, device) -> int:
                                                 verbose=False))
     _, t_hifi = timed(lambda: tts._vocode([mel], "hifigan", None))
     print(f"  stages of one request, s: text to mel {t_mel:.4f}; WaveRNN "
-          f"noise draw on the host and copy {t_noise:.4f}, upsample + fold "
+          f"noise drawn on the card {t_noise:.4f}, upsample + fold "
           f"+ sample loop ({n_pad} rows) {t_dev:.4f}, the whole "
           f"generate_batch with noise given {t_all:.4f} (copy back and "
           f"crossfade {t_all - t_dev:.4f}); HiFi-GAN {t_hifi:.4f}")
@@ -1127,6 +1157,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print("   ", line.strip())
+    n_mma = build.sass_count("wavernn_loop", "HMMA")
+    print(f"  wavernn_loop machine code: {n_mma} HMMA opcodes (the tensor "
+          "cores' bf16 product)" if n_mma is not None
+          else "  cuobjdump not found: machine code not inspected")
+    if n_mma == 0:
+        raise AssertionError("the sample-loop kernel holds no tensor-core "
+                             "opcode")
     gpu = _gpu_line()
     print(gpu)
 
@@ -1214,6 +1251,7 @@ def main() -> int:
         **gk["bf16"],
         "library_ms": None,
         "f32": gk["f32"],
+        "barrier_us": gk["barrier_us"],
     }, {
         # one launch is one step: B 16, H 1024, f32, inside the scan
         "name": "lstm_cell",

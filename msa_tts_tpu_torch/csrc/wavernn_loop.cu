@@ -11,37 +11,74 @@
 //   4. fc2 + ReLU on [f1, aux slice 2]
 //   5. fc3 logits and the sample (mixture of logistics from pre-drawn
 //      gumbel and logistic noise, or a Gaussian from pre-drawn normal
-//      noise), which feeds step t + 1
+//      noise); the sample's owner also writes z of step t + 1
 //
 // each phase ending at a grid-wide barrier, because each reads all of
 // the previous one's output.  The five matrix products are computed
-// here, in the kernel's own loops (dot_tile); no library is called.
+// here, in the kernel's own loops; no library is called.
 //
-// What bounds it on an H100: every step reads all sample-loop weights,
-// 3.77 M of them at the default width (15.07 MB in f32, 7.53 MB in bf16),
-// which fit the 50 MB L2, so after the first step they stream from L2,
-// not from HBM; at B rows a step also does 2 * 3.77 M * B float
-// operations.  Both floors are a few microseconds; the five dependent
-// barriers and the staging of each phase's inputs come on top.  The
-// design spreads each layer's output units round-robin over the blocks,
-// reads every weight row coalesced (lanes walk the contiguous input
-// dimension of an (out, in) row, 16 bytes a lane in f32, 8 in bf16),
-// stages the phase's input rows in shared memory once per block in
-// chunks of STAGE_ROWS rows (so any B is served), and gives a warp a
-// tile of ROW_TILE rows of one unit, so each weight value it loads is
-// used ROW_TILE times.  fc3 stays in shared memory for the whole
-// launch.  Weights resident in shared memory across steps and tensor
-// cores for B >= 16 are left for later work.
+// What bounds it on an H100: neither bytes nor arithmetic (3.77 M
+// weights, 2 * 3.77 M * B operations a step: a microsecond or less) but
+// the latency of five dependent exchanges a step (a grid barrier, a trip
+// to L2, a short product, gate math on a few threads) and, at many rows,
+// the all-to-all staging: every block needs every row's activations in
+// every phase, 6 KB a row and step in bf16, which arrive at ~18 bytes
+// per nanosecond and SM.  What the design does about it:
 //
-// A row's sums are taken in an order fixed by the widths alone, never
-// by B or the grid, so a row's samples do not depend on its batch.
+//   - Output units go round-robin over the blocks (unit u of a layer
+//     belongs to block u % G), and with bf16 weights a block keeps its
+//     rows of all five layers in shared memory for the whole launch
+//     (114 KB at the default width on 132 blocks), laid out in the
+//     fragment order of mma.sync.m16n8k16 so that a warp loads one
+//     16 x 16 weight tile as 32 consecutive 16-byte words.  The
+//     products run on the tensor cores: A = 16 weight rows (a GRU tile
+//     holds 5 units x 3 gates, an fc tile 8 outputs and skips the upper
+//     half), B = 16 inputs x 8 batch rows, f32 sums.  Inside the step
+//     loop no weight matrix is read from global memory.
+//   - f32 weights (15 MB) do not fit beside the staging for the whole
+//     launch; a block copies its rows of the coming phase from L2 into
+//     one shared-memory buffer (cp.async, started when the previous
+//     phase's products are done, so it runs under that phase's gate math
+//     and barrier).  A lane owns a whole weight row and up to 4 batch
+//     rows of one K slice (an fc layer's few rows: 2 batch rows) and sums
+//     with fmaf in ascending k; there is no shuffle reduction in either
+//     type.
+//   - Activations are exchanged once, in the type the next product
+//     reads (bf16-rounded for bf16 weights), beside the f32 state that
+//     only the owning block needs for its gate update.  The exchange
+//     buffers keep, in global memory already, the row pitch the products
+//     want in shared memory (rows padded so the B-fragment loads hit 32
+//     banks, K padded to whole k-steps with zeros, the concat-input
+//     layers' aux columns after their z columns, written a step ahead
+//     by the row's owner), so a chunk of rows is one contiguous piece
+//     and staging is a flat cp.async copy (16 bytes a thread, L2 only)
+//     into a ring of two buffers of up to 24 rows: the next chunk's
+//     loads run under a chunk's products.  Blocks take the chunks in
+//     rotated orders, so that the grid does not ask L2 for the same rows
+//     at once.  With bf16 weights a chunk's gate math runs on the
+//     block's last warps, out of a second partial-sum buffer, while the
+//     first warps are at the next chunk's products: one block barrier a
+//     chunk.
+//   - K is split over warps in a way fixed by the widths alone (2
+//     halves on the tensor cores, 8 slices in f32); partial sums meet in
+//     shared memory and are added in slice order.  A row's sums thus
+//     never depend on B or the grid: a batch row equals its solo run.
+//   - The step barrier is cooperative_groups' grid.sync(): 1.0 us on
+//     132 blocks, what a hand-written one (a release add on a monotone
+//     counter per block, an acquire spin) measured too.
+//   - The streams of step t + 1 (i_static, a_rest, noise) are
+//     prefetched into L2 during step t.
 //
 // bf16 weights: the stored matrices are bf16, every product's input is
-// rounded to bf16 (round to nearest even) where it is staged, products
-// and sums are f32, biases and gate math f32 — the contraction of
+// rounded to bf16 (round to nearest even) by its producer, products are
+// exact and sums f32, biases and gate math f32: the contraction of
 // wavernn._mm.  State that one phase writes while other blocks still
-// read it (h1, h2) is double-buffered; cross-block state is read with
-// __ldcg (L2, never a possibly stale L1 line).
+// read it (h1, h2) is double-buffered; cross-block state is read from
+// L2 (cp.async.cg, __ldcg), never from a possibly stale L1 line.
+//
+// With a stamp buffer the kernel writes %globaltimer four times per
+// phase of block 0: the last chunk's inputs staged, its products done,
+// arrived at the barrier, left it.
 //
 // The C entry points take plain pointers and return a cudaError_t code,
 // so the library is loaded with ctypes and needs no PyTorch headers.
@@ -56,120 +93,215 @@ namespace {
 
 constexpr int NT = 512;            // threads per block
 constexpr int NW = NT / 32;        // warps per block
-constexpr int ROW_TILE = 4;        // batch rows per warp work item
-constexpr int STAGE_ROWS = 16;     // batch rows staged at a time
-constexpr int FC_ROWS = 2;         // fc output units per warp work item
-constexpr int LOGIT_GROUP = 6;     // fc3 outputs summed together
-constexpr int STAGE_UNROLL = 4;    // 16-byte loads in flight per thread
+constexpr int SMEM_MAX = 232448;   // bytes a Hopper block can use
+constexpr int GRU_PER_TILE = 5;    // units (3 gate rows each) per 16-row tile
+constexpr int FC_PER_TILE = 8;     // fc outputs per (half) tile
+constexpr int KSPLIT_BF16 = 2;     // K halves per tile on the tensor cores
+constexpr int KSPLIT_F32 = 8;      // K slices per weight row in f32
+constexpr int NB = 2;              // staging buffers
+constexpr int N_STAMPS = 20;       // 4 stamps x 5 phases a step
+constexpr int N_SECTIONS = 7;      // resident weight sections (bf16)
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;   // log(1e-14)
 constexpr float LOG_STD_MIN = -7.0f;
 
 enum Ptr {
   P_ISTATIC, P_AREST, P_N1, P_N2,
-  P_RNN1_IH, P_RNN1_HH, P_RNN1_BIH, P_RNN1_BHH,
-  P_RNN2_IH_Z, P_RNN2_IH_A, P_RNN2_HH, P_RNN2_BIH, P_RNN2_BHH,
-  P_FC1_Z, P_FC1_A, P_FC1_B, P_FC2_Z, P_FC2_A, P_FC2_B,
-  P_FC3_W, P_FC3_B, P_W_X,
-  P_OUT, P_SCRATCH, N_PTRS
+  // every block's slice of the seven matrices: bf16 in fragment order,
+  // f32 as padded rows
+  P_PACKED,
+  P_RNN1_BIH, P_RNN1_BHH, P_RNN2_BIH, P_RNN2_BHH, P_FC1_B, P_FC2_B,
+  P_FC3_B, P_W_X,
+  P_OUT, P_SCRATCH, P_STAMPS, N_PTRS
 };
 
-enum Dim { D_T, D_B, D_R, D_F, D_D, D_NC, D_K, D_GAUSS, D_BF16, N_DIMS };
+enum Dim {
+  D_T, D_B, D_R, D_F, D_D, D_NC, D_K, D_GAUSS, D_BF16, D_G,
+  N_DIMS
+};
 
-// Weight matrices are (out, in) row-major, float or bf16 (WT); biases
-// and w_x are float.
-template <typename WT>
+enum PlanField {
+  PL_SLG, PL_SLF, PL_TG, PL_TF, PL_T3, PL_KS_R, PL_KS_RD, PL_KS_F,
+  PL_KS_FD, PL_W_BYTES, PL_W_SMEM, PL_M_ROWS, PL_KSPLIT, PL_CH, PL_PS,
+  PL_P_R, PL_P_RD, PL_P_F, PL_P_FD, PL_STRIDE_A, PL_STRIDE_H, PL_OFF_STAGE, PL_OFF_PART, PL_OFF_MISC, PL_TOTAL,
+  N_PLAN
+};
+
+// The shared-memory layout and tile counts, from the widths and the
+// grid (cuda_gen.py::smem_plan mirrors it).
+struct Plan {
+  int slg, slf;                 // most GRU units / fc outputs of a block
+  int tg, tf, t3;               // m-tiles: per GRU matrix, per fc, fc3
+  int ks_r, ks_rd, ks_f, ks_fd; // 16-wide k-steps of R, R + D, F, F + D
+  int w_off[N_SECTIONS + 1];    // a block's slice: rnn1 ih, hh, rnn2 ih,
+                                // hh, fc1, fc2, fc3 (byte offsets)
+  int w_smem;                   // shared memory for weights: the slice
+                                // (bf16) or its largest phase (f32)
+  int m_rows;                   // rows of the partial-sum buffer
+  int ksplit;
+  int ch;                       // rows staged at a time (0: none fits)
+  int ps;                       // partial-sum row pitch, floats
+  int p_r, p_rd, p_f, p_fd;     // row pitch of an exchange buffer whose
+                                // rows hold R, R + D, F, F + D values
+  int stride_a, stride_h;       // room per staged row: A part, H part
+  int off_stage, off_part, off_misc, total;
+};
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+int imax(int a, int b) { return a > b ? a : b; }
+int round16(int a) { return (a + 15) & ~15; }
+
+// Partial-sum pitch for ch staged rows: >= ch and 8 or 24 mod 32 floats,
+// so a half-warp's 8-byte fragment stores hit 32 different banks.
+int part_pitch(int ch) { return ch <= 8 ? 8 : (ch <= 24 ? 24 : 40); }
+
+bool make_plan(const int* d, Plan& pl) {
+  const int R = d[D_R], F = d[D_F], D = d[D_D], NC = d[D_NC], K = d[D_K];
+  const int G = d[D_G];
+  const bool bf = d[D_BF16] != 0;
+  pl.slg = cdiv(R, G);
+  pl.slf = cdiv(F, G);
+  pl.tg = cdiv(pl.slg, GRU_PER_TILE);
+  pl.tf = cdiv(pl.slf, FC_PER_TILE);
+  pl.t3 = cdiv(NC, 16);
+  pl.ks_r = cdiv(R, 16);
+  pl.ks_rd = cdiv(R + D, 16);
+  pl.ks_f = cdiv(F, 16);
+  pl.ks_fd = cdiv(F + D, 16);
+  // bf16: tiles of 16 (fc: 8) rows x 16 columns in fragment order;
+  // f32: a block's rows one after another (3 per GRU unit, gate inside
+  // unit), each K + 4 floats long so that lanes on different rows hit
+  // different banks
+  const int bf_sizes[N_SECTIONS] = {
+      pl.tg * pl.ks_r * 512, pl.tg * pl.ks_r * 512, pl.tg * pl.ks_rd * 512,
+      pl.tg * pl.ks_r * 512, pl.tf * pl.ks_rd * 256, pl.tf * pl.ks_fd * 256,
+      pl.t3 * pl.ks_f * 512};
+  const int f32_sizes[N_SECTIONS] = {
+      3 * pl.slg * (R + 4) * 4, 3 * pl.slg * (R + 4) * 4,
+      3 * pl.slg * (R + D + 4) * 4, 3 * pl.slg * (R + 4) * 4,
+      pl.slf * (R + D + 4) * 4, pl.slf * (F + D + 4) * 4, NC * (F + 4) * 4};
+  int off = 0;
+  for (int i = 0; i < N_SECTIONS; ++i) {
+    pl.w_off[i] = off;
+    off += bf ? bf_sizes[i] : f32_sizes[i];
+  }
+  pl.w_off[N_SECTIONS] = off;
+  if (bf) {
+    pl.w_smem = off;
+  } else {
+    pl.w_smem = imax(pl.w_off[2], pl.w_off[4] - pl.w_off[2]);
+    for (int i = 4; i < N_SECTIONS; ++i)
+      pl.w_smem = imax(pl.w_smem, pl.w_off[i + 1] - pl.w_off[i]);
+  }
+  pl.m_rows = 16 * imax(2 * pl.tg, imax(pl.tf, pl.t3));
+  pl.ksplit = bf ? KSPLIT_BF16 : KSPLIT_F32;
+  if (bf) {
+    // whole k-steps, and a pitch in 4-byte words that is 4 mod 8: the 8
+    // rows x 4 words of a B-fragment load fall into 32 different banks
+    pl.p_r = 32 * pl.ks_r + 16;
+    pl.p_rd = 32 * pl.ks_rd + 16;
+    pl.p_f = 32 * pl.ks_f + 16;
+    pl.p_fd = 32 * pl.ks_fd + 16;
+  } else {
+    pl.p_r = 4 * R;
+    pl.p_rd = 4 * (R + D);
+    pl.p_f = 4 * F;
+    pl.p_fd = 4 * (F + D);
+  }
+  pl.stride_a = imax(imax(pl.p_r, pl.p_rd), imax(pl.p_f, pl.p_fd));
+  pl.stride_h = pl.p_r;
+  // 8 samples and their noise
+  const int misc = round16(32 + 8 * (K + 1) * 4);
+  pl.off_stage = pl.w_smem;
+  pl.ch = 0;
+  for (int ch = 32; ch >= 8; ch -= 8) {
+    pl.ps = part_pitch(ch);
+    const int stage = NB * ch * (pl.stride_a + pl.stride_h);
+    // bf16, two: a chunk's sums are finished while the next chunk's are
+    // made
+    const int part = (bf ? 2 : 1) * pl.ksplit * pl.m_rows * pl.ps * 4;
+    pl.off_part = pl.off_stage + stage;
+    pl.off_misc = pl.off_part + part;
+    pl.total = pl.off_misc + misc;
+    if (pl.total <= SMEM_MAX) {
+      pl.ch = ch;
+      return true;
+    }
+  }
+  return false;                 // total holds the need at 8 rows
+}
+
+void plan_fields(const Plan& pl, int* out) {
+  out[PL_SLG] = pl.slg; out[PL_SLF] = pl.slf; out[PL_TG] = pl.tg;
+  out[PL_TF] = pl.tf; out[PL_T3] = pl.t3; out[PL_KS_R] = pl.ks_r;
+  out[PL_KS_RD] = pl.ks_rd; out[PL_KS_F] = pl.ks_f;
+  out[PL_KS_FD] = pl.ks_fd; out[PL_W_BYTES] = pl.w_off[N_SECTIONS];
+  out[PL_W_SMEM] = pl.w_smem; out[PL_M_ROWS] = pl.m_rows; out[PL_KSPLIT] = pl.ksplit;
+
+  out[PL_CH] = pl.ch; out[PL_PS] = pl.ps; out[PL_P_R] = pl.p_r;
+  out[PL_P_RD] = pl.p_rd; out[PL_P_F] = pl.p_f; out[PL_P_FD] = pl.p_fd;
+  out[PL_STRIDE_A] = pl.stride_a;
+  out[PL_STRIDE_H] = pl.stride_h; out[PL_OFF_STAGE] = pl.off_stage;
+  out[PL_OFF_PART] = pl.off_part; out[PL_OFF_MISC] = pl.off_misc;
+  out[PL_TOTAL] = pl.total;
+}
+
+// Scratch, zeroed by the caller: f32 state that only a unit's owner reads (h1, h2, z1, z: B x R each),
+// then the exchanged activations in the product's input type, B rows at
+// the plan's pitches: z, h1 x 2, h2 x 2 (p_r), z1, z2 (p_rd), f1 (p_fd),
+// f2 (p_f).
+size_t scratch_bytes(const int* d) {
+  Plan pl;
+  make_plan(d, pl);
+  const size_t B = d[D_B], R = d[D_R];
+  const size_t rows_r = (B * R + 7) & ~(size_t)7;
+  return 4 * rows_r * 4
+      + B * (5 * (size_t)pl.p_r + 2 * (size_t)pl.p_rd + pl.p_fd + pl.p_f);
+}
+
 struct Params {
   const float* i_static;   // (T, B, R)
   const float* a_rest;     // (T, B, 3 D) or null when D == 0
   const float* n1;         // (T, B, K) mixture noise (MOL) or null
   const float* n2;         // (T, B) sample noise
-  const WT* rnn1_ih;       // (3R, R)
-  const WT* rnn1_hh;       // (3R, R)
-  const float* rnn1_bih; const float* rnn1_bhh;   // (3R)
-  const WT* rnn2_ih_z;     // (3R, R)
-  const WT* rnn2_ih_a;     // (3R, D)
-  const WT* rnn2_hh;       // (3R, R)
-  const float* rnn2_bih; const float* rnn2_bhh;
-  const WT* fc1_z;         // (F, R)
-  const WT* fc1_a;         // (F, D)
-  const float* fc1_b;
-  const WT* fc2_z;         // (F, F)
-  const WT* fc2_a;         // (F, D)
-  const float* fc2_b;
-  const WT* fc3_w;         // (NC, F)
-  const float* fc3_b;      // (NC)
+  const unsigned char* packed;   // the blocks' slices, (G, w_bytes)
+  const float* b1i; const float* b1h;     // (3R)
+  const float* b2i; const float* b2h;
+  const float* bf1; const float* bf2;     // (F)
+  const float* b3;         // (NC)
   const float* w_x;        // (R)
   float* out;              // (B, T)
-  // scratch state
-  float* x;                // (B) previous sample
-  float* h1[2]; float* h2[2];          // (B, R)
-  float* z1; float* z2;                // (B, R)
-  float* f1; float* f2;                // (B, F)
+  float* hf1; float* hf2;  // f32 hidden state, owner only
+  float* z1f; float* zf;   // f32 z1 and z, owner only
+  void* zx; void* h1x[2]; void* z1x; void* h2x[2]; void* z2x;
+  void* f1x; void* f2x;    // exchanged activations
+  long long* stamps;       // (T, N_STAMPS) or null
   int T, B, R, F, D, NC, K, gauss;
+  Plan pl;
 };
 
-size_t scratch_floats(const int* d) {
-  const size_t B = d[D_B];
-  // the previous samples take B floats rounded up to 4, so that every
-  // other buffer starts 16-byte aligned
-  return ((B + 3) & ~(size_t)3) + B * (6 * (size_t)d[D_R] + 2 * (size_t)d[D_F]);
-}
+// The five phases of a step, as the f32 weight buffer names them.
+enum Phase { PH_GRU1, PH_GRU2, PH_FC1, PH_FC2, PH_SAMPLE, N_PHASES };
 
-int imax(int a, int b) { return a > b ? a : b; }
-
-// Shared memory: the staging area (two inputs of STAGE_ROWS rows, or one
-// fc3 input row per warp), fc3 resident as floats, and NC logits a warp.
-size_t stage_floats(const int* d) {
-  const int k = imax(d[D_R], d[D_F]);
-  return (size_t)imax(2 * STAGE_ROWS * k, NW * d[D_F]);
-}
-
-size_t smem_bytes(const int* d) {
-  return (stage_floats(d) + (size_t)d[D_NC] * d[D_F]
-          + (size_t)NW * d[D_NC]) * sizeof(float);
-}
+template <bool BF> struct XT_ { typedef float T; };
+template <> struct XT_<true> { typedef uint16_t T; };
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// float -> bf16 -> float, round to nearest even (what a cast does).
-__device__ __forceinline__ float round_bf16(float v) {
+// float -> bf16 bits, round to nearest even (what a cast does).
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
   uint32_t u = __float_as_uint(v);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return v;          // NaN
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (uint16_t)((u >> 16) | 0x40u);
   u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
+  return (uint16_t)(u >> 16);
 }
 
-// The rounding a product's input gets: none for float weights.
-template <typename WT> __device__ __forceinline__ float as_input(float v);
-template <> __device__ __forceinline__ float as_input<float>(float v) {
-  return v;
+__device__ __forceinline__ void store_x(float* p, size_t i, float v) {
+  __stcg(p + i, v);
 }
-template <> __device__ __forceinline__ float as_input<uint16_t>(float v) {
-  return round_bf16(v);
-}
-
-// Four consecutive weights starting at w (16- or 8-byte aligned).
-__device__ __forceinline__ float4 load4(const float* w) {
-  return __ldg(reinterpret_cast<const float4*>(w));
-}
-__device__ __forceinline__ float4 load4(const uint16_t* w) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(w));
-  return make_float4(__uint_as_float(r.x << 16),
-                     __uint_as_float(r.x & 0xffff0000u),
-                     __uint_as_float(r.y << 16),
-                     __uint_as_float(r.y & 0xffff0000u));
-}
-__device__ __forceinline__ float load1(const float* w) { return __ldg(w); }
-__device__ __forceinline__ float load1(const uint16_t* w) {
-  return __uint_as_float((uint32_t)__ldg(w) << 16);
+__device__ __forceinline__ void store_x(uint16_t* p, size_t i, float v) {
+  __stcg(p + i, (unsigned short)bf16_bits(v));
 }
 
 __device__ __forceinline__ float dot4(float4 w, float4 x, float acc) {
@@ -179,88 +311,563 @@ __device__ __forceinline__ float dot4(float4 w, float4 x, float acc) {
   return fmaf(w.w, x.w, acc);
 }
 
-// This lane's part of NR weight rows (each n floats, n % 4 == 0) against
-// ROW_TILE staged input rows xs (ROW_TILE, n): lanes walk the rows 16
-// bytes at a time.
-template <typename WT, int NR>
-__device__ __forceinline__ void dot_tile(float (&acc)[NR][ROW_TILE],
-                                         const WT* const (&w)[NR], int n,
-                                         const float* xs, int lane) {
-  const int n4 = n >> 2;
-  for (int i = lane; i < n4; i += 32) {
-    float4 wv[NR];
-#pragma unroll
-    for (int g = 0; g < NR; ++g) wv[g] = load4(w[g] + 4 * i);
-#pragma unroll
-    for (int bb = 0; bb < ROW_TILE; ++bb) {
-      const float4 x = *reinterpret_cast<const float4*>(xs + bb * n + 4 * i);
-#pragma unroll
-      for (int g = 0; g < NR; ++g) acc[g][bb] = dot4(wv[g], x, acc[g][bb]);
+__device__ __forceinline__ long long globaltimer() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return (long long)ns;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst_smem, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
+// Block 0's clock stamp k of the current phase (s null elsewhere).
+__device__ __forceinline__ void stamp(long long* s, int k) {
+  if (s != nullptr && threadIdx.x == 0) s[k] = globaltimer();
+}
+
+// The grid-wide barrier that ends a phase.  ``s`` (block 0 only, or null)
+// gets the clock when the block has arrived (2) and when it leaves (3).
+__device__ __forceinline__ void grid_barrier(cg::grid_group& grid,
+                                             long long* s) {
+  __syncthreads();
+  stamp(s, 2);
+  grid.sync();
+  stamp(s, 3);
+}
+
+// D = A (16 x 16 bf16, row) * B (16 x 8 bf16, col) + D, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// This lane's B fragment of one k-step (two words 16 bytes apart), and
+// of two consecutive k-steps.
+__device__ __forceinline__ uint2 ld_bfrag(const unsigned char* x) {
+  return make_uint2(*reinterpret_cast<const uint32_t*>(x),
+                    *reinterpret_cast<const uint32_t*>(x + 16));
+}
+__device__ __forceinline__ uint4 ld_bfrag2(const unsigned char* x) {
+  return make_uint4(*reinterpret_cast<const uint32_t*>(x),
+                    *reinterpret_cast<const uint32_t*>(x + 16),
+                    *reinterpret_cast<const uint32_t*>(x + 32),
+                    *reinterpret_cast<const uint32_t*>(x + 48));
+}
+
+// The output rows of one phase in this block.  Rows come in tiles of 16
+// partial-sum rows: nI tiles contract the A buffer, nH tiles the H
+// buffer (the GRUs' recurrent halves; partial rows from mH on).
+// kind 0: a GRU tile holds units ti*5 .. ti*5 + 4, row (unit % 5) * 3 +
+// gate; 1: an fc tile holds outputs ti*8 .. ti*8 + 7 in its lower half;
+// 2: fc3, row ti*16 + r of the matrix, the same in every block.
+struct Rows {
+  int kind, nI, nH, mH;
+  int slots;               // this block's units / outputs
+  // the two matrices in shared memory: bf16 tiles with their k-steps, or
+  // f32 rows (3 per unit, or one per output), their count and length
+  const unsigned char* tI; const unsigned char* tH;
+  int ksI, ksH;
+  int rI, rH;
+  int kI, kH;
+  int pA, pH;              // row pitch of the staged A and H inputs, bytes
+};
+
+// One phase's products for ``rows`` staged rows on the tensor cores.
+// A task is (tile, 8 batch rows, half of the k-steps); its 16 x 8 sums
+// go to part[half][tile row][batch row].
+__device__ void product_bf16(const Rows& rw, const unsigned char* bufA,
+                             const unsigned char* bufH, const Plan& pl,
+                             int rows, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int ntl = (rows + 7) >> 3;
+  const int ntask = (rw.nI + rw.nH) * ntl * KSPLIT_BF16;
+  const bool half = rw.kind == 1;
+  for (int task = warp; task < ntask; task += NW) {
+    const int kh = task & 1, rest = task >> 1;
+    const int nt = rest % ntl, tt = rest / ntl;
+    const bool isH = tt >= rw.nI;
+    const int ti = isH ? tt - rw.nI : tt;
+    const int ks = isH ? rw.ksH : rw.ksI;
+    const unsigned char* wt = (isH ? rw.tH : rw.tI)
+        + (size_t)ti * ks * (half ? 256 : 512);
+    const unsigned char* xb = (isH ? bufH : bufA)
+        + (nt * 8 + g) * (isH ? rw.pH : rw.pA) + tig * 4;
+    const int kper = (ks + 1) >> 1;
+    const int k0 = kh * kper;
+    const int k1 = (k0 + kper < ks) ? k0 + kper : ks;
+    float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (half) {
+      const uint2* a = reinterpret_cast<const uint2*>(wt) + lane;
+      int k = k0;
+#pragma unroll 2
+      for (; k + 1 < k1; k += 2) {
+        const uint2 av = a[k * 32], aw = a[k * 32 + 32];
+        const uint4 bv = ld_bfrag2(xb + k * 32);
+        mma_bf16(c0, av.x, 0u, av.y, 0u, bv.x, bv.y);
+        mma_bf16(c1, aw.x, 0u, aw.y, 0u, bv.z, bv.w);
+      }
+      if (k < k1) {
+        const uint2 av = a[k * 32];
+        const uint2 bv = ld_bfrag(xb + k * 32);
+        mma_bf16(c0, av.x, 0u, av.y, 0u, bv.x, bv.y);
+      }
+    } else {
+      const uint4* a = reinterpret_cast<const uint4*>(wt) + lane;
+      int k = k0;
+#pragma unroll 2
+      for (; k + 1 < k1; k += 2) {
+        const uint4 av = a[k * 32], aw = a[k * 32 + 32];
+        const uint4 bv = ld_bfrag2(xb + k * 32);
+        mma_bf16(c0, av.x, av.y, av.z, av.w, bv.x, bv.y);
+        mma_bf16(c1, aw.x, aw.y, aw.z, aw.w, bv.z, bv.w);
+      }
+      if (k < k1) {
+        const uint4 av = a[k * 32];
+        const uint2 bv = ld_bfrag(xb + k * 32);
+        mma_bf16(c0, av.x, av.y, av.z, av.w, bv.x, bv.y);
+      }
     }
+    const int m0 = (isH ? rw.mH : 0) + ti * 16 + g;
+    float* o = part + ((size_t)kh * pl.m_rows + m0) * pl.ps + nt * 8
+        + 2 * tig;
+    *reinterpret_cast<float2*>(o) = make_float2(c0[0] + c1[0], c0[1] + c1[1]);
+    if (!half)
+      *reinterpret_cast<float2*>(o + 8 * pl.ps) =
+          make_float2(c0[2] + c1[2], c0[3] + c1[3]);
   }
 }
 
-// The aux part of the same NR outputs: weight rows wa (each D floats)
-// against slice ``off`` of a_rest[t] for rows b0 .. b0 + ROW_TILE.
-template <typename WT, int NR>
-__device__ __forceinline__ void dot_aux(float (&acc)[NR][ROW_TILE],
-                                        const WT* const (&wa)[NR],
-                                        const float* a_t, int D, int off,
-                                        int b0, int B, int lane) {
-  for (int l = lane; l < D; l += 32) {
-    float wv[NR];
+// One weight row's slice (n float4 at wp) against up to NV staged rows
+// (nv of them valid), summed with fmaf in ascending k.
+template <int NV>
+__device__ __forceinline__ void f32_rows(const float4* wp,
+                                         const unsigned char* xb, int pitch,
+                                         int n, int nv, float* o) {
+  float acc[NV];
 #pragma unroll
-    for (int g = 0; g < NR; ++g) wv[g] = load1(wa[g] + l);
+  for (int q = 0; q < NV; ++q) acc[q] = 0.0f;
+#pragma unroll 2
+  for (int i = 0; i < n; ++i) {
+    const float4 wv = wp[i];
 #pragma unroll
-    for (int bb = 0; bb < ROW_TILE; ++bb) {
-      const int b = b0 + bb;
-      const float a = b < B
-          ? as_input<WT>(__ldg(a_t + (size_t)b * 3 * D + off + l)) : 0.0f;
+    for (int q = 0; q < NV; ++q)
+      if (NV <= 2 || q < nv)
+        acc[q] = dot4(wv, *reinterpret_cast<const float4*>(
+                              xb + q * pitch + i * 16), acc[q]);
+  }
 #pragma unroll
-      for (int g = 0; g < NR; ++g) acc[g][bb] = fmaf(wv[g], a, acc[g][bb]);
+  for (int q = 0; q < NV; ++q)
+    if (NV <= 2 || q < nv) o[q] = acc[q];
+}
+
+// The same products with f32 weights, from the phase's rows in shared
+// memory, K in KSPLIT_F32 slices summed in ascending k.  A GRU's or
+// fc3's many rows: a task is (32 weight rows = 32 lanes, 4 batch rows,
+// a K slice), a lane owns one weight row.  An fc layer's few rows: a
+// task is (8 weight rows, 8 batch rows, a K slice), lane 8 q + j owns
+// weight row j and batch rows 2 q, 2 q + 1.
+__device__ void product_f32(const Rows& rw, const unsigned char* bufA,
+                            const unsigned char* bufH, const Plan& pl,
+                            int rows, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (rw.kind == 1) {
+    const int ntl = (rows + 7) >> 3;
+    const int groups = (rw.rI + 7) >> 3;
+    const int ntask = groups * ntl * KSPLIT_F32;
+    const int k4 = rw.kI >> 2, kper = (k4 + KSPLIT_F32 - 1) / KSPLIT_F32;
+    for (int task = warp; task < ntask; task += NW) {
+      const int kq = task % KSPLIT_F32, rest = task / KSPLIT_F32;
+      const int nt = rest % ntl, jj = (rest / ntl) * 8 + (lane & 7);
+      const int b = nt * 8 + (lane >> 3) * 2;      // first of two rows
+      if (jj >= rw.slots || b >= rows) continue;
+      const int k0 = kq * kper;
+      const int n = (k0 + kper < k4 ? k0 + kper : k4) - k0;
+      const float4* wp = reinterpret_cast<const float4*>(
+          rw.tI + (size_t)jj * (rw.kI + 4) * 4) + k0;
+      const unsigned char* xb = bufA + b * rw.pA + k0 * 16;
+      float* o = part + ((size_t)kq * pl.m_rows
+                         + (jj / FC_PER_TILE) * 16 + jj % FC_PER_TILE) * pl.ps
+          + b;
+      if (b + 1 < rows) f32_rows<2>(wp, xb, rw.pA, n, 2, o);
+      else f32_rows<1>(wp, xb, rw.pA, n, 1, o);
     }
+    return;
+  }
+  const int ntl = (rows + 3) >> 2;
+  const int groups = (rw.rI + rw.rH + 31) >> 5;
+  const int ntask = groups * ntl * KSPLIT_F32;
+  for (int task = warp; task < ntask; task += NW) {
+    const int kq = task % KSPLIT_F32, rest = task / KSPLIT_F32;
+    const int nt = rest % ntl, j = (rest / ntl) * 32 + lane;
+    const bool isH = j >= rw.rI;
+    const int jj = isH ? j - rw.rI : j;
+    int m = -1;                         // this lane's partial-sum row
+    if (j < rw.rI + rw.rH) {
+      if (rw.kind == 0) {
+        const int s = jj / 3;
+        if (s < rw.slots)
+          m = (s / GRU_PER_TILE) * 16 + (s % GRU_PER_TILE) * 3 + jj % 3;
+      } else {
+        m = jj;
+      }
+    }
+    if (m < 0) continue;
+    if (isH) m += rw.mH;
+    const int kk = isH ? rw.kH : rw.kI;
+    const int k4 = kk >> 2, kper = (k4 + KSPLIT_F32 - 1) / KSPLIT_F32;
+    const int k0 = kq * kper;
+    const int n = (k0 + kper < k4 ? k0 + kper : k4) - k0;
+    const float4* wp = reinterpret_cast<const float4*>(
+        (isH ? rw.tH : rw.tI) + (size_t)jj * (kk + 4) * 4) + k0;
+    const int pitch = isH ? rw.pH : rw.pA;
+    const unsigned char* xb = (isH ? bufH : bufA) + (nt * 4) * pitch
+        + k0 * 16;
+    const int nv = rows - nt * 4;       // valid rows of this group
+    float* o = part + ((size_t)kq * pl.m_rows + m) * pl.ps + nt * 4;
+    if (nv == 1) f32_rows<1>(wp, xb, pitch, n, nv, o);
+    else if (nv == 2) f32_rows<2>(wp, xb, pitch, n, nv, o);
+    else f32_rows<4>(wp, xb, pitch, n, nv, o);
   }
 }
 
-template <typename WT>
-__device__ __forceinline__ float4 as_input4(float4 v) {
-  return make_float4(as_input<WT>(v.x), as_input<WT>(v.y),
-                     as_input<WT>(v.z), as_input<WT>(v.w));
+// f32 only: which phases this block has rows in, the next such phase
+// after q, and the copy of a phase's weight rows into the buffer.
+__device__ __forceinline__ bool has_rows(const Params& p, int q) {
+  const int bid = blockIdx.x;
+  if (q <= PH_GRU2) return bid < p.R;
+  if (q <= PH_FC2) return bid < p.F;
+  return bid * 8 < p.B;
+}
+__device__ __forceinline__ void load_weights(const Params& p,
+                                             unsigned char* smem, int q) {
+  const Plan& pl = p.pl;
+  const int first = q <= PH_GRU2 ? 2 * q : q + 2;
+  const int last = q <= PH_GRU2 ? first + 2 : first + 1;
+  const unsigned char* src = p.packed
+      + (size_t)blockIdx.x * pl.w_off[N_SECTIONS] + pl.w_off[first];
+  const int n = pl.w_off[last] - pl.w_off[first];
+  for (int c = threadIdx.x * 16; c < n; c += NT * 16)
+    cp_async16(smem + c, src + c);
+  cp_async_commit();
+}
+// Before phase q's first staging: its rows, unless already on their way.
+__device__ __forceinline__ void want_weights(const Params& p,
+                                             unsigned char* smem, int q,
+                                             int& held) {
+  if (held != q) load_weights(p, smem, q);
+  held = q;
+}
+// After phase q's last products: the rows of the block's next phase.
+__device__ __forceinline__ void next_weights(const Params& p,
+                                             unsigned char* smem, int q,
+                                             int& held) {
+  int nq = q;
+  do { nq = nq + 1 == N_PHASES ? 0 : nq + 1; } while (!has_rows(p, nq));
+  if (nq != q) load_weights(p, smem, nq);
+  held = nq;
 }
 
-// Stage rows [b0, b0 + STAGE_ROWS) of a (B, n) buffer into xs
-// (STAGE_ROWS, n), rounded as a product input, zeros past row B.  Each
-// thread moves 16 bytes at a time and starts all its loads before its
-// first store, so a chunk costs one trip to L2, not one per element.
-// ``load(b, i)`` gives elements i .. i + 3 of row b.
+// Partial row m, batch row bl: the K slices added in slice order.
+template <bool BF>
+__device__ __forceinline__ float psum(const float* part, const Plan& pl,
+                                      int m, int bl) {
+  constexpr int KS = BF ? KSPLIT_BF16 : KSPLIT_F32;
+  const float* q = part + m * pl.ps + bl;
+  const int step = pl.m_rows * pl.ps;
+  float s = q[0];
+#pragma unroll
+  for (int k = 1; k < KS; ++k) s += q[k * step];
+  return s;
+}
 
-template <typename WT, typename Load>
-__device__ __forceinline__ void stage_chunk(float* xs, int b0, int B, int n,
-                                            Load load) {
-  const int n4 = n >> 2, total = STAGE_ROWS * n4;
-  for (int base = threadIdx.x; base < total; base += NT * STAGE_UNROLL) {
-    float4 v[STAGE_UNROLL];
-#pragma unroll
-    for (int k = 0; k < STAGE_UNROLL; ++k) {
-      const int idx = base + k * NT;
-      const int bb = idx / n4, i = (idx - bb * n4) << 2;
-      v[k] = (idx < total && b0 + bb < B)
-          ? load(b0 + bb, i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// The address of ring buffer ``buf``.
+__device__ __forceinline__ unsigned char* ring_buf(unsigned char* smem,
+                                                   const Plan& pl, int buf) {
+  return smem + pl.off_stage + buf * pl.ch * (pl.stride_a + pl.stride_h);
+}
+
+// Start the copy of ``bytes`` contiguous bytes (a multiple of 16) from
+// global src to shared dst, 16 bytes a thread at a time.
+__device__ __forceinline__ void stage_flat(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += NT * 16)
+    cp_async16(dst + i, src + i);
+}
+
+template <bool BF>
+__device__ __forceinline__ void product(const Rows& rw,
+                                        const unsigned char* bufA,
+                                        const unsigned char* bufH,
+                                        const Plan& pl, int rows,
+                                        float* part) {
+  if (BF) product_bf16(rw, bufA, bufH, pl, rows, part);
+  else product_f32(rw, bufA, bufH, pl, rows, part);
+}
+
+// One GRU layer for every row (torch gate order r, z, n).  layer 0:
+// input z (from the previous sample's owner), output z1 = z + h1;
+// layer 1: input [z1, aux slice 0], output z2 = z1 + h2.
+template <bool BF>
+__device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
+                          int cur, long long* st, int& held) {
+  typedef typename XT_<BF>::T XT;
+  const Plan& pl = p.pl;
+  const int R = p.R, B = p.B, G = gridDim.x, bid = blockIdx.x;
+  const int slots = bid < R ? (R - 1 - bid) / G + 1 : 0;
+  if (slots == 0) return;
+  const int es = sizeof(XT);
+  const int k_in = R + (layer ? p.D : 0);
+  Rows rw;
+  rw.kind = 0;
+  rw.nI = rw.nH = (slots + GRU_PER_TILE - 1) / GRU_PER_TILE;
+  rw.mH = 16 * pl.tg;
+  rw.slots = slots;
+  rw.tI = smem + (BF ? pl.w_off[2 * layer] : 0);
+  rw.tH = rw.tI + pl.w_off[2 * layer + 1] - pl.w_off[2 * layer];
+  rw.ksI = layer ? pl.ks_rd : pl.ks_r;
+  rw.ksH = pl.ks_r;
+  rw.rI = rw.rH = 3 * pl.slg;
+  rw.kI = k_in;
+  rw.kH = R;
+  rw.pA = layer ? pl.p_rd : pl.p_r;
+  rw.pH = pl.p_r;
+  const int ea = rw.pA / es, eh = rw.pH / es;   // pitches in elements
+  const XT* zin_x = static_cast<const XT*>(layer ? p.z1x : p.zx);
+  const float* zin_f = layer ? p.z1f : p.zf;
+  const XT* h_in = static_cast<const XT*>(layer ? p.h2x[cur] : p.h1x[cur]);
+  XT* h_out = static_cast<XT*>(layer ? p.h2x[cur ^ 1] : p.h1x[cur ^ 1]);
+  float* hf = layer ? p.hf2 : p.hf1;
+  XT* z_out = static_cast<XT*>(layer ? p.z2x : p.z1x);
+  const float* b_ih = layer ? p.b2i : p.b1i;
+  const float* b_hh = layer ? p.b2h : p.b1h;
+  float* part = reinterpret_cast<float*>(smem + pl.off_part);
+  const int eo = pl.p_rd / es;                   // z1 and z2 rows
+
+  // chunks in an order rotated by the block, so that the grid does not
+  // ask L2 for the same rows at the same time
+  const int nch = (B + pl.ch - 1) / pl.ch;
+  const int c_first = bid % nch;
+  auto chunk_b0 = [&](int c) {
+    const int cc = c + c_first;
+    return (cc < nch ? cc : cc - nch) * pl.ch;
+  };
+  auto stage = [&](int c) {
+    if (c < nch) {
+      const int b0 = chunk_b0(c);
+      const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+      unsigned char* bufA = ring_buf(smem, pl, c & 1);
+      stage_flat(bufA, reinterpret_cast<const unsigned char*>(
+                     zin_x + (size_t)b0 * ea), rows * rw.pA);
+      stage_flat(bufA + pl.ch * pl.stride_a,
+                 reinterpret_cast<const unsigned char*>(
+                     h_in + (size_t)b0 * eh), rows * rw.pH);
     }
-#pragma unroll
-    for (int k = 0; k < STAGE_UNROLL; ++k) {
-      const int idx = base + k * NT;
-      if (idx < total)
-        reinterpret_cast<float4*>(xs)[idx] = as_input4<WT>(v[k]);
+    cp_async_commit();
+  };
+
+  // bf16: the gate math of a chunk runs on the block's last threads
+  // while its first warps are at the next chunk's products, out of a
+  // second partial-sum buffer: item e of a chunk (unit e / rows, row
+  // e % rows) belongs to thread NT - 1 - e.  f32 (every warp has
+  // products, the second buffer does not fit) and a single chunk: the
+  // gate math follows its chunk's products, item e on thread e.  The
+  // old state and biases of the last chunk's items are loaded ahead,
+  // under its staging.
+  const bool lap = BF && nch > 1;
+  const int e0 = lap ? NT - 1 - (int)threadIdx.x : (int)threadIdx.x;
+  const int part_n = pl.ksplit * pl.m_rows * pl.ps;
+  // the last chunk's first item of this thread: old h, z, the six biases
+  float a_hp = 0.0f, a_zi = 0.0f, a_ir = 0.0f, a_iz = 0.0f, a_in = 0.0f;
+  float a_hr = 0.0f, a_hz = 0.0f, a_hn = 0.0f;
+  auto gates = [&](int c, bool pre) {
+    const int b0 = chunk_b0(c);
+    const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+    const float* pc = part + (lap ? c & 1 : 0) * part_n;
+    for (int it = e0; it < slots * rows; it += NT) {
+      const int s = it / rows, bl = it - s * rows;
+      const int u = bid + s * G;
+      const int mI = (s / GRU_PER_TILE) * 16 + (s % GRU_PER_TILE) * 3;
+      const int mH = rw.mH + mI;
+      const size_t o = (size_t)(b0 + bl) * R + u;
+      const bool got = pre && it == e0;
+      const float hp = got ? a_hp : __ldcg(hf + o);
+      const float zi = got ? a_zi : __ldcg(zin_f + o);
+      const float i_r = psum<BF>(pc, pl, mI, bl)
+          + (got ? a_ir : __ldg(b_ih + u));
+      const float i_z = psum<BF>(pc, pl, mI + 1, bl)
+          + (got ? a_iz : __ldg(b_ih + R + u));
+      const float i_n = psum<BF>(pc, pl, mI + 2, bl)
+          + (got ? a_in : __ldg(b_ih + 2 * R + u));
+      const float h_r = psum<BF>(pc, pl, mH, bl)
+          + (got ? a_hr : __ldg(b_hh + u));
+      const float h_z = psum<BF>(pc, pl, mH + 1, bl)
+          + (got ? a_hz : __ldg(b_hh + R + u));
+      const float h_n = psum<BF>(pc, pl, mH + 2, bl)
+          + (got ? a_hn : __ldg(b_hh + 2 * R + u));
+      const float r = sigmoidf_(i_r + h_r);
+      const float zg = sigmoidf_(i_z + h_z);
+      const float n = tanhf(i_n + r * h_n);
+      const float h = (1.0f - zg) * n + zg * hp;
+      __stcg(hf + o, h);
+      store_x(h_out, (size_t)(b0 + bl) * eh + u, h);
+      const float zo = zi + h;
+      if (layer == 0) __stcg(p.z1f + o, zo);
+      store_x(z_out, (size_t)(b0 + bl) * eo + u, zo);
     }
+  };
+
+  if (!BF) want_weights(p, smem, layer, held);
+  stage(0);
+  for (int c = 0; c < nch; ++c) {
+    const int b0 = chunk_b0(c);
+    const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+    if (c + 1 == nch && e0 < slots * rows) {
+      const int s = e0 / rows, u = bid + s * G;
+      const size_t o = (size_t)(b0 + e0 - s * rows) * R + u;
+      a_hp = __ldcg(hf + o);
+      a_zi = __ldcg(zin_f + o);
+      a_ir = __ldg(b_ih + u);
+      a_iz = __ldg(b_ih + R + u);
+      a_in = __ldg(b_ih + 2 * R + u);
+      a_hr = __ldg(b_hh + u);
+      a_hz = __ldg(b_hh + R + u);
+      a_hn = __ldg(b_hh + 2 * R + u);
+    }
+    cp_async_wait<0>();
+    __syncthreads();               // chunk c has landed; chunk c - 1's
+                                   // products are done and its buffer free
+    stage(c + 1);
+    if (c + 1 == nch) stamp(st, 0);
+    const unsigned char* bufA = ring_buf(smem, pl, c & 1);
+    product<BF>(rw, bufA, bufA + pl.ch * pl.stride_a, pl, rows,
+                part + (lap ? c & 1 : 0) * part_n);
+    if (lap) {
+      if (c > 0) gates(c - 1, false);
+      if (c + 1 < nch) continue;
+    }
+    __syncthreads();
+    if (c + 1 == nch) {
+      stamp(st, 1);
+      if (!BF) next_weights(p, smem, layer, held);
+    }
+    gates(c, c + 1 == nch);
   }
 }
 
-template <typename WT>
-__device__ void stage_rows(float* xs, const float* src, int b0, int B, int n) {
-  stage_chunk<WT>(xs, b0, B, n, [=](int b, int i) {
-    return __ldcg(reinterpret_cast<const float4*>(src + (size_t)b * n + i));
-  });
+// One fully connected layer with ReLU for every row:
+// out[b, j] = relu(w[j] . [in[b], aux slice] + bias[j]).
+// which 0: fc1 on [z2, aux slice 1]; 1: fc2 on [f1, aux slice 2].
+template <bool BF>
+__device__ void fc_phase(const Params& p, unsigned char* smem, int which,
+                         long long* st, int& held) {
+  typedef typename XT_<BF>::T XT;
+  const Plan& pl = p.pl;
+  const int B = p.B, F = p.F, G = gridDim.x, bid = blockIdx.x;
+  const int slots = bid < F ? (F - 1 - bid) / G + 1 : 0;
+  if (slots == 0) return;
+  const int es = sizeof(XT);
+  const int n_in = which ? p.F : p.R;
+  const int k_in = n_in + p.D;
+  Rows rw;
+  rw.kind = 1;
+  rw.nI = (slots + FC_PER_TILE - 1) / FC_PER_TILE;
+  rw.nH = 0;
+  rw.mH = 0;
+  rw.slots = slots;
+  rw.tI = smem + (BF ? pl.w_off[4 + which] : 0);
+  rw.tH = nullptr;
+  rw.ksI = which ? pl.ks_fd : pl.ks_rd;
+  rw.ksH = 0;
+  rw.rI = pl.slf;
+  rw.rH = 0;
+  rw.kI = k_in;
+  rw.kH = 0;
+  rw.pA = which ? pl.p_fd : pl.p_rd;
+  rw.pH = 0;
+  const int ea = rw.pA / es;                       // pitches in elements
+  const int eo = (which ? pl.p_f : pl.p_fd) / es;  // f2 and f1 rows
+  const XT* in = static_cast<const XT*>(which ? p.f1x : p.z2x);
+  XT* out = static_cast<XT*>(which ? p.f2x : p.f1x);
+  const float* bias = which ? p.bf2 : p.bf1;
+  float* part = reinterpret_cast<float*>(smem + pl.off_part);
+
+  const int nch = (B + pl.ch - 1) / pl.ch;
+  const int c_first = bid % nch;
+  auto chunk_b0 = [&](int c) {
+    const int cc = c + c_first;
+    return (cc < nch ? cc : cc - nch) * pl.ch;
+  };
+  auto stage = [&](int c) {
+    if (c < nch) {
+      const int b0 = chunk_b0(c);
+      const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+      stage_flat(ring_buf(smem, pl, c & 1),
+                 reinterpret_cast<const unsigned char*>(
+                     in + (size_t)b0 * ea), rows * rw.pA);
+    }
+    cp_async_commit();
+  };
+  // bias and ReLU of a chunk, on the threads a GRU's gate math takes
+  const bool lap = BF && nch > 1;
+  const int e0 = lap ? NT - 1 - (int)threadIdx.x : (int)threadIdx.x;
+  const int part_n = pl.ksplit * pl.m_rows * pl.ps;
+  auto relu = [&](int c) {
+    const int b0 = chunk_b0(c);
+    const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+    const float* pc = part + (lap ? c & 1 : 0) * part_n;
+    for (int it = e0; it < slots * rows; it += NT) {
+      const int s = it / rows, bl = it - s * rows;
+      const int j = bid + s * G;
+      const int m = (s / FC_PER_TILE) * 16 + s % FC_PER_TILE;
+      store_x(out, (size_t)(b0 + bl) * eo + j,
+              fmaxf(psum<BF>(pc, pl, m, bl) + __ldg(bias + j), 0.0f));
+    }
+  };
+
+  if (!BF) want_weights(p, smem, PH_FC1 + which, held);
+  stage(0);
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();
+    stage(c + 1);
+    const int b0 = chunk_b0(c);
+    const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+    if (c + 1 == nch) stamp(st, 0);
+    const unsigned char* bufA = ring_buf(smem, pl, c & 1);
+    product<BF>(rw, bufA, bufA, pl, rows,
+                part + (lap ? c & 1 : 0) * part_n);
+    if (lap) {
+      if (c > 0) relu(c - 1);
+      if (c + 1 < nch) continue;
+    }
+    __syncthreads();
+    if (c + 1 == nch) {
+      stamp(st, 1);
+      if (!BF) next_weights(p, smem, PH_FC1 + which, held);
+    }
+    relu(c);
+  }
 }
 
 // z[b, i] = i_static[t, b, i] + x[b] * w_x[i], the product rounded
@@ -269,342 +876,302 @@ __device__ __forceinline__ float z_sum(float is, float x, float wx) {
   return __fadd_rn(is, __fmul_rn(x, wx));
 }
 
-template <typename WT>
-__device__ __forceinline__ float z_of(const Params<WT>& p, int t, int b,
-                                      int i) {
-  return z_sum(__ldg(p.i_static + ((size_t)t * p.B + b) * p.R + i),
-               __ldcg(p.x + b), __ldg(p.w_x + i));
-}
-
-template <typename WT>
-__device__ void stage_z(const Params<WT>& p, float* xs, int t, int b0) {
-  const float* ist = p.i_static + (size_t)t * p.B * p.R;
-  const float* x = p.x;
-  const float* w_x = p.w_x;
-  const int R = p.R;
-  stage_chunk<WT>(xs, b0, p.B, R, [=](int b, int i) {
-    const float4 s = __ldg(reinterpret_cast<const float4*>(
-        ist + (size_t)b * R + i));
-    const float4 w = __ldg(reinterpret_cast<const float4*>(w_x + i));
-    const float xb = __ldcg(x + b);
-    return make_float4(z_sum(s.x, xb, w.x), z_sum(s.y, xb, w.y),
-                       z_sum(s.z, xb, w.z), z_sum(s.w, xb, w.w));
-  });
-}
-
-// One GRU layer for every row (torch gate order r, z, n).  Unit u's six
-// weight rows (u, R + u, 2R + u of w_ih and of w_hh) go to one warp per
-// tile of ROW_TILE rows; units go round-robin over blocks.  ``first``
-// selects layer 1 (input z computed from the previous sample, output
-// z1 = z + h1) or layer 2 (input [z1, aux slice 0], output z2 = z1 + h2).
-template <typename WT>
-__device__ void gru_phase(const Params<WT>& p, float* xs, int t, bool first,
-                          const WT* w_ih, const WT* w_ih_a, const WT* w_hh,
-                          const float* b_ih, const float* b_hh,
-                          const float* h_in, float* h_out, float* z_out) {
-  const int R = p.R, B = p.B, G = gridDim.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slots = ((int)blockIdx.x < R) ? (R - 1 - (int)blockIdx.x) / G + 1 : 0;
-  if (slots == 0) return;
-  float* xs_z = xs;
-  float* xs_h = xs + STAGE_ROWS * R;
-  const float* a_t = p.D ? p.a_rest + (size_t)t * B * 3 * p.D : nullptr;
-  constexpr int TILES = STAGE_ROWS / ROW_TILE;
-  for (int c0 = 0; c0 < B; c0 += STAGE_ROWS) {
-    __syncthreads();               // the previous chunk is done with xs
-    if (first) stage_z(p, xs_z, t, c0);
-    else stage_rows<WT>(xs_z, p.z1, c0, B, R);
-    stage_rows<WT>(xs_h, h_in, c0, B, R);
-    __syncthreads();
-    const int tiles = (B - c0 < STAGE_ROWS)
-        ? (B - c0 + ROW_TILE - 1) / ROW_TILE : TILES;
-    for (int item = warp; item < slots * tiles; item += NW) {
-      const int s = item / tiles, tile = item - s * tiles;
-      const int u = blockIdx.x + s * G;
-      const int b0 = c0 + tile * ROW_TILE;
-      float gi[3][ROW_TILE], gh[3][ROW_TILE];
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int bb = 0; bb < ROW_TILE; ++bb) { gi[g][bb] = 0.0f; gh[g][bb] = 0.0f; }
-      const WT* const wi[3] = {w_ih + (size_t)u * R,
-                               w_ih + (size_t)(R + u) * R,
-                               w_ih + (size_t)(2 * R + u) * R};
-      const WT* const wh[3] = {w_hh + (size_t)u * R,
-                               w_hh + (size_t)(R + u) * R,
-                               w_hh + (size_t)(2 * R + u) * R};
-      dot_tile<WT, 3>(gi, wi, R, xs_z + tile * ROW_TILE * R, lane);
-      dot_tile<WT, 3>(gh, wh, R, xs_h + tile * ROW_TILE * R, lane);
-      if (!first && p.D) {
-        const WT* const wa[3] = {w_ih_a + (size_t)u * p.D,
-                                 w_ih_a + (size_t)(R + u) * p.D,
-                                 w_ih_a + (size_t)(2 * R + u) * p.D};
-        dot_aux<WT, 3>(gi, wa, a_t, p.D, 0, b0, B, lane);
-      }
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int bb = 0; bb < ROW_TILE; ++bb) {
-          gi[g][bb] = warp_sum(gi[g][bb]);
-          gh[g][bb] = warp_sum(gh[g][bb]);
-        }
-#pragma unroll
-      for (int bb = 0; bb < ROW_TILE; ++bb) {
-        const int b = b0 + bb;
-        if (lane == bb && b < B) {
-          const float i_r = gi[0][bb] + __ldg(b_ih + u);
-          const float i_z = gi[1][bb] + __ldg(b_ih + R + u);
-          const float i_n = gi[2][bb] + __ldg(b_ih + 2 * R + u);
-          const float h_r = gh[0][bb] + __ldg(b_hh + u);
-          const float h_z = gh[1][bb] + __ldg(b_hh + R + u);
-          const float h_n = gh[2][bb] + __ldg(b_hh + 2 * R + u);
-          const float r = sigmoidf_(i_r + h_r);
-          const float zg = sigmoidf_(i_z + h_z);
-          const float n = tanhf(i_n + r * h_n);
-          const size_t o = (size_t)b * R + u;
-          const float h = (1.0f - zg) * n + zg * __ldcg(h_in + o);
-          h_out[o] = h;
-          const float zin = first ? z_of(p, t, b, u) : __ldcg(p.z1 + o);
-          z_out[o] = zin + h;
-        }
-      }
-    }
+// Four columns of z of step tn for row b: the f32 copy for GRU 1's
+// owner and the copy GRU 1's product reads.
+template <typename XT>
+__device__ __forceinline__ void emit_z(const Params& p, int b, int c4,
+                                       float4 is, float x) {
+  const float4 wx = __ldg(reinterpret_cast<const float4*>(p.w_x) + c4);
+  const float4 z = make_float4(z_sum(is.x, x, wx.x), z_sum(is.y, x, wx.y),
+                               z_sum(is.z, x, wx.z), z_sum(is.w, x, wx.w));
+  __stcg(reinterpret_cast<float4*>(p.zf + (size_t)b * p.R + 4 * c4), z);
+  const size_t o = (size_t)b * (p.pl.p_r / sizeof(XT)) + 4 * c4;
+  if (sizeof(XT) == 2) {
+    const uint2 v = make_uint2(
+        (uint32_t)bf16_bits(z.x) | ((uint32_t)bf16_bits(z.y) << 16),
+        (uint32_t)bf16_bits(z.z) | ((uint32_t)bf16_bits(z.w) << 16));
+    __stcg(reinterpret_cast<uint2*>(static_cast<uint16_t*>(p.zx) + o), v);
+  } else {
+    __stcg(reinterpret_cast<float4*>(static_cast<float*>(p.zx) + o), z);
   }
 }
 
-// One fully connected layer with ReLU for every row:
-// out[b, j] = relu(w_z[j] . in[b] + w_a[j] . aux slice + bias[j]).
-// FC_ROWS outputs go to one warp per tile of ROW_TILE rows.
-template <typename WT>
-__device__ void fc_phase(const Params<WT>& p, float* xs, int t, int N, int n,
-                         const WT* w_z, const WT* w_a, const float* bias,
-                         int aux_off, const float* in, float* out) {
-  const int B = p.B, G = gridDim.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int groups = (N + FC_ROWS - 1) / FC_ROWS;
-  const int slots = ((int)blockIdx.x < groups)
-      ? (groups - 1 - (int)blockIdx.x) / G + 1 : 0;
-  if (slots == 0) return;
-  const float* a_t = p.D ? p.a_rest + (size_t)t * B * 3 * p.D : nullptr;
-  constexpr int TILES = STAGE_ROWS / ROW_TILE;
-  for (int c0 = 0; c0 < B; c0 += STAGE_ROWS) {
-    __syncthreads();
-    stage_rows<WT>(xs, in, c0, B, n);
-    __syncthreads();
-    const int tiles = (B - c0 < STAGE_ROWS)
-        ? (B - c0 + ROW_TILE - 1) / ROW_TILE : TILES;
-    for (int item = warp; item < slots * tiles; item += NW) {
-      const int s = item / tiles, tile = item - s * tiles;
-      const int j0 = (blockIdx.x + s * G) * FC_ROWS;
-      const int b0 = c0 + tile * ROW_TILE;
-      float acc[FC_ROWS][ROW_TILE];
-      const WT* wz[FC_ROWS];
-      const WT* wa[FC_ROWS];
-      int jj[FC_ROWS];
-#pragma unroll
-      for (int g = 0; g < FC_ROWS; ++g) {
-        jj[g] = j0 + g < N ? j0 + g : N - 1;     // a clamped copy, dropped
-        wz[g] = w_z + (size_t)jj[g] * n;
-        wa[g] = w_a + (size_t)jj[g] * p.D;
-#pragma unroll
-        for (int bb = 0; bb < ROW_TILE; ++bb) acc[g][bb] = 0.0f;
+__device__ __forceinline__ float4 ld_istatic(const Params& p, int tn, int b,
+                                             int c4) {
+  return __ldg(reinterpret_cast<const float4*>(
+      p.i_static + ((size_t)tn * p.B + b) * p.R) + c4);
+}
+
+// fc3 and the sample.  A block owns groups of 8 rows (group n belongs to
+// block n % G): logits = w3 . f2[b] + b3, then by one warp per row the
+// mixture-of-logistics sample (first argmax of logits[:K] + gumbel, the
+// selected mean and log-scale clamped at log 1e-14) or the Gaussian
+// sample (log-std clamped at -7), clipped to [-1, 1]; then the whole
+// block writes the rows' z of step t + 1.  It also writes the rows' three
+// aux slices of step t + 1 behind the columns of z1, z2 and f1, whose
+// readers of step t are done.  t < 0: only z (from a zero sample) and
+// the aux slices of step 0.
+template <bool BF>
+__device__ void sample_phase(const Params& p, unsigned char* smem, int t,
+                             long long* st, int& held) {
+  typedef typename XT_<BF>::T XT;
+  const Plan& pl = p.pl;
+  const int B = p.B, F = p.F, NC = p.NC, K = p.K, G = gridDim.x;
+  const int tid = threadIdx.x;
+  const int es = sizeof(XT);
+  Rows rw;
+  rw.kind = 2;
+  rw.nI = pl.t3;
+  rw.nH = 0;
+  rw.mH = 0;
+  rw.slots = 0;
+  rw.tI = smem + (BF ? pl.w_off[6] : 0);
+  rw.tH = nullptr;
+  rw.ksI = pl.ks_f;
+  rw.ksH = 0;
+  rw.rI = NC;
+  rw.rH = 0;
+  rw.kI = F;
+  rw.kH = 0;
+  rw.pA = pl.p_f;
+  rw.pH = 0;
+  unsigned char* bufA = smem + pl.off_stage;
+  float* part = reinterpret_cast<float*>(smem + pl.off_part);
+  float* xs = reinterpret_cast<float*>(smem + pl.off_misc);
+  float* noise = xs + 8;
+  const bool next = t + 1 < p.T;
+  const int r4 = p.R >> 2;
+  for (int grp = blockIdx.x; grp * 8 < B; grp += G) {
+    const int b0 = grp * 8;
+    const int rows = B - b0 < 8 ? B - b0 : 8;
+    const int nz = next ? rows * r4 : 0;
+    if (t >= 0) {
+      __syncthreads();             // the previous group is done with smem
+      if (!BF) want_weights(p, smem, PH_SAMPLE, held);
+      stage_flat(bufA, static_cast<const unsigned char*>(p.f2x)
+                     + (size_t)b0 * pl.p_f, rows * pl.p_f);
+      cp_async_commit();
+      for (int i = tid; i < rows * (K + 1); i += NT) {
+        const int r = i / (K + 1), k = i - r * (K + 1);
+        const size_t row = (size_t)t * B + b0 + r;
+        noise[i] = k < K ? __ldg(p.n1 + row * K + k) : __ldg(p.n2 + row);
       }
-      dot_tile<WT, FC_ROWS>(acc, wz, n, xs + tile * ROW_TILE * n, lane);
-      if (p.D) dot_aux<WT, FC_ROWS>(acc, wa, a_t, p.D, aux_off, b0, B, lane);
-#pragma unroll
-      for (int g = 0; g < FC_ROWS; ++g)
-#pragma unroll
-        for (int bb = 0; bb < ROW_TILE; ++bb) acc[g][bb] = warp_sum(acc[g][bb]);
-#pragma unroll
-      for (int g = 0; g < FC_ROWS; ++g)
-#pragma unroll
-        for (int bb = 0; bb < ROW_TILE; ++bb) {
-          const int b = b0 + bb;
-          if (lane == g * ROW_TILE + bb && b < B && j0 + g < N)
-            out[(size_t)b * N + jj[g]] =
-                fmaxf(acc[g][bb] + __ldg(bias + jj[g]), 0.0f);
-        }
     }
+    if (next && p.D > 0) {         // a row a warp: its aux slices
+      const int lane = tid & 31, D = p.D;
+      for (int r = tid >> 5; r < rows; r += NW) {
+        const size_t b = b0 + r;
+        const float* a = p.a_rest + ((size_t)(t + 1) * B + b) * 3 * D;
+        XT* d0 = static_cast<XT*>(p.z1x) + b * (pl.p_rd / es) + p.R;
+        XT* d1 = static_cast<XT*>(p.z2x) + b * (pl.p_rd / es) + p.R;
+        XT* d2 = static_cast<XT*>(p.f1x) + b * (pl.p_fd / es) + F;
+        for (int l = lane; l < 3 * D; l += 32) {
+          const int sl = l / D;
+          store_x(sl == 0 ? d0 : (sl == 1 ? d1 : d2), l - sl * D,
+                  __ldg(a + l));
+        }
+      }
+    }
+    // the first of this thread's columns of i_static[t + 1], loaded
+    // under the product
+    float4 pre0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), pre1 = pre0;
+    if (tid < nz) pre0 = ld_istatic(p, t + 1, b0 + tid / r4, tid % r4);
+    if (tid + NT < nz)
+      pre1 = ld_istatic(p, t + 1, b0 + (tid + NT) / r4, (tid + NT) % r4);
+    if (t >= 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+      stamp(st, 0);
+      product<BF>(rw, bufA, bufA, pl, rows, part);
+      __syncthreads();
+      stamp(st, 1);
+      if (!BF && (grp + G) * 8 >= B) next_weights(p, smem, PH_SAMPLE, held);
+      if ((tid >> 5) < rows) {     // one warp a row, a lane a mixture
+        const int bl = tid >> 5, lane = tid & 31;
+        const float* nz_row = noise + bl * (K + 1);
+        float mean, log_scale;
+        if (p.gauss) {
+          mean = psum<BF>(part, pl, 0, bl) + __ldg(p.b3);
+          log_scale = fmaxf(psum<BF>(part, pl, 1, bl) + __ldg(p.b3 + 1),
+                            LOG_STD_MIN);
+        } else {
+          // the first maximum of logits[:K] + gumbel: ties keep the
+          // lowest k, inside a lane and between lanes
+          int sel = 0x7fffffff;
+          float best = -INFINITY;
+          for (int k = lane; k < K; k += 32) {
+            const float v = (psum<BF>(part, pl, k, bl) + __ldg(p.b3 + k))
+                + nz_row[k];
+            if (v > best || sel > K) { best = v; sel = k; }
+          }
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+            const int os = __shfl_xor_sync(0xffffffffu, sel, o);
+            if (ob > best || (ob == best && os < sel)) { best = ob; sel = os; }
+          }
+          sel = __shfl_sync(0xffffffffu, sel, 0);
+          sel = sel < K ? sel : K - 1;
+          mean = psum<BF>(part, pl, K + sel, bl) + __ldg(p.b3 + K + sel);
+          log_scale = fmaxf(psum<BF>(part, pl, 2 * K + sel, bl)
+                            + __ldg(p.b3 + 2 * K + sel), LOG_SCALE_MIN);
+        }
+        const float s = fminf(fmaxf(__fadd_rn(
+            mean, __fmul_rn(expf(log_scale), nz_row[K])), -1.0f), 1.0f);
+        if (lane == 0) {
+          xs[bl] = s;
+          p.out[(size_t)(b0 + bl) * p.T + t] = s;
+        }
+      }
+      __syncthreads();
+    }
+    if (tid < nz)
+      emit_z<XT>(p, b0 + tid / r4, tid % r4, pre0, t >= 0 ? xs[tid / r4] : 0.0f);
+    if (tid + NT < nz)
+      emit_z<XT>(p, b0 + (tid + NT) / r4, (tid + NT) % r4, pre1,
+                 t >= 0 ? xs[(tid + NT) / r4] : 0.0f);
+    for (int i = tid + 2 * NT; i < nz; i += NT)
+      emit_z<XT>(p, b0 + i / r4, i % r4,
+                 ld_istatic(p, t + 1, b0 + i / r4, i % r4),
+                 t >= 0 ? xs[i / r4] : 0.0f);
   }
 }
 
-// fc3 and the sample, one warp per row: logits = w3 . f2[b] + b3 from
-// the resident copy of w3, then by lane 0 the mixture-of-logistics
-// sample (first argmax of logits[:K] + gumbel, the selected mean and
-// log-scale clamped at log 1e-14) or the Gaussian sample (log-std
-// clamped at -7), clipped to [-1, 1].
-template <typename WT>
-__device__ void sample_phase(const Params<WT>& p, float* xs,
-                             const float* s_w3, float* s_logits, int t) {
-  const int B = p.B, F = p.F, NC = p.NC, K = p.K;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* row = xs + warp * F;
-  float* logits = s_logits + warp * NC;
-  __syncthreads();                 // the staging area is free again
-  for (int b = warp * gridDim.x + blockIdx.x; b < B; b += NW * gridDim.x) {
-    const float4* src4 = reinterpret_cast<const float4*>(p.f2 + (size_t)b * F);
-    for (int i0 = lane; i0 < (F >> 2); i0 += 32 * STAGE_UNROLL) {
-      float4 v[STAGE_UNROLL];          // all loads before the first store
-#pragma unroll
-      for (int k = 0; k < STAGE_UNROLL; ++k)
-        if (i0 + 32 * k < (F >> 2)) v[k] = __ldcg(src4 + i0 + 32 * k);
-#pragma unroll
-      for (int k = 0; k < STAGE_UNROLL; ++k)
-        if (i0 + 32 * k < (F >> 2))
-          reinterpret_cast<float4*>(row)[i0 + 32 * k] = as_input4<WT>(v[k]);
-    }
-    __syncwarp();
-    for (int j0 = 0; j0 < NC; j0 += LOGIT_GROUP) {
-      float acc[LOGIT_GROUP];
-      const float* w[LOGIT_GROUP];
-#pragma unroll
-      for (int g = 0; g < LOGIT_GROUP; ++g) {
-        acc[g] = 0.0f;
-        w[g] = s_w3 + (size_t)(j0 + g < NC ? j0 + g : NC - 1) * F;
-      }
-      for (int i = lane; i < F; i += 32) {
-        const float xv = row[i];
-#pragma unroll
-        for (int g = 0; g < LOGIT_GROUP; ++g) acc[g] = fmaf(w[g][i], xv, acc[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < LOGIT_GROUP; ++g) {
-        acc[g] = warp_sum(acc[g]);
-        if (lane == 0 && j0 + g < NC)
-          logits[j0 + g] = acc[g] + __ldg(p.fc3_b + j0 + g);
-      }
-    }
-    __syncwarp();
-    if (lane == 0) {
-      const float noise = __ldg(p.n2 + (size_t)t * B + b);
-      float mean, log_scale;
-      if (p.gauss) {
-        mean = logits[0];
-        log_scale = fmaxf(logits[1], LOG_STD_MIN);
-      } else {
-        const float* g1 = p.n1 + ((size_t)t * B + b) * K;
-        int sel = 0;
-        float best = logits[0] + __ldg(g1);
-        for (int k = 1; k < K; ++k) {
-          const float v = logits[k] + __ldg(g1 + k);
-          if (v > best) { best = v; sel = k; }   // ties keep the lowest k
-        }
-        mean = logits[K + sel];
-        log_scale = fmaxf(logits[2 * K + sel], LOG_SCALE_MIN);
-      }
-      const float s = fminf(fmaxf(
-          __fadd_rn(mean, __fmul_rn(expf(log_scale), noise)), -1.0f), 1.0f);
-      p.x[b] = s;
-      p.out[(size_t)b * p.T + t] = s;
-    }
-    __syncwarp();                  // row and logits are rewritten next row
-  }
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(NT)
-wavernn_loop_kernel(Params<WT> p, int stage_n) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;
-  float* s_w3 = smem + stage_n;
-  float* s_logits = s_w3 + (size_t)p.NC * p.F;
-
+// Ask L2 for step tn's rows of the input streams, spread over the grid.
+__device__ __forceinline__ void prefetch_step(const Params& p, int tn) {
   const size_t gtid = (size_t)blockIdx.x * NT + threadIdx.x;
   const size_t gsize = (size_t)gridDim.x * NT;
-  for (size_t i = gtid; i < (size_t)p.B * p.R; i += gsize) {
-    p.h1[0][i] = 0.0f;
-    p.h2[0][i] = 0.0f;
-  }
-  for (size_t i = gtid; i < (size_t)p.B; i += gsize) p.x[i] = 0.0f;
-  for (int i = threadIdx.x; i < p.NC * p.F; i += NT)
-    s_w3[i] = load1(p.fc3_w + i);
-  grid.sync();
-
-  for (int t = 0; t < p.T; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
-    gru_phase<WT>(p, xs, t, true, p.rnn1_ih, nullptr, p.rnn1_hh,
-                  p.rnn1_bih, p.rnn1_bhh, p.h1[cur], p.h1[nxt], p.z1);
-    grid.sync();
-    gru_phase<WT>(p, xs, t, false, p.rnn2_ih_z, p.rnn2_ih_a, p.rnn2_hh,
-                  p.rnn2_bih, p.rnn2_bhh, p.h2[cur], p.h2[nxt], p.z2);
-    grid.sync();
-    fc_phase<WT>(p, xs, t, p.F, p.R, p.fc1_z, p.fc1_a, p.fc1_b, p.D,
-                 p.z2, p.f1);
-    grid.sync();
-    fc_phase<WT>(p, xs, t, p.F, p.F, p.fc2_z, p.fc2_a, p.fc2_b, 2 * p.D,
-                 p.f1, p.f2);
-    grid.sync();
-    sample_phase<WT>(p, xs, s_w3, s_logits, t);
-    grid.sync();
+  const size_t B = p.B;
+  const float* base[4] = {p.i_static + (size_t)tn * B * p.R,
+                          p.D ? p.a_rest + (size_t)tn * B * 3 * p.D : nullptr,
+                          p.K ? p.n1 + (size_t)tn * B * p.K : nullptr,
+                          p.n2 + (size_t)tn * B};
+  const size_t len[4] = {B * p.R, B * 3 * p.D, B * p.K, B};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (base[k] == nullptr) continue;
+    for (size_t i = gtid * 32; i < len[k]; i += gsize * 32)
+      prefetch_l2(base[k] + i);
   }
 }
 
-template <typename WT>
-void fill_params(Params<WT>& p, const void* const* ptrs, const int* d) {
+template <bool BF>
+__global__ void __launch_bounds__(NT, 1) wavernn_loop_kernel(Params p) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Plan& pl = p.pl;
+  if (BF) {
+    const int n16 = pl.w_off[N_SECTIONS] >> 4;
+    const uint4* src = reinterpret_cast<const uint4*>(p.packed)
+        + (size_t)blockIdx.x * n16;
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = threadIdx.x; i < n16; i += NT) dst[i] = __ldg(src + i);
+  }
+  int held = -1;                  // f32: the phase whose rows are in smem
+  long long* st = (p.stamps != nullptr && blockIdx.x == 0) ? p.stamps
+                                                           : nullptr;
+  sample_phase<BF>(p, smem, -1, nullptr, held);   // z of step 0
+  grid_barrier(grid, nullptr);
+
+  for (int t = 0; t < p.T; ++t) {
+    const int cur = t & 1;
+    long long* s = st ? st + (size_t)t * N_STAMPS : nullptr;
+    if (t + 1 < p.T) prefetch_step(p, t + 1);
+    gru_phase<BF>(p, smem, 0, cur, s, held);
+    grid_barrier(grid, s);
+    if (s) s += 4;
+    gru_phase<BF>(p, smem, 1, cur, s, held);
+    grid_barrier(grid, s);
+    if (s) s += 4;
+    fc_phase<BF>(p, smem, 0, s, held);
+    grid_barrier(grid, s);
+    if (s) s += 4;
+    fc_phase<BF>(p, smem, 1, s, held);
+    grid_barrier(grid, s);
+    if (s) s += 4;
+    sample_phase<BF>(p, smem, t, s, held);
+    grid_barrier(grid, s);
+  }
+}
+
+// n barriers and nothing else, on the loop kernel's grid: what one
+// barrier costs.
+__global__ void __launch_bounds__(NT, 1) barrier_bench_kernel(int n) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n; ++i) grid_barrier(grid, nullptr);
+}
+
+void fill_params(Params& p, const void* const* ptrs, const int* d,
+                 const Plan& pl) {
   p.i_static = (const float*)ptrs[P_ISTATIC];
   p.a_rest = (const float*)ptrs[P_AREST];
   p.n1 = (const float*)ptrs[P_N1];
   p.n2 = (const float*)ptrs[P_N2];
-  p.rnn1_ih = (const WT*)ptrs[P_RNN1_IH];
-  p.rnn1_hh = (const WT*)ptrs[P_RNN1_HH];
-  p.rnn1_bih = (const float*)ptrs[P_RNN1_BIH];
-  p.rnn1_bhh = (const float*)ptrs[P_RNN1_BHH];
-  p.rnn2_ih_z = (const WT*)ptrs[P_RNN2_IH_Z];
-  p.rnn2_ih_a = (const WT*)ptrs[P_RNN2_IH_A];
-  p.rnn2_hh = (const WT*)ptrs[P_RNN2_HH];
-  p.rnn2_bih = (const float*)ptrs[P_RNN2_BIH];
-  p.rnn2_bhh = (const float*)ptrs[P_RNN2_BHH];
-  p.fc1_z = (const WT*)ptrs[P_FC1_Z];
-  p.fc1_a = (const WT*)ptrs[P_FC1_A];
-  p.fc1_b = (const float*)ptrs[P_FC1_B];
-  p.fc2_z = (const WT*)ptrs[P_FC2_Z];
-  p.fc2_a = (const WT*)ptrs[P_FC2_A];
-  p.fc2_b = (const float*)ptrs[P_FC2_B];
-  p.fc3_w = (const WT*)ptrs[P_FC3_W];
-  p.fc3_b = (const float*)ptrs[P_FC3_B];
+  p.packed = (const unsigned char*)ptrs[P_PACKED];
+  p.b1i = (const float*)ptrs[P_RNN1_BIH];
+  p.b1h = (const float*)ptrs[P_RNN1_BHH];
+  p.b2i = (const float*)ptrs[P_RNN2_BIH];
+  p.b2h = (const float*)ptrs[P_RNN2_BHH];
+  p.bf1 = (const float*)ptrs[P_FC1_B];
+  p.bf2 = (const float*)ptrs[P_FC2_B];
+  p.b3 = (const float*)ptrs[P_FC3_B];
   p.w_x = (const float*)ptrs[P_W_X];
   p.out = (float*)ptrs[P_OUT];
+  p.stamps = (long long*)ptrs[P_STAMPS];
   p.T = d[D_T]; p.B = d[D_B]; p.R = d[D_R]; p.F = d[D_F]; p.D = d[D_D];
   p.NC = d[D_NC]; p.K = d[D_K]; p.gauss = d[D_GAUSS];
+  p.pl = pl;
 
-  float* s = (float*)ptrs[P_SCRATCH];
+  unsigned char* s = (unsigned char*)ptrs[P_SCRATCH];
   const size_t B = p.B;
-  p.x = s; s += (B + 3) & ~(size_t)3;
-  for (int k = 0; k < 2; ++k) { p.h1[k] = s; s += B * p.R; }
-  for (int k = 0; k < 2; ++k) { p.h2[k] = s; s += B * p.R; }
-  p.z1 = s; s += B * p.R;
-  p.z2 = s; s += B * p.R;
-  p.f1 = s; s += B * p.F;
-  p.f2 = s; s += B * p.F;
+  const size_t rows_r = (B * p.R + 7) & ~(size_t)7;
+  p.hf1 = (float*)s; s += rows_r * 4;
+  p.hf2 = (float*)s; s += rows_r * 4;
+  p.z1f = (float*)s; s += rows_r * 4;
+  p.zf = (float*)s; s += rows_r * 4;
+  p.zx = s; s += B * pl.p_r;
+  for (int k = 0; k < 2; ++k) { p.h1x[k] = s; s += B * pl.p_r; }
+  for (int k = 0; k < 2; ++k) { p.h2x[k] = s; s += B * pl.p_r; }
+  p.z1x = s; s += B * pl.p_rd;
+  p.z2x = s; s += B * pl.p_rd;
+  p.f1x = s; s += B * pl.p_fd;
+  p.f2x = s; s += B * pl.p_f;
 }
 
-// One cooperative launch on ``stream``, one block an SM.  Returns a
-// cudaError_t code.
-template <typename WT>
+// The grid must be co-resident: one block an SM, at most the SM count.
+cudaError_t check_grid(const void* kernel, int n_blocks, size_t smem) {
+  cudaError_t e;
+  int dev = 0, n_sm = 0, coop = 0, occ = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                  dev)) != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &occ, kernel, NT, smem)) != cudaSuccess) return e;
+  if (occ < 1 || n_blocks < 1 || n_blocks > n_sm * occ)
+    return cudaErrorCooperativeLaunchTooLarge;
+  return cudaSuccess;
+}
+
+// One cooperative launch on ``stream``.  Returns a cudaError_t code.
+template <bool BF>
 int launch(const void* const* ptrs, const int* dims, void* stream) {
-  Params<WT> p;
-  fill_params(p, ptrs, dims);
-  int stage_n = (int)stage_floats(dims);
-  const void* kernel = (const void*)wavernn_loop_kernel<WT>;
-  const size_t smem = smem_bytes(dims);
+  Plan pl;
+  if (!make_plan(dims, pl)) return (int)cudaErrorInvalidValue;
+  Params p;
+  fill_params(p, ptrs, dims, pl);
+  const void* kernel = (const void*)wavernn_loop_kernel<BF>;
+  const size_t smem = pl.total;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  int dev = 0, n_sm = 0, coop = 0, occ = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                  dev)) != cudaSuccess) return (int)e;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, kernel, NT, smem)) != cudaSuccess)
+  if ((e = check_grid(kernel, dims[D_G], smem)) != cudaSuccess)
     return (int)e;
-  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&p, &stage_n};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(n_sm), dim3(NT), args, smem,
-                                  (cudaStream_t)stream);
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(dims[D_G]), dim3(NT), args,
+                                  smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -613,27 +1180,50 @@ int launch(const void* const* ptrs, const int* dims, void* stream) {
 
 extern "C" {
 
-size_t wavernn_loop_scratch_floats(const int* dims) {
-  return scratch_floats(dims);
+size_t wavernn_loop_scratch_bytes(const int* dims) {
+  return scratch_bytes(dims);
 }
 
-size_t wavernn_loop_smem_bytes(const int* dims) { return smem_bytes(dims); }
+// Fills ``out`` (N_PLAN ints, PlanField order); returns 1 when the
+// layout fits a block's shared memory, else 0 with PL_TOTAL the bytes
+// needed at the smallest chunk.
+int wavernn_loop_plan(const int* dims, int* out) {
+  Plan pl;
+  const bool ok = make_plan(dims, pl);
+  plan_fields(pl, out);
+  return ok ? 1 : 0;
+}
 
 const char* wavernn_loop_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
 int wavernn_loop_n_ptrs(void) { return N_PTRS; }
+int wavernn_loop_n_dims(void) { return N_DIMS; }
+int wavernn_loop_n_plan(void) { return N_PLAN; }
+int wavernn_loop_n_stamps(void) { return N_STAMPS; }
 
 // Launch the whole sample loop on ``stream``; returns a cudaError_t code
 // (0 = launched).  ``ptrs``: N_PTRS device pointers in Ptr order (a_rest
-// and the *_a weights null when dims[D_D] == 0, n1 null in Gaussian
-// mode); ``dims``: N_DIMS ints in Dim order, dims[D_BF16] != 0 for bf16
-// weight matrices.
+// null when dims[D_D] == 0, n1 null in Gaussian mode, stamps null or
+// zeroed (T, N_STAMPS) int64); the scratch is zeroed by the caller.  ``dims``: N_DIMS ints in
+// Dim order.
 int wavernn_loop_launch(const void* const* ptrs, const int* dims,
                         void* stream) {
-  return dims[D_BF16] ? launch<uint16_t>(ptrs, dims, stream)
-                      : launch<float>(ptrs, dims, stream);
+  return dims[D_BF16] ? launch<true>(ptrs, dims, stream)
+                      : launch<false>(ptrs, dims, stream);
+}
+
+// ``n`` grid barriers on ``n_blocks`` blocks of the loop kernel's size.
+int wavernn_loop_barrier_bench(int n, int n_blocks, void* stream) {
+  const void* kernel = (const void*)barrier_bench_kernel;
+  cudaError_t e = check_grid(kernel, n_blocks, 0);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&n};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(n_blocks), dim3(NT), args, 0,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

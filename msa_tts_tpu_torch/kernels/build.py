@@ -90,6 +90,19 @@ def prebuild(names) -> None:
             raise errors[0]
 
 
+def sass_count(name: str, opcode: str) -> int | None:
+    """How many lines of the built ``csrc/<name>.cu``'s machine code
+    carry ``opcode`` (for example ``HMMA``, the tensor cores' bf16
+    product), by ``cuobjdump -sass``; None where the toolkit has no
+    ``cuobjdump``."""
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return sum(opcode in line for line in out.splitlines())
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its hash has no library yet, then load
     it.  A failed build raises with the compiler's output."""

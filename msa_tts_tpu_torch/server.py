@@ -521,28 +521,16 @@ class TTSServer:
         return buf.getvalue()
 
 
-def main(argv=None):
-    """Serve a trained experiment over HTTP:
-
-        python -m msa_tts_tpu_torch.server --experiment_path <dir> \\
-            [--checkpoint_id 0] [--device cuda] [--port 8080] \\
-            [--speaker p225] [--warmup_text "..."]
-
-    The default voice comes from the experiment's ``spk_emb.pkl``
-    (``--speaker`` picks one; otherwise the first).  ``--voices_dir``
-    (adapted ``*.voice`` files) raises NotImplementedError until the
-    port reads the msgpack voice format.
-    """
+def _arg_parser():
     import argparse
-    import os
-    import pickle
 
     ap = argparse.ArgumentParser(description="msa_tts_tpu_torch HTTP server")
     ap.add_argument("--experiment_path", required=True)
     ap.add_argument("--checkpoint_id", default="0")
-    ap.add_argument("--device", default=None,
-                    help="torch device, e.g. cuda or cpu (default: where "
-                         "the model loads)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve from (default: cuda, which "
+                         "fails without a GPU; cpu runs the kernels' plain "
+                         "versions)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--window_ms", type=float, default=25.0)
@@ -561,7 +549,26 @@ def main(argv=None):
     ap.add_argument("--stream_mux_max_pending", type=int, default=None,
                     help="bound each mux's admission queue; beyond it "
                          "streams shed to the solo path (backpressure)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    """Serve a trained experiment over HTTP:
+
+        python -m msa_tts_tpu_torch.server --experiment_path <dir> \\
+            [--checkpoint_id 0] [--device cuda] [--port 8080] \\
+            [--speaker p225] [--warmup_text "..."]
+
+    The model is served from the GPU unless ``--device cpu`` is given.
+    The default voice comes from the experiment's ``spk_emb.pkl``
+    (``--speaker`` picks one; otherwise the first).  ``--voices_dir``
+    (adapted ``*.voice`` files) raises NotImplementedError until the
+    port reads the msgpack voice format.
+    """
+    import os
+    import pickle
+
+    args = _arg_parser().parse_args(argv)
     if args.voices_dir:
         raise NotImplementedError(
             "--voices_dir: the port does not read msgpack .voice files yet"

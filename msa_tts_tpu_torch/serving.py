@@ -54,7 +54,7 @@ from .models.tacotron2nv import (
     tacotron2nv_infer,
 )
 from .ops.audio import griffinlim_logmelspec
-from .utils.backend import resolve_kernel_backend
+from .utils.backend import load_device, resolve_kernel_backend
 
 
 @dataclass(eq=False)
@@ -117,11 +117,14 @@ class AdaptiveTTS:
     # ------------------------------------------------------------- load
     @classmethod
     def from_experiment(cls, experiment_path: str, checkpoint_id: str = "0",
-                        *, device=None, **overrides):
+                        *, device="cuda", **overrides):
         """Load ``params.yml`` and ``checkpoints/checkpoint_{id}.pt`` (the
-        reference ``state_dict`` layout) from an experiment directory."""
+        reference ``state_dict`` layout) from an experiment directory onto
+        ``device``: the GPU unless ``device="cpu"`` is asked for (without
+        a CUDA device the default raises)."""
         from .config import load_params
 
+        device = load_device(device)
         params = load_params(os.path.join(experiment_path, "params.yml"))
         params.update(overrides)
         mp = dict(params["model"])

@@ -10,6 +10,20 @@ import torch
 CHOICES = ("cuda", "torch", "auto")
 
 
+def load_device(device: torch.device | str = "cuda") -> torch.device:
+    """The device an entry point loads onto.  Entry points default to
+    ``cuda``; without a CUDA device that raises here (nothing moves to
+    the CPU quietly), and ``device="cpu"`` is how the CPU is asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for (the default), but "
+            "torch.cuda.is_available() is false; pass device=\"cpu\" to "
+            "run on the CPU with the kernels' plain versions"
+        )
+    return device
+
+
 def resolve_kernel_backend(choice: str | None,
                            device: torch.device | str) -> str:
     """Map a ``cuda`` / ``torch`` / ``auto`` (default) choice to the

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.backend import load_device
 from ..utils.batching import pad_mel_batch, pow2_bucket
 
 LRELU_SLOPE = 0.1
@@ -208,7 +209,11 @@ class HiFiGAN:
     """Reference-API wrapper: config JSON + checkpoint →
     ``inference(mel)``."""
 
-    def __init__(self, config_path: str, checkpoint_path: str, device=None):
+    def __init__(self, config_path: str, checkpoint_path: str,
+                 device="cuda"):
+        """Loads onto the GPU unless ``device="cpu"`` is asked for;
+        without a CUDA device the default raises."""
+        device = load_device(device)
         self.h = load_hifigan_config(config_path)
         self._set(load_torch_generator(checkpoint_path, self.h), device)
 

@@ -31,7 +31,7 @@ from torch import nn
 
 from ..ops.nn import batchnorm1d, uniform_
 from ..ops.rnn import gru, init_gru_
-from ..utils.backend import resolve_kernel_backend
+from ..utils.backend import load_device, resolve_kernel_backend
 
 LOG_SCALE_MIN = float(np.log(1e-14))
 LOG_STD_MIN = -7.0
@@ -484,11 +484,21 @@ def generate_samples(params: dict, cfg: WaveRNNConfig, mels_up, aux,
 
 def generation_noise(cfg: WaveRNNConfig, generator: torch.Generator,
                      T: int, B: int, *, device=None):
-    """Per-step sampling noise in two draws on the generator's device,
-    moved to ``device``.  MOL: (gumbel (T, B, K) for the mixture choice,
-    logistic (T, B) for the sample); GAUSS: (standard normal (T, B),
-    zeros)."""
+    """Per-step sampling noise in two draws, on ``device``.  MOL: (gumbel
+    (T, B, K) for the mixture choice, logistic (T, B) for the sample);
+    GAUSS: (standard normal (T, B), zeros).
+
+    A CPU generator asked for noise on a CUDA device does not draw
+    (T, B, K) numbers on the host and copy them: it gives one integer,
+    which seeds a generator on that device, and the draw happens there.
+    The caller's seed still fixes the noise, but the same seed yields
+    other noise on the card than on the CPU."""
     gdev = generator.device
+    if (device is not None and torch.device(device).type == "cuda"
+            and gdev.type != "cuda"):
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+        generator = torch.Generator(device=device).manual_seed(seed)
+        gdev = generator.device
     if cfg.mode == "MOL":
         K = cfg.n_classes // 3
         lo, hi = 1e-5, 1.0 - 1e-5
@@ -523,7 +533,12 @@ class WaveRNN:
     default, as in the JAX package; f32 sums and gates either way).
     ``gen_backend``: ``auto`` (the CUDA kernel on a GPU, the plain loop
     on the CPU), ``cuda`` or ``torch``; resolved from the model's device
-    at each call, so nothing falls back silently."""
+    at each call, so nothing falls back silently.
+
+    ``device``: with a ``model`` the caller placed, None follows that
+    model's device.  When the vocoder builds its own model (from ``cfg``
+    or the reference's ``ref_params``) it goes onto the GPU, raising
+    without one, unless ``device="cpu"`` is asked for."""
 
     def __init__(self, model: WaveRNNModel | None = None,
                  cfg: WaveRNNConfig | None = None, *,
@@ -539,6 +554,7 @@ class WaveRNN:
                 gen_backend = ref_params.get("gen_backend", gen_backend)
         self.cfg = cfg
         if model is None:
+            device = load_device("cuda" if device is None else device)
             model = WaveRNNModel(
                 cfg, generator or torch.Generator().manual_seed(0))
         if gen_dtype not in _DTYPES:
@@ -728,9 +744,12 @@ def wavernn_params_from_state_dict(sd: dict, cfg: WaveRNNConfig,
     return model
 
 
-def get_wavernn(device=None, **params) -> WaveRNN:
+def get_wavernn(device="cuda", **params) -> WaveRNN:
     """Reference-API loader: build a WaveRNN from params and load its
-    checkpoint (``params["checkpoint_path"]``)."""
+    checkpoint (``params["checkpoint_path"]``) onto ``device``: the GPU
+    unless ``device="cpu"`` is asked for (without a CUDA device the
+    default raises)."""
+    device = load_device(device)
     cfg = config_from_params(**params)
     sd = torch.load(params["checkpoint_path"], map_location="cpu",
                     weights_only=True)

@@ -531,22 +531,36 @@ def test_gen_kernel_matches_plain(device, over, dtype, atol, B):
     assert err <= atol, err
 
 
-def test_gen_kernel_rows_independent_of_batch(device):
-    """A row's sums are taken in an order fixed by the widths, so from
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gen_kernel_rows_independent_of_batch(device, dtype):
+    """A row's sums are taken in an order fixed by the widths (on the
+    tensor cores too: a row is one column of a tile, whichever), so from
     the same hoisted inputs a row alone gives the bits it gives in a
     batch (the hoisted projection is a library product outside the
-    kernel and is computed once here)."""
+    kernel and is computed once here).  53 rows: three staged chunks,
+    the last one partial."""
     from msa_tts_tpu_torch.vocoders import cuda_gen as G
     from msa_tts_tpu_torch.vocoders import wavernn as W
 
-    cfg, gp, mels_up, aux, n1, n2 = _gen_case(device, 21, 25)
+    cfg, gp, mels_up, aux, n1, n2 = _gen_case(device, 53, 25, dtype)
     w = G.kernel_weights(gp, cfg)
     ist, ar = W.hoisted_inputs(gp, cfg, mels_up, aux)
     full = G.cuda_generate(w, cfg, ist, ar, n1, n2)
-    for b in (0, 7, 20):
+    for b in (0, 7, 20, 31, 52):
         one = G.cuda_generate(w, cfg, *(x[:, b:b + 1].contiguous()
                                         for x in (ist, ar, n1, n2)))
         assert torch.equal(one[0], full[b]), b
+    # nor on the clock stamps
+    stamps = torch.zeros(25, G.N_STAMPS, dtype=torch.int64, device=device)
+    assert torch.equal(
+        G.cuda_generate(w, cfg, ist, ar, n1, n2, phase_ns=stamps), full)
+    torch.cuda.synchronize()
+    assert (stamps > 0).all()
+    bd = G.phase_breakdown(stamps)
+    assert set(bd) == set(G.PHASES)
+    assert all(0.0 <= v < 1e3 for d in bd.values() for v in d.values())
+    assert 0.0 < G.barrier_us(n=50) < 100.0
 
 
 def test_gen_kernel_rejects_what_it_does_not_take(device):
@@ -567,9 +581,37 @@ def test_gen_kernel_rejects_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="shape"):
         G.cuda_generate(w, cfg, ist, ar, n1[:, :2], n2)
     with pytest.raises(TypeError):
-        G.cuda_generate(dict(w, fc1_z=w["fc1_z"].half()), cfg, ist, ar,
+        G.cuda_generate(dict(w, packed=w["packed"].half()), cfg, ist, ar,
                         n1, n2)
+    with pytest.raises(ValueError, match="shape"):
+        G.cuda_generate(w, cfg, ist, ar, n1, n2, phase_ns=torch.zeros(
+            9, 3, dtype=torch.int64, device=device))
+    # a width whose bf16 slices outgrow a block's shared memory
+    wide = W.WaveRNNConfig(**dict(GEN_CFG, rnn_dims=1024, fc_dims=1024))
+    model = W.WaveRNNModel(wide, torch.Generator().manual_seed(0)).to(device)
+    with pytest.raises(ValueError, match="of resident weights"):
+        G.kernel_weights(W.cast_generation_params(model, torch.bfloat16),
+                         wide)
     assert G.GEN_LAUNCHES == before
+
+
+def test_wavernn_noise_is_drawn_on_the_card(device):
+    """A CPU generator asked for noise on the card seeds a generator
+    there: the draw is on the device, fixed by the caller's seed, and
+    advances the caller's generator."""
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    for mode in ("MOL", "GAUSS"):
+        cfg = W.WaveRNNConfig(**dict(GEN_CFG, mode=mode))
+        a = W.generation_noise(cfg, torch.Generator().manual_seed(5), 7, 3,
+                               device=device)
+        g = torch.Generator().manual_seed(5)
+        b = W.generation_noise(cfg, g, 7, 3, device=device)
+        c = W.generation_noise(cfg, g, 7, 3, device=device)
+        for x, y, z in zip(a, b, c):
+            assert x.device.type == "cuda" and torch.isfinite(x).all()
+            assert torch.equal(x, y)
+        assert not torch.equal(b[0], c[0])
 
 
 @pytest.mark.parametrize("choice,launches", [
@@ -710,7 +752,8 @@ def test_serving_vocodes_through_the_gen_kernel(device):
     wcfg = WaveRNNConfig(rnn_dims=32, fc_dims=32, res_out_dims=16,
                          compute_dims=16, n_mels=10, res_blocks=2,
                          hop_length=128, upsample_factors=(4, 4, 8))
-    tts.attach_vocoder("wavernn", WaveRNN(cfg=wcfg, generator=g))
+    tts.attach_vocoder("wavernn", WaveRNN(cfg=wcfg, generator=g,
+                                          device=device))
     h = dict(resblock="1", upsample_rates=[8, 4, 4],
              upsample_kernel_sizes=[16, 8, 8], upsample_initial_channel=16,
              resblock_kernel_sizes=[3, 5],

@@ -121,19 +121,31 @@ def test_split_generation_params_key_for_key(over, dtype):
         assert str(a.dtype).endswith(str(jsplit[k].dtype)), k
         np.testing.assert_array_equal(a.to(torch.float32).numpy(), b,
                                       err_msg=k)
-    # the kernel's layout: the same values, matrices as contiguous
-    # (out, in), vectors flat, no aux blocks without the aux net
+    # the kernel's layout (f32: the whole (out, in) matrices; bf16: every
+    # block's slice in fragment order), read back: the same values, the
+    # concat-input layers' aux columns after their z columns, vectors
+    # flat, no aux columns without the aux net
     kw = TG.kernel_weights(TW.cast_generation_params(
         model, torch.bfloat16 if dtype else None), tcfg)
-    assert set(kw) == set(JP._W_NAMES)
+    back = TG.unpack_kernel_weights(kw, tcfg)
+    assert set(back) == {"rnn1_ih", "rnn1_hh", "rnn2_ih", "rnn2_hh", "fc1",
+                         "fc2", "fc3"}
     for k in JP._W_NAMES:
-        a = kw[k]
-        if not tcfg.use_aux_net and k.endswith("_a"):
-            assert a is None and not tsplit[k].any(), k
+        if k not in TG._MATRICES:
+            assert torch.equal(kw[k], tsplit[k].reshape(-1)), k
             continue
-        assert a.is_contiguous(), k
-        want = tsplit[k].T if k in TG._MATRICES else tsplit[k].reshape(-1)
-        assert torch.equal(a, want), k
+        if k.endswith("_a"):
+            continue                   # held with its _z part below
+        if k.endswith("_z"):
+            want = tsplit[k].T
+            if tcfg.use_aux_net:
+                want = torch.cat([want, tsplit[k[:-1] + "a"].T], dim=1)
+            else:
+                assert not tsplit[k[:-1] + "a"].any(), k
+            got = back[k[:-2]]
+        else:
+            want, got = tsplit[k].T, back[k.removesuffix("_w")]
+        assert got.is_contiguous() and torch.equal(got, want), k
 
 
 def test_cuda_generate_refuses_cpu_tensors():

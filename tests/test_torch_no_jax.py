@@ -72,7 +72,7 @@ wcfg = WaveRNNConfig(rnn_dims=16, fc_dims=16, res_out_dims=8,
                      compute_dims=8, n_mels=10, res_blocks=1,
                      hop_length=128, upsample_factors=(4, 4, 8))
 tts.attach_vocoder("wavernn", WaveRNN(
-    cfg=wcfg, generator=torch.Generator().manual_seed(1)))
+    cfg=wcfg, generator=torch.Generator().manual_seed(1), device="cpu"))
 h = dict(resblock="2", upsample_rates=[8, 16], upsample_kernel_sizes=[16, 32],
          upsample_initial_channel=8, resblock_kernel_sizes=[3],
          resblock_dilation_sizes=[[1, 3]])

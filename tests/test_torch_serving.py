@@ -56,7 +56,7 @@ def experiment(tmp_path_factory):
 @pytest.fixture(scope="module")
 def both(experiment):
     return (JaxTTS.from_experiment(experiment),
-            AdaptiveTTS.from_experiment(experiment))
+            AdaptiveTTS.from_experiment(experiment, device="cpu"))
 
 
 def _jax_masks(tts, B):
@@ -150,7 +150,7 @@ def test_not_ported_features_raise(both, experiment, tmp_path):
         yaml.safe_dump(base, f)
     (ckpt_dir / "checkpoint_0.ckpt").write_bytes(b"")
     with pytest.raises(NotImplementedError):
-        AdaptiveTTS.from_experiment(str(tmp_path))
+        AdaptiveTTS.from_experiment(str(tmp_path), device="cpu")
     with pytest.raises(ValueError):
         AdaptiveTTS(dict(base, decode_backend="cuda"), tts.model)
 
@@ -160,7 +160,7 @@ def both_vocoded(experiment):
     """A JAX and a port AdaptiveTTS of their own with the same tiny
     WaveRNN (f32 sample loop) and HiFi-GAN attached."""
     jtts = JaxTTS.from_experiment(experiment)
-    tts = AdaptiveTTS.from_experiment(experiment)
+    tts = AdaptiveTTS.from_experiment(experiment, device="cpu")
     pairs = vocoder_pairs(AP["n_mels"], AP["hop_length"])
     for name, (jv, tv) in pairs.items():
         jtts.attach_vocoder(name, jv)

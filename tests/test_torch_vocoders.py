@@ -275,7 +275,8 @@ def test_generation_noise_shapes_and_seeding():
         assert torch.isfinite(a[0]).all() and torch.isfinite(a[1]).all()
     # a default WaveRNN vocodes from its own seeded draw, bf16 weights
     cfg = TW.WaveRNNConfig(**CFG)
-    voc = TW.WaveRNN(cfg=cfg, generator=torch.Generator().manual_seed(0))
+    voc = TW.WaveRNN(cfg=cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
     assert voc.gen_dtype == torch.bfloat16
     mel = randn(0, cfg.n_mels, 6) - 4.0
     kw = dict(target=64, overlap=16, verbose=False)
@@ -286,9 +287,9 @@ def test_generation_noise_shapes_and_seeding():
     np.testing.assert_array_equal(a, b)
     assert len(a) == 5 * cfg.hop_length and np.abs(a).max() <= 1.0
     with pytest.raises(ValueError):
-        TW.WaveRNN(cfg=cfg, gen_backend="cuda")     # no card here
+        TW.WaveRNN(cfg=cfg, gen_backend="cuda", device="cpu")
     with pytest.raises(ValueError):
-        TW.WaveRNN(cfg=cfg, gen_dtype="float16")
+        TW.WaveRNN(cfg=cfg, gen_dtype="float16", device="cpu")
 
 
 def test_wavernn_state_dict_round_trip():
