@@ -163,12 +163,17 @@ def preprocess_inputs_lsa(attn: LSA, inputs):
     return attn.memory_layer(inputs)
 
 
-def _location_features(location_layer, state: AttnState):
+def _location_features(location_layer, state: AttnState, rnd=None):
+    """The location convolution (float32) and its dense projection,
+    whose input ``rnd`` rounds as the query's (see
+    :func:`forward_attention`)."""
     attention_cat = torch.stack(
         [state.attention_weights, state.attention_weights_cum], dim=1
     )  # (B, 2, T)
     w = location_layer.conv_weight
     processed = N.conv1d(attention_cat, w, padding=(w.shape[-1] - 1) // 2)
+    if rnd is not None:
+        processed = rnd(processed)
     return location_layer.location_dense(processed.transpose(1, 2))
 
 
@@ -220,6 +225,7 @@ def forward_attention(
     forward_attn_mask: bool = False,
     training: bool = False,
     mask_energies: bool = False,
+    rnd=None,
 ):
     """One attention step.
 
@@ -230,13 +236,17 @@ def forward_attention(
         :func:`preprocess_inputs`.
       state: previous :class:`AttnState`.
       mask: optional (B, T_in) validity mask (True = valid).
+      rnd: optional rounding of the inputs of the query projection, the
+        location dense and the transition agent as those products see
+        them (a bfloat16 decoder's, see ``decoder.compute_view``).
 
     Returns ``(context (B, D), alignment (B, T_in), new_state)``.
     """
-    processed_query = attn.query_layer(query[:, None, :])
+    q_in = query if rnd is None else rnd(query)
+    processed_query = attn.query_layer(q_in[:, None, :])
     if location_attention:
         pre = processed_query + _location_features(
-            attn.location_layer, state
+            attn.location_layer, state, rnd
         ) + processed_inputs
     else:
         pre = processed_query + processed_inputs
@@ -276,7 +286,8 @@ def forward_attention(
 
     new_u = state.u
     if forward_attn and trans_agent:
-        new_u = torch.sigmoid(attn.ta(torch.cat([context, query], dim=-1)))
+        ta_in = torch.cat([context, query], dim=-1)
+        new_u = torch.sigmoid(attn.ta(ta_in if rnd is None else rnd(ta_in)))
 
     new_state = AttnState(
         attention_weights=alignment,
@@ -290,10 +301,12 @@ def forward_attention(
 
 def lsa_attention(attn: LSA, query, inputs, processed_inputs,
                   state: AttnState, mask=None, *,
-                  mask_energies: bool = True, **_unused):
-    """NVIDIA-style location-sensitive attention step."""
-    processed_query = attn.query_layer(query[:, None, :])
-    processed_loc = _location_features(attn.location_layer, state)
+                  mask_energies: bool = True, rnd=None, **_unused):
+    """NVIDIA-style location-sensitive attention step (``rnd`` as in
+    :func:`forward_attention`)."""
+    q_in = query if rnd is None else rnd(query)
+    processed_query = attn.query_layer(q_in[:, None, :])
+    processed_loc = _location_features(attn.location_layer, state, rnd)
     energies = attn.v(
         torch.tanh(processed_query + processed_loc + processed_inputs)
     )[..., 0]

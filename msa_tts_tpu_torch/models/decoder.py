@@ -7,10 +7,21 @@ with the same gate-threshold early exit.  The prenet's dropout is always
 on, as in the reference; its 0/1 masks are an input (``pre_masks``,
 (S, 2, B, P)) so that the kernel, this loop and the JAX package can be
 fed the same noise.
+
+A decoder whose parameters are bfloat16 decodes with the kernel's
+roundings (the JAX kernel's ``_dot``): the input vector of every matrix
+product (prenet layers, both LSTMs, query, location dense, transition
+agent, projection and gate) is rounded to bfloat16, products of bfloat16
+values are summed in float32, each LSTM's two biases are summed at
+bfloat16, and the state, the location convolution, the energies, the
+normalisation and the outputs stay float32.  On one device the kernel
+then differs from this loop by summation order only.
 """
 
 from __future__ import annotations
 
+import copy
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -52,13 +63,23 @@ class Prenet(nn.Module):
         )
 
 
-def prenet_apply(prenet: Prenet, x, masks, keep: float):
+def _same(x):
+    return x
+
+
+def _round_bf16(x):
+    """``x`` as a bfloat16 product sees it, kept in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def prenet_apply(prenet: Prenet, x, masks, keep: float, rnd=_same):
     """Prenet with injected dropout masks ``masks`` (n_layers, B, P) of
     raw 0/1 floats: ``(relu(W x) / keep) · mask`` per layer.  Never
     premultiply the mask by ``1/keep``: for a keep such as 0.7 that is
-    an ulp off, and the error compounds through the AR feedback."""
+    an ulp off, and the error compounds through the AR feedback.
+    ``rnd`` rounds each layer's input (see :func:`compute_view`)."""
     for i, layer in enumerate(prenet.layers):
-        x = torch.relu(layer(x)) / keep * masks[i]
+        x = torch.relu(layer(rnd(x))) / keep * masks[i]
     return x
 
 
@@ -180,12 +201,66 @@ def _init_carry(cfg: DecoderConfig, batch: int, t_in: int, *, device,
     )
 
 
+def decoder_dtype(decoder: Decoder) -> torch.dtype:
+    """The type a decoder computes its products at: its parameters'."""
+    return decoder.attention_rnn.weight_ih.dtype
+
+
+def params_key(decoder: Decoder) -> tuple:
+    """Changes when a parameter of ``decoder`` gets new storage or
+    another type (as after ``.to()``) or is written in place (its version
+    counter moves, as in ``load_state_dict``); a write through ``.data``
+    is not seen."""
+    return tuple((p.data_ptr(), p._version, p.dtype)
+                 for p in decoder.parameters())
+
+
+# bfloat16 decoder -> (params_key, its float32 view): see compute_view
+_VIEWS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+@torch.no_grad()
+def compute_view(decoder: Decoder):
+    """``(decoder, rnd)`` to run the step with.  A float32 decoder runs
+    as it is, ``rnd`` the identity.  A bfloat16 decoder runs as a
+    float32 copy of its (bfloat16) values with ``rnd`` rounding to
+    bfloat16, applied to the input of every matrix product: float32
+    products of bfloat16 values are exact, so this is a bfloat16 product
+    with float32 accumulation.  In the copy each LSTM's ``bias_ih`` holds
+    the two biases' bfloat16 sum and ``bias_hh`` zeros.  The copy is kept
+    per decoder and made again when a parameter changes
+    (:func:`params_key`)."""
+    if decoder_dtype(decoder) != torch.bfloat16:
+        return decoder, _same
+    key = params_key(decoder)
+    hit = _VIEWS.get(decoder)
+    if hit is None or hit[0] != key:
+        view = copy.deepcopy(decoder).float()
+        for name in ("attention_rnn", "decoder_rnn"):
+            cell, own = getattr(view, name), getattr(decoder, name)
+            cell.bias_ih.copy_(own.bias_ih + own.bias_hh)
+            cell.bias_hh.zero_()
+        hit = (key, view)
+        _VIEWS[decoder] = hit
+    return hit[1], _round_bf16
+
+
+def attention_inputs(decoder: Decoder, cfg: DecoderConfig, encoder_outputs):
+    """The attention's projection of the encoder outputs (B, T_in, A),
+    computed once per utterance at the decoder's type and returned in
+    float32 (as is for a float32 decoder)."""
+    prep_fn, _ = _attn_fns(cfg)
+    dt = decoder_dtype(decoder)
+    return prep_fn(decoder.attention_layer,
+                   encoder_outputs.to(dt)).to(torch.float32)
+
+
 def _attn_fns(cfg: DecoderConfig):
     ap = cfg.attention_params
     if ap["attention_type"] == "ForwardAttention":
-        def step(attn, query, inputs, processed, st, mask):
+        def step(attn, query, inputs, processed, st, mask, rnd=_same):
             return ATT.forward_attention(
-                attn, query, inputs, processed, st, mask,
+                attn, query, inputs, processed, st, mask, rnd=rnd,
                 location_attention=ap.get("location_attention", True),
                 windowing=ap.get("windowing", False),
                 norm=ap.get("norm", "softmax"),
@@ -201,23 +276,26 @@ def _attn_fns(cfg: DecoderConfig):
 
 
 def _decode_step(decoder: Decoder, attn_step_fn, carry: DecoderCarry,
-                 prenet_out, encoder_outputs, processed_inputs, mask):
-    """One decoder step (eval mode: no attention/decoder dropout)."""
+                 prenet_out, encoder_outputs, processed_inputs, mask,
+                 rnd=_same):
+    """One decoder step (eval mode: no attention/decoder dropout).
+    ``rnd`` rounds the inputs of the matrix products (the LSTMs' x and
+    h, the query, the projection's input); the cells' c never is."""
     attn_h, attn_c = R.lstm_cell(
         decoder.attention_rnn,
-        torch.cat([prenet_out, carry.attention_context], dim=-1),
-        (carry.attention_hidden, carry.attention_cell),
+        rnd(torch.cat([prenet_out, carry.attention_context], dim=-1)),
+        (rnd(carry.attention_hidden), carry.attention_cell),
     )
     context, alignment, attn_state = attn_step_fn(
         decoder.attention_layer, attn_h, encoder_outputs,
-        processed_inputs, carry.attn_state, mask,
+        processed_inputs, carry.attn_state, mask, rnd=rnd,
     )
     dec_h, dec_c = R.lstm_cell(
         decoder.decoder_rnn,
-        torch.cat([attn_h, context], dim=-1),
-        (carry.decoder_hidden, carry.decoder_cell),
+        rnd(torch.cat([attn_h, context], dim=-1)),
+        (rnd(carry.decoder_hidden), carry.decoder_cell),
     )
-    dec_h_ctx = torch.cat([dec_h, context], dim=-1)
+    dec_h_ctx = rnd(torch.cat([dec_h, context], dim=-1))
     mel_out = decoder.linear_projection(dec_h_ctx)
     gate = decoder.gate_layer(dec_h_ctx)
     new_carry = DecoderCarry(
@@ -232,18 +310,19 @@ def _decode_step(decoder: Decoder, attn_step_fn, carry: DecoderCarry,
 
 
 def _infer_step(decoder: Decoder, cfg: DecoderConfig, attn_step_fn,
-                encoder_outputs, processed_inputs, mask, step_masks, s):
+                encoder_outputs, processed_inputs, mask, step_masks, s,
+                rnd=_same):
     """ONE autoregressive step on the state dict ``s`` (decoder_input,
     carry, not_finished, mel_lengths).  A row is finished once
     ``sigmoid(gate) <= gate_threshold`` is false; ``mel_lengths`` counts
     the steps after which it was still unfinished."""
     prenet_out = prenet_apply(
         decoder.prenet, s["decoder_input"], step_masks,
-        1.0 - cfg.p_prenet_dropout,
+        1.0 - cfg.p_prenet_dropout, rnd,
     )
     new_carry, (mel_out, gate, alignment) = _decode_step(
         decoder, attn_step_fn, s["carry"], prenet_out,
-        encoder_outputs, processed_inputs, mask,
+        encoder_outputs, processed_inputs, mask, rnd,
     )
     dec = (torch.sigmoid(gate[:, 0]) <= cfg.gate_threshold).to(torch.int32)
     not_finished = s["not_finished"] * dec
@@ -254,6 +333,14 @@ def _infer_step(decoder: Decoder, cfg: DecoderConfig, attn_step_fn,
         mel_lengths=s["mel_lengths"] + not_finished,
     )
     return new_s, (mel_out, gate[:, 0], alignment)
+
+
+def _state_type(encoder_outputs):
+    """Encoder outputs at the type of the state and the outputs: a
+    bfloat16 tensor's values in float32, anything else as it is."""
+    if encoder_outputs.dtype == torch.bfloat16:
+        return encoder_outputs.to(torch.float32)
+    return encoder_outputs
 
 
 def parse_decoder_outputs(cfg: DecoderConfig, mels, gates, aligns):
@@ -280,11 +367,12 @@ def decoder_infer(decoder: Decoder, cfg: DecoderConfig, encoder_outputs,
     B, T_in, _ = encoder_outputs.shape
     S = cfg.max_decoder_steps
     MR = cfg.n_mel_channels * cfg.n_frames_per_step
-    device, dtype = encoder_outputs.device, encoder_outputs.dtype
-
     mask = sequence_mask(input_lengths, T_in)
-    prep_fn, attn_step_fn = _attn_fns(cfg)
-    processed_inputs = prep_fn(decoder.attention_layer, encoder_outputs)
+    _, attn_step_fn = _attn_fns(cfg)
+    processed_inputs = attention_inputs(decoder, cfg, encoder_outputs)
+    encoder_outputs = _state_type(encoder_outputs)
+    device, dtype = encoder_outputs.device, encoder_outputs.dtype
+    decoder, rnd = compute_view(decoder)
 
     mels = torch.zeros(S, B, MR, dtype=dtype, device=device)
     gates = torch.full((S, B), 1e3, dtype=dtype, device=device)
@@ -301,7 +389,7 @@ def decoder_infer(decoder: Decoder, cfg: DecoderConfig, encoder_outputs,
             break
         s, (mels[t], gates[t], aligns[t]) = _infer_step(
             decoder, cfg, attn_step_fn, encoder_outputs,
-            processed_inputs, mask, pre_masks[t], s,
+            processed_inputs, mask, pre_masks[t], s, rnd,
         )
         t += 1
     return (*parse_decoder_outputs(cfg, mels, gates, aligns),
@@ -344,10 +432,12 @@ def decoder_infer_segment(decoder: Decoder, cfg: DecoderConfig,
     run the same ops as ``decoder_infer`` and reproduce it exactly."""
     B, T_in, _ = encoder_outputs.shape
     MR = cfg.n_mel_channels * cfg.n_frames_per_step
-    device, dtype = encoder_outputs.device, encoder_outputs.dtype
     mask = sequence_mask(input_lengths, T_in)
-    prep_fn, attn_step_fn = _attn_fns(cfg)
-    processed_inputs = prep_fn(decoder.attention_layer, encoder_outputs)
+    _, attn_step_fn = _attn_fns(cfg)
+    processed_inputs = attention_inputs(decoder, cfg, encoder_outputs)
+    encoder_outputs = _state_type(encoder_outputs)
+    device, dtype = encoder_outputs.device, encoder_outputs.dtype
+    decoder, rnd = compute_view(decoder)
 
     mels = torch.zeros(n_seg, B, MR, dtype=dtype, device=device)
     gates = torch.zeros(n_seg, B, dtype=dtype, device=device)
@@ -357,7 +447,7 @@ def decoder_infer_segment(decoder: Decoder, cfg: DecoderConfig,
     for t in range(n_seg):
         s, (mels[t], gates[t], aligns[t]) = _infer_step(
             decoder, cfg, attn_step_fn, encoder_outputs,
-            processed_inputs, mask, pre_masks[t], s,
+            processed_inputs, mask, pre_masks[t], s, rnd,
         )
     s["step"] = state["step"] + n_seg
     mel_outputs, _, alignments = parse_decoder_outputs(cfg, mels, gates,

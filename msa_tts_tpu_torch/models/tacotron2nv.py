@@ -168,7 +168,10 @@ def _encode(model: Tacotron2NV, cfg: ModelConfig, inputs, input_lengths,
 
     ``mask_pad`` makes the encoder output at valid positions independent
     of the padded length (see encoder.py:encoder_apply) — used by the
-    serving paths."""
+    serving paths.  Everything runs at the model's parameter type (the
+    speaker vector is cast to it)."""
+    if speaker_vecs.is_floating_point():
+        speaker_vecs = speaker_vecs.to(model.embedding.weight.dtype)
     emb = N.embedding(inputs, model.embedding.weight)          # (B, T, D)
     enc_out = encoder_apply(
         model.encoder, emb.transpose(1, 2), input_lengths,
@@ -188,6 +191,13 @@ def _encode(model: Tacotron2NV, cfg: ModelConfig, inputs, input_lengths,
     return torch.cat([enc_out, spk.to(enc_out.dtype)], dim=-1)
 
 
+def postnet_residual(postnet: Postnet, mel, *, width: int | None = None):
+    """The postnet's correction to a float32 mel (B, n_mel, T), computed
+    at the postnet's parameter type and returned in the mel's."""
+    dt = postnet.convolutions[0][0].conv.weight.dtype
+    return postnet_apply(postnet, mel.to(dt), width=width).to(mel.dtype)
+
+
 @torch.no_grad()
 def tacotron2nv_infer(model: Tacotron2NV, cfg: ModelConfig, inputs,
                       input_lengths, speaker_vecs, pre_masks, *,
@@ -201,6 +211,10 @@ def tacotron2nv_infer(model: Tacotron2NV, cfg: ModelConfig, inputs,
     plain loop on CPU tensors.  On CUDA tensors a config the kernel does
     not lower (inference windowing, forward_attn_mask) raises under
     both: the plain loop runs on the card only when asked for by name.
+
+    A model cast to bfloat16 encodes and runs its postnet in bfloat16
+    and decodes with bfloat16 products on float32 state (see
+    models/decoder.py); the mel comes back in float32.
 
     Returns ``(mel_outputs_postnet (B, n_mel, S·r), mel_lengths (B,),
     alignments (B, S, T_in))``; ``mel_lengths`` is in decoder steps and
@@ -216,6 +230,6 @@ def tacotron2nv_infer(model: Tacotron2NV, cfg: ModelConfig, inputs,
         model.decoder, dcfg, enc_cond.contiguous(), input_lengths,
         pre_masks,
     )
-    mel_outputs_postnet = mel_outputs + postnet_apply(model.postnet,
-                                                      mel_outputs)
+    mel_outputs_postnet = mel_outputs + postnet_residual(model.postnet,
+                                                         mel_outputs)
     return mel_outputs_postnet, mel_lengths, alignments

@@ -19,9 +19,18 @@ from a ``torch.Generator`` seeded by the request's ``seed``; the parity
 tests inject them instead.  The mel stays on the device from the decoder
 to the vocoder.
 
+``infer_dtype: bfloat16`` casts the model (parameters, batch-norm
+state) and the speaker vector to bfloat16, as the JAX package's
+``_cast_infer`` does: the encoder and the postnet run in bfloat16, the
+decoder with bfloat16 products on float32 state (on a GPU the kernels'
+bfloat16 weight path), and mels come back in float32.  ``auto`` is
+float32 here (the JAX package's ``auto`` routes by a batch gate measured
+on its own hardware, which is not carried over).  Solo, streamed and
+multiplexed decoding use the same type.
+
 Not in this version (each raises ``NotImplementedError``): speaker
-adaptation (``adapt``), ``.ckpt`` (flax msgpack) checkpoints,
-``infer_dtype: bfloat16`` and ``parallel`` dp/tp serving.
+adaptation (``adapt``), ``.ckpt`` (flax msgpack) checkpoints and
+``parallel`` dp/tp serving.
 """
 
 from __future__ import annotations
@@ -42,15 +51,12 @@ from .models.cuda_decoder import (
     prenet_masks,
     segment_inputs,
 )
-from .models.decoder import (
-    decoder_infer_segment,
-    decoder_stream_init,
-    postnet_apply,
-)
+from .models.decoder import decoder_infer_segment, decoder_stream_init
 from .models.tacotron2nv import (
     Tacotron2NV,
     _encode,
     config_from_params,
+    postnet_residual,
     tacotron2nv_infer,
 )
 from .ops.audio import griffinlim_logmelspec
@@ -83,15 +89,13 @@ class AdaptiveTTS:
         self.cfg = config_from_params(mp)
 
         idt = params.get("infer_dtype", "auto")
-        if idt in ("bfloat16", "bf16"):
-            raise NotImplementedError(
-                "infer_dtype bfloat16: the port decodes in float32 only"
-            )
-        if idt not in (None, "auto", "float32", "fp32"):
+        if idt not in (None, "auto", "float32", "fp32", "bfloat16", "bf16"):
             raise ValueError(
                 f"unknown infer_dtype {idt!r}: expected 'auto', "
                 "'float32' or 'bfloat16'"
             )
+        self.infer_dtype = (torch.bfloat16 if idt in ("bfloat16", "bf16")
+                            else torch.float32)
         pcfg = params.get("parallel") or {}
         if int(pcfg.get("dp", 1)) > 1 or int(pcfg.get("tp", 1)) > 1:
             raise NotImplementedError(
@@ -102,7 +106,9 @@ class AdaptiveTTS:
             device if device is not None
             else next(model.parameters()).device
         )
-        self.model = model.to(self.device).eval()
+        # the model itself is cast (in place, as it is moved): no second
+        # copy of the weights stays behind
+        self.model = model.to(self.device, self.infer_dtype).eval()
         self.decode_backend = params.get("decode_backend") or "auto"
         # raises now, not at the first request, for `cuda` on a CPU or a
         # config the kernel does not lower on a GPU
@@ -162,7 +168,7 @@ class AdaptiveTTS:
         if model is None:
             model = Tacotron2NV(self.model.cfg)
             model.load_state_dict(voice.state_dict, strict=True)
-            model = model.to(self.device).eval()
+            model = model.to(self.device, self.infer_dtype).eval()
             self._voice_cache[voice] = model
         return model
 
@@ -458,7 +464,7 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
     pctx = _postnet_ctx(cfg)
 
     def post_fn(x, width):
-        return x + postnet_apply(model.postnet, x, width=width)
+        return x + postnet_residual(model.postnet, x, width=width)
 
     # windows are padded to the widest a segment stream can produce (left
     # ctx + held-back ctx + a segment's raw frames + final zeros <= 3·ctx)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..kernels.build import load
+from ..kernels.mma import frag_index as _frag_index
 from .wavernn import WaveRNNConfig
 
 # Incremented once per launch of the sample-loop kernel, and nowhere
@@ -213,20 +214,6 @@ def kernel_plan(cfg: WaveRNNConfig, n_blocks: int, bf16: bool) -> dict:
             f"staging for 8 rows), more than the {SMEM_MAX} a Hopper "
             "block can use")
     return pl
-
-
-def _frag_index(half: bool):
-    """(row, column) inside a 16 x 16 weight tile (8 x 16 for ``half``)
-    of each of a lane's bf16 values, in the order the A operand of
-    ``mma.sync.m16n8k16`` holds them: lane = 4·group + t, registers a0-a3
-    = rows group / group + 8, columns 2t, 2t+1 / + 8.  A half tile keeps
-    a0 and a2 (rows 0-7)."""
-    lane = np.arange(32)[:, None]
-    e = np.arange(4 if half else 8)[None, :]
-    g, tig, reg, hi = lane >> 2, lane & 3, e >> 1, e & 1
-    if half:
-        return g + 0 * e, 2 * tig + hi + 8 * reg
-    return g + 8 * (reg & 1), 2 * tig + hi + 8 * (reg >> 1)
 
 
 def _tile_rows(kind: str, n_out: int, n_blocks: int, tiles: int):

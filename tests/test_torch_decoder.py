@@ -127,8 +127,9 @@ def test_cuda_decoder_infer_raises_on_cpu_tensors():
                                 {"trans_agent": False}])
 def test_split_decoder_params_layout(ap):
     """The kernel's packed weights compute the same maps as the modules:
-    each LSTM's [W_ih | W_hh | 0] against [x, h, pad], the projection and
-    gate as one matrix, the transition agent as [ctx | query]."""
+    each LSTM's three unit-major segments against the pieces of [x, h],
+    rows zero-padded to 8 values, the projection and gate as one matrix
+    over [decoder h | context], the transition agent as [ctx | query]."""
     from msa_tts_tpu_torch.models.decoder import Decoder
     from msa_tts_tpu_torch.models.tacotron2nv import config_from_params
 
@@ -136,22 +137,33 @@ def test_split_decoder_params_layout(ap):
     dec = Decoder(dcfg, generator=torch.Generator().manual_seed(0))
     w = CD.split_decoder_params(dec, dcfg)
     g = torch.Generator().manual_seed(1)
-    for cell, name in ((dec.attention_rnn, "w_att"),
-                       (dec.decoder_rnn, "w_dec")):
+    P, E = dcfg.prenet_dim, dcfg.encoder_embedding_dim
+    H, Hd = dcfg.attention_rnn_dim, dcfg.decoder_rnn_dim
+    for cell, names, cuts, bias in (
+        (dec.attention_rnn, ("wa_p", "wa_c", "wa_h"), (P, E, H), "b_att"),
+        (dec.decoder_rnn, ("wd_h", "wd_c", "wd_hd"), (H, E, Hd), "b_dec"),
+    ):
         x = torch.randn(3, cell.input_size, generator=g)
         h = torch.randn(3, cell.hidden_size, generator=g)
-        n = cell.input_size + cell.hidden_size
-        assert w[name].shape[1] % 4 == 0
-        assert not w[name][:, n:].any()
-        bias = w["b_att" if name == "w_att" else "b_dec"]
-        got = torch.cat([x, h], 1) @ w[name][:, :n].T + bias
+        pieces = torch.cat([x, h], 1).split(cuts, dim=1)
+        got = w[bias].clone()
+        for name, piece in zip(names, pieces):
+            seg, n = w[name], piece.shape[1]
+            assert seg.shape == (cell.hidden_size, 4, -(-n // 8) * 8), name
+            assert not seg[..., n:].any()
+            # (units, gates, columns) -> gate-major rows, as the cell's
+            got = got + torch.einsum("bi,ugi->bgu", piece,
+                                     seg[..., :n]).reshape(3, -1)
         want = (x @ cell.weight_ih.T + h @ cell.weight_hh.T
                 + cell.bias_ih + cell.bias_hh)
         torch.testing.assert_close(got, want)
     MR = dcfg.n_mel_channels * dcfg.n_frames_per_step
-    assert torch.equal(w["w_pg"][:MR],
-                       dec.linear_projection.linear_layer.weight)
-    assert torch.equal(w["w_pg"][MR:], dec.gate_layer.linear_layer.weight)
+    ldh = -(-Hd // 8) * 8
+    both = torch.cat([w["w_pg"][:, :Hd], w["w_pg"][:, ldh: ldh + E]], dim=1)
+    assert torch.equal(both[:MR], dec.linear_projection.linear_layer.weight)
+    assert torch.equal(both[MR:], dec.gate_layer.linear_layer.weight)
+    assert not w["w_pg"][:, Hd:ldh].any()
+    assert not w["w_pg"][:, ldh + E:].any()
     att = dec.attention_layer
     if hasattr(att, "ta"):
         assert torch.equal(w["w_ta"], att.ta.weight[0])
@@ -178,7 +190,7 @@ def test_prenet_masks_are_raw_zero_one():
 
 
 def test_packed_params_cache_follows_the_weights():
-    """The kernel's packed weights are kept on the decoder between decodes
+    """The kernel's packed weights are kept per decoder between decodes
     and packed again when a weight changes in place or is reloaded."""
     from msa_tts_tpu_torch.models.decoder import Decoder
     from msa_tts_tpu_torch.models.tacotron2nv import config_from_params

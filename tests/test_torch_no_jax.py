@@ -1,8 +1,8 @@
 """The port imports neither jax nor the JAX package: in a fresh
 interpreter where ``import jax`` and ``import msa_tts_tpu`` both fail,
 every ``msa_tts_tpu_torch`` module imports (serving, stream_mux and
-server among them), the tiny CPU slice runs from text to a wav file,
-one stream and one multiplexed stream run to their end, and an attached
+server among them), the tiny CPU slice runs from text to a wav file
+(once more with ``infer_dtype: bfloat16``), one stream and one multiplexed stream run to their end, and an attached
 WaveRNN and HiFi-GAN each vocode a request."""
 
 import os
@@ -50,6 +50,13 @@ tts = AdaptiveTTS({"model": mp, "audio_params": audio}, model)
 wav = tts.synthesize("hello world", spk_emb=np.zeros(8, np.float32))
 assert wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all()
 save_wav(sys.argv[1], wav, audio["sample_rate"])
+tts16 = AdaptiveTTS(
+    {"model": mp, "audio_params": audio, "infer_dtype": "bfloat16"},
+    Tacotron2NV(config_from_params(mp),
+                generator=torch.Generator().manual_seed(0)))
+wav16 = tts16.synthesize("hello world", spk_emb=np.zeros(8, np.float32))
+assert wav16.dtype == np.float32 and wav16.shape == wav.shape
+assert np.isfinite(wav16).all()
 
 from msa_tts_tpu_torch import server, stream_mux
 assert {"msa_tts_tpu_torch.serving", "msa_tts_tpu_torch.stream_mux",

@@ -132,10 +132,13 @@ def test_not_ported_features_raise(both, experiment, tmp_path):
     _, tts = both
     base = {"model": dict(tts.params["model"]),
             "audio_params": dict(AP)}
-    for extra in ({"infer_dtype": "bfloat16"}, {"parallel": {"dp": 2}},
-                  {"parallel": {"tp": 2}}):
+    for extra in ({"parallel": {"dp": 2}}, {"parallel": {"tp": 2}}):
         with pytest.raises(NotImplementedError):
             AdaptiveTTS(dict(base, **extra), tts.model)
+    # infer_dtype: bfloat16 is served (tests/test_torch_bf16.py); a type
+    # the package does not know still raises
+    with pytest.raises(ValueError, match="infer_dtype"):
+        AdaptiveTTS(dict(base, infer_dtype="float16"), tts.model)
     # a neural vocoder must be attached first
     for voc in ("wavernn", "hifigan"):
         with pytest.raises(ValueError, match="attach_vocoder"):

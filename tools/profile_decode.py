@@ -2,13 +2,16 @@
 """Where a served request's time goes on one CUDA GPU, at the full width
 of examples/maml/params.yml with seeded random weights.
 
-    python3 tools/profile_decode.py [--out build/profile_decode.json]
+    python3 tools/profile_decode.py [--infer-dtype bfloat16]
+        [--out build/profile_decode.json]
 
-Three readings, at B = 1 and B = 4:
-  1. the decoder kernel's µs per phase of a step, from the device-clock
-     stamps it writes at its phase barriers when given a ``phase_ns``
-     buffer (500 steps, T_in 120; median over steps), and its ms per
-     decode with and without the stamps (what the stamps cost);
+Three readings, at B = 1 and B = 4, in float32 or (``--infer-dtype
+bfloat16``) with the model served in bfloat16:
+  1. the decoder kernel's µs per phase of a step (block 0's work and its
+     time in each phase's barrier), from the device-clock stamps it
+     writes when given a ``phase_ns`` buffer (500 steps, T_in 120; median
+     over steps), and its ms per decode with and without the stamps
+     (what the stamps cost);
   2. one served request split into stages, each closed by a device
      synchronisation, median of 5 warm runs: G2P, prenet masks, encoder,
      decoder kernel, postnet, Griffin-Lim with the copy to the host;
@@ -32,13 +35,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-PHASES = ("prenet 1", "prenet 2", "attn LSTM", "query", "energies",
-          "attention rows", "dec LSTM", "proj+gate", "bookkeeping")
 T_IN = 120
 REPS = 5
 
 
-def _build_tts(device):
+def _build_tts(device, infer_dtype="float32"):
     import torch
 
     from chip_smoke import SHIPPED_AUDIO, SHIPPED_MODEL
@@ -53,7 +54,8 @@ def _build_tts(device):
     model = Tacotron2NV(config_from_params(mp),
                         generator=torch.Generator().manual_seed(0))
     tts = AdaptiveTTS({"model": mp, "audio_params": dict(SHIPPED_AUDIO),
-                       "decode_backend": "cuda"}, model, device=device)
+                       "decode_backend": "cuda", "infer_dtype": infer_dtype},
+                      model, device=device)
     # every row stays unfinished, so each request yields all 500 steps
     with torch.no_grad():
         tts.model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
@@ -83,7 +85,7 @@ def kernel_phases(tts, device, B):
     S = dcfg.max_decoder_steps
     g = torch.Generator().manual_seed(B)
     enc = torch.randn(B, T_IN, dcfg.encoder_embedding_dim,
-                      generator=g).to(device)
+                      generator=g).to(device, tts.infer_dtype)
     lens = torch.tensor([T_IN, 97, 110, 64][:B], device=device)
     masks = CD.prenet_masks(dcfg, S, B, g, device=device)
     ns = torch.zeros(S, CD.N_STAMPS, dtype=torch.int64, device=device)
@@ -95,12 +97,12 @@ def kernel_phases(tts, device, B):
     run(None)
     off = _events_ms(lambda: run(None), REPS)
     on = _events_ms(lambda: run(ns), REPS)
-    d = (ns[:, 1:] - ns[:, :-1]).double().cpu() / 1e3          # (S, 9) µs
+    d = (ns[:, 1:] - ns[:, :-1]).double().cpu() / 1e3          # (S, n) µs
     step = (ns[:, -1] - ns[:, 0]).double().cpu() / 1e3
     return {
         "B": B, "T_in": T_IN, "steps": S,
         "phase_us": {name: float(d[:, i].median())
-                     for i, name in enumerate(PHASES)},
+                     for i, name in enumerate(CD.PHASES)},
         "step_us_median": float(step.median()),
         "ms_per_decode": off, "ms_per_decode_with_stamps": on,
     }
@@ -115,8 +117,10 @@ def request_stages(tts, device, texts, seed=0):
         cuda_decoder_infer,
         prenet_masks,
     )
-    from msa_tts_tpu_torch.models.decoder import postnet_apply
-    from msa_tts_tpu_torch.models.tacotron2nv import _encode
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        _encode,
+        postnet_residual,
+    )
 
     cfg, dcfg = tts.cfg, tts.cfg.decoder_config()
     model, B = tts.model, len(texts)
@@ -147,7 +151,8 @@ def request_stages(tts, device, texts, seed=0):
                                            mask_pad=True).contiguous())
     mel, _, _, mel_len, _ = stage("decoder kernel", lambda: (
         cuda_decoder_infer(model.decoder, dcfg, enc, lens, masks)))
-    post = stage("postnet", lambda: mel + postnet_apply(model.postnet, mel))
+    post = stage("postnet",
+                 lambda: mel + postnet_residual(model.postnet, mel))
     r = cfg.n_frames_per_step
     n = mel_len.cpu().tolist()
     mels = [post[i, :, :max(n[i], 1) * r] for i in range(B)]
@@ -206,6 +211,8 @@ def main() -> int:
     from chip_smoke import TEXTS, _gpu_line
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--infer-dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "profile_decode.json"))
     args = ap.parse_args()
@@ -218,10 +225,11 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gpu = _gpu_line()
     print(gpu)
-    tts = _build_tts(device)
+    tts = _build_tts(device, args.infer_dtype)
     emb = np.random.default_rng(0).standard_normal(
         tts.cfg.speaker_embedding_dim).astype(np.float32)
-    res = {"gpu": gpu, "kernel": [], "stages": {}, "profiler": {}}
+    res = {"gpu": gpu, "infer_dtype": args.infer_dtype, "kernel": [],
+           "stages": {}, "profiler": {}}
     for B in (1, 4):
         k = kernel_phases(tts, device, B)
         res["kernel"].append(k)
