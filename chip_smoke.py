@@ -36,13 +36,22 @@ Phases (any failure exits non-zero):
      sample-loop launch per vocoded call, a batch row against its solo
      vocoding;
  10. hold the LSTM-cell kernel against its plain version (B = 16,
-     H = 1024) and run its 400-step scan.
+     H = 1024) and run its 400-step scan;
+ 11. adapt the float32 model at that width from four synthetic clips
+     (``AdaptiveTTS.adapt``: the shipped loss, 5 SGD steps and the query
+     pass), print its warm wall time and peak device memory, hold the
+     adapted weights and query loss against the same adapt on the CPU,
+     check the query loss is below the first inner step's, round-trip
+     the voice file, and serve the adapted voice through the whole-loop
+     kernel (float32 and bfloat16) and the segment kernel against the
+     plain decode.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel with its launches on its main
 path (phase 3 for the whole loop, phase 5 for the segments, phase 9 for
-the sample loop, phase 10's scan for the cell), its error against the
+the sample loop, phase 10's scan for the cell; the decoder kernels'
+``adapted_voice_launches`` are phase 11's), its error against the
 plain version, both times, and the least time the card could take for
 the same work (``bound_ms``: the larger of bytes over 3.35 TB/s and
 operations over the peak rate of their type; weights count once per
@@ -108,6 +117,18 @@ SHIPPED_AUDIO = {
     "n_mfcc": 13,
     "sample_rate": 22050,
     "win_length": 1024,
+}
+
+# examples/maml/params.yml — what AdaptiveTTS.adapt reads besides the
+# model: the loss, the inner optimizer and its steps, the frontend and
+# the silence trim (tests/test_torch_serving.py holds them equal)
+SHIPPED_ADAPT = {
+    "audio_processor": "ap",
+    "criterion": {"criterion_type": "Tacotron2Loss", "pos_weight": 6.0,
+                  "reduction": "none"},
+    "dataset_train": {"trim_margin_silence": True},
+    "n_inner_test": 5,
+    "optim_inner": {"lr": "1e-2", "optimizer_type": "SGD"},
 }
 
 # the card's published peaks (NVIDIA H100 SXM data sheet)
@@ -1193,6 +1214,268 @@ def lstm_cell_vs_plain(device, seed: int = 0) -> dict:
     return res
 
 
+# --------------------------------------------------------------------
+# Phase 11: few-shot adaptation
+# --------------------------------------------------------------------
+
+# The card's adapt against the same adapt on the CPU with the same clips
+# and masks, float32 on both sides (TF32 off): cuDNN's LSTM and the
+# library convolutions sum in other orders than the CPU's, over 5 forward
+# and backward passes.  Each limit is set from its own readings (NVIDIA
+# H100 80GB HBM3, 700 W, three machines), at no more than 4 x the
+# largest: the adapted weights max|d| 2.7e-6 and 2.8e-6 (absolute); the
+# batch norms' running statistics, whose variances reach the hundreds,
+# per tensor max|d| over max|value|, 9.4e-5 on one machine (a postnet
+# running mean, values near zero); the query loss 1.3e-7, 2.6e-7 and
+# 1.3e-7 relative.
+ADAPT_W_ATOL = 1e-5
+ADAPT_STAT_RTOL = 3e-4
+ADAPT_LOSS_RTOL = 1e-6
+
+
+def _clips(dirname: str, n: int, sr: int, seed: int = 0) -> list:
+    """``n`` clips of 1.5-2.5 s: voiced harmonics (a gliding pitch) and
+    noise between quiet margins, so that the silence trim keeps most of
+    each; written as 16-bit wavs."""
+    import os
+
+    import numpy as np
+
+    from msa_tts_tpu_torch.ops.audio import save_wav
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        n_samp = int(sr * (1.5 + i / max(n - 1, 1)))
+        t = np.arange(n_samp) / sr
+        f0 = 110.0 + 30.0 * i + 20.0 * np.sin(2 * np.pi * 0.7 * t)
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        w = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6))
+        w = w + 0.02 * rng.standard_normal(n_samp)
+        edge = int(0.15 * sr)
+        w[:edge] *= 1e-3
+        w[-edge:] *= 1e-3
+        paths.append(os.path.join(dirname, f"clip{i}.wav"))
+        save_wav(paths[-1], w, sr)
+    return paths
+
+
+def adapt_phase(device, mp: dict, audio: dict, adapt_params: dict,
+                n_clips: int = 4) -> dict:
+    """Phase 11: ``AdaptiveTTS.adapt`` of seeded random weights from
+    ``n_clips`` synthetic clips on the card, timed warm (median of 3,
+    with its range) with the peak device memory; the adapted weights and
+    query loss against the same adapt on the CPU with the same masks;
+    the query loss below the first inner step's; every adapted weight
+    finite; ``save_voice`` / ``load_voice`` serving the same mel bit for
+    bit; then the adapted voice served through the whole-loop kernel
+    (float32, and bfloat16 from the same float32 weights) and the
+    segment kernel, with their launches counted from 0 and held against
+    the plain decode at phase 3's limits."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        config_from_params,
+        dropout_masks,
+    )
+    from msa_tts_tpu_torch.serving import AdaptiveTTS, Voice
+
+    params = dict(adapt_params, model=mp, audio_params=dict(audio),
+                  decode_backend="cuda")
+
+    def make(dev, **over):
+        model = Tacotron2NV(config_from_params(mp),
+                            generator=torch.Generator().manual_seed(0))
+        return AdaptiveTTS(dict(params, **over), model, device=dev)
+
+    tts, cpu = make(device), make("cpu", decode_backend="torch")
+    n_inner = tts._n_inner
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_adapt_")
+    try:
+        wavs = _clips(tmp, n_clips, audio["sample_rate"])
+        phones = [tts.g2p.text_to_phone(t) for t in TEXTS[:n_clips]]
+        emb = np.random.default_rng(5).standard_normal(
+            tts.cfg.speaker_embedding_dim).astype(np.float32)
+        t0 = time.perf_counter()
+        batch = cpu.adapt_batch(wavs, phones, emb)
+        res["features_s"] = time.perf_counter() - t0
+        B, T_in = batch["inputs"].shape
+        T_mel = batch["melspecs"].shape[-1]
+        print(f"  {n_clips} clips of 1.5-2.5 s; "
+              f"batch B {B}, T_in {T_in}, T_mel {T_mel} (mel lengths "
+              f"{batch['melspec_lengths'].tolist()}), "
+              f"{T_mel // tts.cfg.n_frames_per_step} teacher-forced steps "
+              f"a pass, {n_inner} steps of {adapt_params['optim_inner']} "
+              f"+ the query pass; "
+              f"{sum(p.numel() for p in tts.model.parameters()) / 1e6:.1f} "
+              f"M parameters; the clips' features and batch on the host "
+              f"{1e3 * res['features_s']:.0f} ms")
+
+        # the product path: masks drawn on the card from the seed
+        tts.adapt(wavs, phones, emb, seed=0)                  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base_mem = torch.cuda.memory_allocated(device)
+        walls = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tts.adapt(wavs, phones, emb, seed=i + 1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(device)
+        res["adapt_s"] = sorted(walls)[1]
+        res["adapt_s_min"], res["adapt_s_max"] = min(walls), max(walls)
+        res["peak_bytes"] = peak
+        res["peak_above_weights_bytes"] = peak - base_mem
+        print(f"  adapt, warm, masks drawn on the card: median "
+              f"{res['adapt_s']:.3f} s of 3 [{min(walls):.3f}-"
+              f"{max(walls):.3f}]; peak device memory {peak / 2**20:.0f} "
+              f"MiB ({(peak - base_mem) / 2**20:.0f} MiB above what was "
+              f"held before); {_gpu_line()}")
+
+        # card against CPU on the same masks (drawn on the CPU)
+        g = torch.Generator().manual_seed(11)
+        masks = [dropout_masks(tts.cfg, B, T_in, T_mel, g, device="cpu")
+                 for _ in range(n_inner + 1)]
+        v = tts.adapt(wavs, phones, emb, masks=masks)
+        t0 = time.perf_counter()
+        ref = cpu.adapt(wavs, phones, emb, masks=masks)
+        res["cpu_adapt_s"] = time.perf_counter() - t0
+        # weights absolute; running statistics relative to their tensor's
+        # largest value
+        worst = {"weights": (0.0, None), "statistics": (0.0, None)}
+        moved = 0.0
+        for k, t in v.state_dict.items():
+            if not t.is_floating_point():
+                continue
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"adapted {k} is not finite")
+            r = ref.state_dict[k]
+            d = float((t.cpu() - r).abs().max())
+            kind = "statistics" if "running_" in k else "weights"
+            if kind == "statistics":
+                d /= max(float(r.abs().max()), 1e-30)
+            else:
+                moved = max(moved, float((t - tts._master[k]).abs().max()))
+            if d >= worst[kind][0]:
+                worst[kind] = (d, k)
+        rel = abs(v.support_loss - ref.support_loss) / ref.support_loss
+        res["max_abs_err"] = worst["weights"][0]
+        res["stat_rel_err"] = worst["statistics"][0]
+        res["loss_rel_err"] = rel
+        print(f"  card vs CPU ({res['cpu_adapt_s']:.1f} s on the CPU), same "
+              f"masks: adapted weights max|d| {worst['weights'][0]:.3e} "
+              f"({worst['weights'][1]}; limit {ADAPT_W_ATOL}); running "
+              f"statistics max|d|/max|value| {worst['statistics'][0]:.3e} "
+              f"({worst['statistics'][1]}; limit {ADAPT_STAT_RTOL}); largest "
+              f"step from the base weights {moved:.3e}; query loss card "
+              f"{v.support_loss:.6f} CPU {ref.support_loss:.6f} (rel "
+              f"{rel:.2e}, limit {ADAPT_LOSS_RTOL})")
+        if not (worst["weights"][0] <= ADAPT_W_ATOL
+                and worst["statistics"][0] <= ADAPT_STAT_RTOL
+                and rel <= ADAPT_LOSS_RTOL):
+            raise AssertionError("the card's adapt differs from the CPU's")
+
+        # the first inner step's loss: the base weights on pass 0's masks
+        first = make(device, n_inner_test=0).adapt(wavs, phones, emb,
+                                                   masks=masks[:1])
+        res["first_inner_loss"] = first.support_loss
+        res["query_loss"] = v.support_loss
+        print(f"  first inner loss {first.support_loss:.6f}, query loss "
+              f"after {n_inner} steps {v.support_loss:.6f}")
+        if not v.support_loss < first.support_loss:
+            raise AssertionError("adaptation did not lower the loss")
+
+        # serve the adapted voice for all max_decoder_steps: random
+        # weights fire the gate at once (see serve())
+        sd = dict(v.state_dict)
+        sd["decoder.gate_layer.linear_layer.bias"] = torch.full_like(
+            sd["decoder.gate_layer.linear_layer.bias"], -1e4)
+        voice = Voice(sd, v.spk_emb, v.support_loss)
+        path = f"{tmp}/adapted.voice"
+        tts.save_voice(voice, path)
+        loaded = tts.load_voice(path)
+        a = tts.synthesize(TEXTS[0], voice, seed=0, vocoder="none")
+        b = tts.synthesize(TEXTS[0], loaded, seed=0, vocoder="none")
+        print(f"  save_voice -> load_voice: the loaded voice serves the same "
+              f"mel bit for bit: {np.array_equal(a, b)}")
+        if not np.array_equal(a, b):
+            raise AssertionError("a loaded voice serves another mel")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- the adapted voice's main path: every launch from here is served
+    tts16 = make(device, infer_dtype="bfloat16")
+    S = tts.cfg.max_decoder_steps
+    hop = audio["hop_length"]
+    want = hop * (S * tts.cfg.n_frames_per_step - 1)
+    tts.synthesize(TEXTS[1], voice, seed=0)         # loads the voice once
+    tts16.synthesize(TEXTS[1], voice, seed=0)
+    torch.cuda.synchronize()
+    CD.LAUNCHES = CD.SEG_LAUNCHES = 0
+    wavs_out = [tts.synthesize(TEXTS[0], voice, seed=0),
+                tts16.synthesize(TEXTS[0], voice, seed=0)]
+    n_chunks = n_samples = 0
+    for chunk in tts.synthesize_stream(TEXTS[1], voice, seed=1,
+                                       segment_steps=SEG):
+        n_samples += len(chunk)
+        n_chunks += 1
+    torch.cuda.synchronize()
+    res["launches"], res["seg_launches"] = CD.LAUNCHES, CD.SEG_LAUNCHES
+    n_seg = -(-S // SEG)
+    print(f"  adapted voice served: synthesize float32 and bfloat16, "
+          f"{res['launches']} whole-loop launches; synthesize_stream "
+          f"{n_chunks} chunks, {n_samples} samples, {res['seg_launches']} "
+          f"segment launches for {n_seg} segments")
+    for w in wavs_out:
+        if w.shape != (want,) or not np.isfinite(w).all():
+            raise AssertionError(f"adapted voice: wav of shape {w.shape}")
+    if (res["launches"] != 2 or res["seg_launches"] != n_seg
+            or n_samples != want):
+        raise AssertionError("adapted voice: launches or samples are off")
+
+    # ---- comparisons, not counted above: kernels against the plain decode
+    for t, tag in ((tts, "float32"), (tts16, "bfloat16")):
+        plain = AdaptiveTTS(dict(t.params, decode_backend="torch"), t.model,
+                            device=device)
+        mel = t.synthesize(TEXTS[0], voice, seed=0, vocoder="none")
+        ref = plain.synthesize(TEXTS[0], voice, seed=0, vocoder="none")
+        d = np.abs(mel - ref) if mel.shape == ref.shape else np.inf
+        err = float(np.max(d))
+        if tag == "bfloat16":
+            share = float((d > DEC_BF16_FLIP["mels"]).mean())
+            ok = err <= SERVE_BF16_MAX and share <= DEC_BF16_SHARE
+            extra = (f" (limit {SERVE_BF16_MAX}), share beyond "
+                     f"{DEC_BF16_FLIP['mels']}: {share:.2e} (limit "
+                     f"{DEC_BF16_SHARE})")
+        else:
+            ok, extra = err <= SERVE_ATOL, f" (limit {SERVE_ATOL})"
+            res["serve_max_abs_err"] = err
+        print(f"  adapted voice, {tag}: kernel vs plain decode, mel max|d| "
+              f"{err:.3e}{extra}")
+        if not ok:
+            raise AssertionError(f"adapted voice ({tag}) differs from the "
+                                 "plain decode")
+    streamed = np.concatenate(list(tts.synthesize_stream(
+        TEXTS[0], voice, seed=0, vocoder="none", segment_steps=SEG)), -1)
+    off = tts.synthesize(TEXTS[0], voice, seed=0, vocoder="none")
+    err = (float(np.abs(streamed - off).max()) if streamed.shape == off.shape
+           else float("inf"))
+    print(f"  adapted voice streamed (segment kernel) vs offline: mel max|d| "
+          f"{err:.3e} (limit {STREAM_ATOL})")
+    if not err <= STREAM_ATOL:
+        raise AssertionError("adapted voice: streamed mel differs")
+    return res
+
+
 TEXTS = [
     "The birch canoe slid on the smooth planks.",
     "Glue the sheet to the dark blue background.",
@@ -1390,6 +1673,13 @@ def main() -> int:
           "its 400-step scan")
     ck = lstm_cell_vs_plain(device)
     print(gpu)
+    print("phase 11: few-shot adaptation (AdaptiveTTS.adapt) at the shipped "
+          "width, and the adapted voice served through the decoder kernels")
+    ad = adapt_phase(device, dict(SHIPPED_MODEL, n_symbols=N_SYMBOLS,
+                                  n_mel_channels=SHIPPED_AUDIO["n_mels"]),
+                     SHIPPED_AUDIO, SHIPPED_ADAPT)
+    print(gpu)
+    print(json.dumps({"adapt": ad}))
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in
@@ -1414,8 +1704,11 @@ def main() -> int:
         }
 
     print(json.dumps({"kernels": [
-        dec_entry("decoder_loop", 458, k, launches),
-        dec_entry("decoder_segment", 553, sk, seg_launches),
+        # adapted_voice_launches: phase 11's served path
+        dict(dec_entry("decoder_loop", 458, k, launches),
+             adapted_voice_launches=ad["launches"]),
+        dict(dec_entry("decoder_segment", 553, sk, seg_launches),
+             adapted_voice_launches=ad["seg_launches"]),
         {
         # the serving path's type: bf16 weight matrices, B 44, T 3,850
         "name": "wavernn_loop",

@@ -1,0 +1,57 @@
+"""Inner-loop adaptation (counterpart of ``msa_tts_tpu/meta/inner_loop.py``).
+
+k steps of gradient descent over a dictionary of parameters with a
+functional optimizer (``optim.make_optimizer``): each step evaluates the
+loss on the current parameters (the caller's loss runs the model with
+``torch.func.functional_call``), takes ``torch.autograd.grad`` of it and
+applies the optimizer's update.  The batch-norm state returned by a step is the
+next step's, as the JAX package threads it through its scan.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..optim import Transform, apply_updates
+
+
+def make_adapt_fn(loss_fn: Callable, inner_tx: Transform, n_steps: int, *,
+                  create_graph: bool = False):
+    """Build ``adapt(params, model_state, batch, masks)``.
+
+    ``loss_fn(params, model_state, batch, masks) -> (loss,
+    new_model_state)``; ``masks[k]`` is step k's.  Returns
+    ``(adapted_params, model_state, losses)``, ``losses`` the per-step
+    inner losses (n_steps,).
+
+    ``create_graph=False`` (first order) starts every step from detached
+    parameters.  With ``create_graph=True`` the updates keep their
+    graph, so the adapted parameters can be differentiated with respect
+    to the ``params`` given (second-order meta-learning); those must
+    then require grad."""
+
+    def adapt(params: dict, model_state: dict, batch, masks):
+        if not create_graph:
+            params = {k: p.detach().requires_grad_() for k, p in
+                      params.items()}
+        opt_state = inner_tx.init(params)
+        losses = []
+        for k in range(n_steps):
+            loss, new_ms = loss_fn(params, model_state, batch, masks[k])
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        create_graph=create_graph)
+            updates, opt_state = inner_tx.update(
+                dict(zip(params, grads)), opt_state, params)
+            params = apply_updates(params, updates)
+            if not create_graph:
+                params = {n: p.detach().requires_grad_()
+                          for n, p in params.items()}
+            # the state is an output of the step, not differentiated
+            model_state = {n: v.detach() for n, v in new_ms.items()}
+            losses.append(loss.detach())
+        return (params, model_state,
+                torch.stack(losses) if losses else torch.zeros(0))
+
+    return adapt

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import copy
 import weakref
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -48,6 +49,8 @@ class DecoderConfig(NamedTuple):
     attention_params: dict
     p_prenet_dropout: float = 0.5
 
+
+POSTNET_DROPOUT = 0.5  # fixed, as in the reference
 
 # --------------------------------------------------------------------------
 # Prenet and postnet
@@ -112,20 +115,36 @@ def postnet_apply(postnet: Postnet, x, *, width: int | None = None):
     them non-zero, so one mask up front is not enough).  Columns below
     ``width`` of the result then equal the postnet of ``x[..., :width]``;
     the streaming path runs each window at one padded width this way."""
+    return postnet_forward(postnet, x, width=width)[0]
+
+
+def postnet_forward(postnet: Postnet, x, masks=None, *, width=None):
+    """:func:`postnet_apply` returning ``(y, new_state)``.  With
+    ``masks`` (``masks[i]`` a raw 0/1 mask of layer i's output shape) it
+    runs in training mode: batch norms on the batch's statistics,
+    dropout at rate 0.5 after every layer (the last included), and
+    ``new_state`` holds one ``(running_mean, running_var)`` per layer
+    (empty in eval mode)."""
     n = len(postnet.convolutions)
     pad = (postnet.kernel_size - 1) // 2
     valid = (None if width is None
              else torch.arange(x.shape[-1], device=x.device) < width)
+    new_state = []
     for i, conv_bn in enumerate(postnet.convolutions):
         if valid is not None:
             x = torch.where(valid, x, 0.0)
         conv = conv_bn[0].conv
-        x = N.batchnorm1d(
-            conv_bn[1], N.conv1d(x, conv.weight, conv.bias, padding=pad)
-        )
+        x = N.conv1d(x, conv.weight, conv.bias, padding=pad)
+        if masks is None:
+            x = N.batchnorm1d(conv_bn[1], x)
+        else:
+            x, bn_state = N.batchnorm1d_train(conv_bn[1], x)
+            new_state.append(bn_state)
         if i < n - 1:
             x = torch.tanh(x)
-    return x
+        if masks is not None:
+            x = N.dropout(x, masks[i], POSTNET_DROPOUT)
+    return x, new_state
 
 
 # --------------------------------------------------------------------------
@@ -255,7 +274,9 @@ def attention_inputs(decoder: Decoder, cfg: DecoderConfig, encoder_outputs):
                    encoder_outputs.to(dt)).to(torch.float32)
 
 
-def _attn_fns(cfg: DecoderConfig):
+def _attn_fns(cfg: DecoderConfig, training: bool = False):
+    """The attention's input projection and step; ``training`` turns off
+    inference windowing and monotonic masking, as in the reference."""
     ap = cfg.attention_params
     if ap["attention_type"] == "ForwardAttention":
         def step(attn, query, inputs, processed, st, mask, rnd=_same):
@@ -267,7 +288,7 @@ def _attn_fns(cfg: DecoderConfig):
                 forward_attn=ap.get("forward_attn", True),
                 trans_agent=ap.get("trans_agent", True),
                 forward_attn_mask=ap.get("forward_attn_mask", False),
-                training=False,
+                training=training,
                 mask_energies=ap.get("mask_energies", False),
             )
 
@@ -277,15 +298,18 @@ def _attn_fns(cfg: DecoderConfig):
 
 def _decode_step(decoder: Decoder, attn_step_fn, carry: DecoderCarry,
                  prenet_out, encoder_outputs, processed_inputs, mask,
-                 rnd=_same):
-    """One decoder step (eval mode: no attention/decoder dropout).
-    ``rnd`` rounds the inputs of the matrix products (the LSTMs' x and
-    h, the query, the projection's input); the cells' c never is."""
+                 rnd=_same, drop=(_same, _same)):
+    """One decoder step.  ``rnd`` rounds the inputs of the matrix
+    products (the LSTMs' x and h, the query, the projection's input);
+    the cells' c never is.  ``drop``: the dropout applied to the
+    attention LSTM's and the decoder LSTM's new h (none in eval mode);
+    the carry keeps the dropped h, as in the reference."""
     attn_h, attn_c = R.lstm_cell(
         decoder.attention_rnn,
         rnd(torch.cat([prenet_out, carry.attention_context], dim=-1)),
         (rnd(carry.attention_hidden), carry.attention_cell),
     )
+    attn_h = drop[0](attn_h)
     context, alignment, attn_state = attn_step_fn(
         decoder.attention_layer, attn_h, encoder_outputs,
         processed_inputs, carry.attn_state, mask, rnd=rnd,
@@ -295,6 +319,7 @@ def _decode_step(decoder: Decoder, attn_step_fn, carry: DecoderCarry,
         rnd(torch.cat([attn_h, context], dim=-1)),
         (rnd(carry.decoder_hidden), carry.decoder_cell),
     )
+    dec_h = drop[1](dec_h)
     dec_h_ctx = rnd(torch.cat([dec_h, context], dim=-1))
     mel_out = decoder.linear_projection(dec_h_ctx)
     gate = decoder.gate_layer(dec_h_ctx)
@@ -352,6 +377,56 @@ def parse_decoder_outputs(cfg: DecoderConfig, mels, gates, aligns):
     gate_outputs = gates.transpose(0, 1).repeat_interleave(r, dim=1)
     return (mel_outputs.transpose(1, 2), gate_outputs,
             aligns.transpose(0, 1))
+
+
+def decoder_forward(decoder: Decoder, cfg: DecoderConfig, encoder_outputs,
+                    decoder_targets, input_lengths, masks):
+    """Teacher-forced decoding in training mode, with autograd.
+
+    Args:
+      encoder_outputs: (B, T_in, E).
+      decoder_targets: (B, n_mel, T_mel) ground-truth mels, T_mel a
+        multiple of ``n_frames_per_step``.
+      input_lengths: (B,) encoder valid lengths.
+      masks: raw 0/1 dropout masks: ``"prenet"`` (T_dec, 2, B, P),
+        ``"attention"`` (T_dec, B, attention_rnn_dim) and ``"decoder"``
+        (T_dec, B, decoder_rnn_dim).
+
+    The go frame and the targets shifted by one step run through the
+    prenet all at once, then one Python loop runs the T_dec steps.
+    Returns ``(mel_outputs (B, n_mel, T_mel), gate_outputs (B, T_mel),
+    alignments (B, T_dec, T_in))``."""
+    B, n_mel, T_mel = decoder_targets.shape
+    r = cfg.n_frames_per_step
+    T_dec, T_in = T_mel // r, encoder_outputs.shape[1]
+    tgt = decoder_targets.transpose(1, 2).reshape(B, T_dec, n_mel * r)
+    tgt = tgt.transpose(0, 1)                            # (T_dec, B, MR)
+    dec_in = torch.cat([tgt.new_zeros(1, B, n_mel * r), tgt[:-1]])
+    prenet_out = prenet_apply(decoder.prenet, dec_in,
+                              masks["prenet"].transpose(0, 1),
+                              1.0 - cfg.p_prenet_dropout)
+    mask = sequence_mask(input_lengths, T_in)
+    prep_fn, attn_step_fn = _attn_fns(cfg, training=True)
+    processed_inputs = prep_fn(decoder.attention_layer, encoder_outputs)
+    carry = _init_carry(cfg, B, T_in, device=encoder_outputs.device,
+                        dtype=encoder_outputs.dtype)
+    mels, gates, aligns = [], [], []
+    for t in range(T_dec):
+        drop = (
+            partial(N.dropout, mask=masks["attention"][t],
+                    rate=cfg.p_attention_dropout),
+            partial(N.dropout, mask=masks["decoder"][t],
+                    rate=cfg.p_decoder_dropout),
+        )
+        carry, (mel, gate, align) = _decode_step(
+            decoder, attn_step_fn, carry, prenet_out[t], encoder_outputs,
+            processed_inputs, mask, drop=drop,
+        )
+        mels.append(mel)
+        gates.append(gate[:, 0])
+        aligns.append(align)
+    return parse_decoder_outputs(cfg, torch.stack(mels), torch.stack(gates),
+                                 torch.stack(aligns))
 
 
 @torch.no_grad()

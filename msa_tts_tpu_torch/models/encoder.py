@@ -1,5 +1,5 @@
 """Tacotron-2 encoder: conv stack + masked BiLSTM (counterpart of
-``msa_tts_tpu/models/encoder.py``), eval mode."""
+``msa_tts_tpu/models/encoder.py``), in eval and training mode."""
 
 from __future__ import annotations
 
@@ -8,6 +8,8 @@ from torch import nn
 
 from ..ops import nn as N
 from ..ops import rnn as R
+
+DROPOUT = 0.5  # after every convolution in training, fixed as in the reference
 
 
 class Encoder(nn.Module):
@@ -51,6 +53,18 @@ def encoder_apply(encoder: Encoder, x, input_lengths, *,
 
     Returns ``outputs (B, T, C)``.
     """
+    return encoder_forward(encoder, x, input_lengths, mask_pad=mask_pad)[0]
+
+
+def encoder_forward(encoder: Encoder, x, input_lengths, masks=None, *,
+                    mask_pad: bool = False):
+    """:func:`encoder_apply` returning ``(outputs, new_state)``.  With
+    ``masks`` (one (B, C, T) raw 0/1 mask per convolution) it runs in
+    training mode: each batch norm normalises with the batch's
+    statistics, each convolution's output goes through dropout (rate
+    0.5, as in the reference), and ``new_state`` holds one
+    ``(running_mean, running_var)`` per convolution (empty in eval
+    mode)."""
     valid = None
     if mask_pad:
         T = x.shape[-1]
@@ -60,11 +74,17 @@ def encoder_apply(encoder: Encoder, x, input_lengths, *,
         )[:, None, :]  # (B, 1, T)
         x = torch.where(valid, x, 0.0)
     pad = (encoder.kernel_size - 1) // 2
-    for conv_bn in encoder.convolutions:
+    new_state = []
+    for i, conv_bn in enumerate(encoder.convolutions):
         conv, bn = conv_bn[0].conv, conv_bn[1]
         x = N.conv1d(x, conv.weight, conv.bias, padding=pad)
-        x = torch.relu(N.batchnorm1d(bn, x))
+        if masks is None:
+            x = torch.relu(N.batchnorm1d(bn, x))
+        else:
+            x, bn_state = N.batchnorm1d_train(bn, x)
+            new_state.append(bn_state)
+            x = N.dropout(torch.relu(x), masks[i], DROPOUT)
         if valid is not None:
             # conv bias + BN shift make pad positions nonzero again
             x = torch.where(valid, x, 0.0)
-    return R.bilstm(encoder.lstm, x.transpose(1, 2), input_lengths)
+    return R.bilstm(encoder.lstm, x.transpose(1, 2), input_lengths), new_state

@@ -1,5 +1,6 @@
-"""Speaker-conditioned Tacotron-2 acoustic model, inference path
-(counterpart of ``msa_tts_tpu/models/tacotron2nv.py``).
+"""Speaker-conditioned Tacotron-2 acoustic model (counterpart of
+``msa_tts_tpu/models/tacotron2nv.py``): the teacher-forced training
+forward and autoregressive synthesis.
 
 char embedding → conv+BiLSTM encoder (optional residual) → speaker
 conditioning concat (``learnable_lookup`` / ``static`` d-vector /
@@ -17,21 +18,26 @@ import torch
 from torch import nn
 
 from ..ops import nn as N
+from ..ops.masking import sequence_mask
 from ..utils.backend import resolve_kernel_backend
 from .cuda_decoder import check_supported, cuda_decoder_infer
 from .decoder import (
     Decoder,
     DecoderConfig,
     Postnet,
+    POSTNET_DROPOUT,
+    decoder_forward,
     decoder_infer,
     postnet_apply,
+    postnet_forward,
 )
-from .encoder import Encoder, encoder_apply
+from .encoder import DROPOUT as ENC_DROPOUT
+from .encoder import Encoder, encoder_forward
 
 
 class ModelConfig(NamedTuple):
     """Static model hyperparameters (the reference's ``params["model"]``
-    vocabulary, inference fields)."""
+    vocabulary)."""
 
     n_symbols: int
     symbols_embedding_dim: int
@@ -58,6 +64,9 @@ class ModelConfig(NamedTuple):
     attention_params: dict
     mask_padding: bool = True
     use_residual_encoder: bool = False
+    freeze_charemb: bool = False
+    freeze_encoder: bool = False
+    freeze_decoder: bool = False
     p_prenet_dropout: float = 0.5
 
     @property
@@ -119,6 +128,9 @@ def config_from_params(model_params: dict) -> ModelConfig:
         attention_params=p["attention_params"],
         mask_padding=p.get("mask_padding", True),
         use_residual_encoder=p.get("use_residual_encoder", False),
+        freeze_charemb=p.get("freeze_charemb", False),
+        freeze_encoder=p.get("freeze_encoder", False),
+        freeze_decoder=p.get("freeze_decoder", False),
         p_prenet_dropout=p.get("p_prenet_dropout", 0.5),
     )
 
@@ -161,6 +173,15 @@ class Tacotron2NV(nn.Module):
             generator=generator,
         )
 
+    def forward(self, inputs, input_lengths, melspecs, melspec_lengths,
+                speaker_vecs, masks):
+        """The training forward, :func:`tacotron2nv_forward` on this
+        model's config; ``torch.func.functional_call`` runs it on a
+        dictionary of parameters and buffers."""
+        return tacotron2nv_forward(self, self.cfg, inputs, input_lengths,
+                                   melspecs, melspec_lengths, speaker_vecs,
+                                   masks)
+
 
 def _encode(model: Tacotron2NV, cfg: ModelConfig, inputs, input_lengths,
             speaker_vecs, *, mask_pad: bool = False):
@@ -170,15 +191,27 @@ def _encode(model: Tacotron2NV, cfg: ModelConfig, inputs, input_lengths,
     of the padded length (see encoder.py:encoder_apply) — used by the
     serving paths.  Everything runs at the model's parameter type (the
     speaker vector is cast to it)."""
+    return _encode_conditioned(model, cfg, inputs, input_lengths,
+                               speaker_vecs, mask_pad=mask_pad)[0]
+
+
+def _encode_conditioned(model, cfg, inputs, input_lengths, speaker_vecs, *,
+                        mask_pad=False, masks=None):
+    """:func:`_encode`, or with ``masks`` (the encoder's dropout masks)
+    its training mode; returns ``(enc_cond, the encoder's new batch-norm
+    state)``."""
     if speaker_vecs.is_floating_point():
         speaker_vecs = speaker_vecs.to(model.embedding.weight.dtype)
     emb = N.embedding(inputs, model.embedding.weight)          # (B, T, D)
-    enc_out = encoder_apply(
-        model.encoder, emb.transpose(1, 2), input_lengths,
-        mask_pad=mask_pad,
-    )
+    if cfg.freeze_charemb:
+        emb = emb.detach()
+    enc_out, enc_state = encoder_forward(
+        model.encoder, emb.transpose(1, 2), input_lengths, masks,
+        mask_pad=mask_pad)
     if cfg.use_residual_encoder:
         enc_out = enc_out + emb
+    if cfg.freeze_encoder:
+        enc_out = enc_out.detach()
     if cfg.speaker_emb_type == "learnable_lookup":
         spk = N.embedding(speaker_vecs, model.speaker_embedder.weight)
     elif cfg.speaker_emb_type == "static":
@@ -188,7 +221,7 @@ def _encode(model: Tacotron2NV, cfg: ModelConfig, inputs, input_lengths,
     else:
         raise ValueError(cfg.speaker_emb_type)
     spk = spk[:, None, :].expand(-1, enc_out.shape[1], -1)
-    return torch.cat([enc_out, spk.to(enc_out.dtype)], dim=-1)
+    return torch.cat([enc_out, spk.to(enc_out.dtype)], dim=-1), enc_state
 
 
 def postnet_residual(postnet: Postnet, mel, *, width: int | None = None):
@@ -233,3 +266,92 @@ def tacotron2nv_infer(model: Tacotron2NV, cfg: ModelConfig, inputs,
     mel_outputs_postnet = mel_outputs + postnet_residual(model.postnet,
                                                          mel_outputs)
     return mel_outputs_postnet, mel_lengths, alignments
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+def dropout_masks(cfg: ModelConfig, B: int, T_in: int, T_mel: int,
+                  generator: torch.Generator, *, device) -> dict:
+    """Raw 0/1 dropout masks for one training forward on a (B, T_in)
+    text batch with (B, n_mel, T_mel) targets, drawn on ``generator``'s
+    device: ``"encoder"`` one (B, C, T_in) per convolution,
+    ``"prenet"`` (T_dec, 2, B, P), ``"attention"`` and ``"decoder"``
+    (T_dec, B, H), ``"postnet"`` one (B, C_i, T_mel) per layer."""
+    T_dec = T_mel // cfg.n_frames_per_step
+
+    def draw(rate, *shape):
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return (u < 1.0 - rate).to(device, torch.float32)
+
+    E, M = cfg.encoder_embedding_dim, cfg.postnet_embedding_dim
+    n_post = cfg.postnet_n_convolutions
+    return {
+        "encoder": [draw(ENC_DROPOUT, B, E, T_in)
+                    for _ in range(cfg.encoder_n_convolutions)],
+        "prenet": draw(cfg.p_prenet_dropout, T_dec, 2, B, cfg.prenet_dim),
+        "attention": draw(cfg.p_attention_dropout, T_dec, B,
+                          cfg.attention_rnn_dim),
+        "decoder": draw(cfg.p_decoder_dropout, T_dec, B,
+                        cfg.decoder_rnn_dim),
+        "postnet": [draw(POSTNET_DROPOUT, B,
+                         cfg.n_mel_channels if i == n_post - 1 else M, T_mel)
+                    for i in range(n_post)],
+    }
+
+
+def parse_output(cfg: ModelConfig, outputs, output_lengths):
+    """Zero the mel outputs and fill the gate energies with 1e3 at padded
+    frames (with ``mask_padding``, as the reference does)."""
+    if not cfg.mask_padding or output_lengths is None:
+        return outputs
+    mel_outputs, mel_outputs_postnet, gate_outputs, alignments = outputs
+    valid = sequence_mask(output_lengths, mel_outputs.shape[2])  # (B, T)
+    return [torch.where(valid[:, None, :], mel_outputs, 0.0),
+            torch.where(valid[:, None, :], mel_outputs_postnet, 0.0),
+            torch.where(valid, gate_outputs, 1e3),
+            alignments]
+
+
+def bn_names(cfg: ModelConfig) -> list[str]:
+    """The batch norms in the order :func:`tacotron2nv_forward` returns
+    their new state: the encoder's, then the postnet's."""
+    return ([f"encoder.convolutions.{i}.1"
+             for i in range(cfg.encoder_n_convolutions)]
+            + [f"postnet.convolutions.{i}.1"
+               for i in range(cfg.postnet_n_convolutions)])
+
+
+def tacotron2nv_forward(model: Tacotron2NV, cfg: ModelConfig, inputs,
+                        input_lengths, melspecs, melspec_lengths,
+                        speaker_vecs, masks):
+    """Teacher-forced forward pass in training mode, with autograd.
+
+    ``masks``: one pass's dropout masks (:func:`dropout_masks`).  The
+    ``freeze_*`` flags detach the character embedding, the encoder
+    output or the decoder outputs.  Returns ``([mel_outputs,
+    mel_outputs_postnet, gate_outputs, alignments], new_state)``, mels
+    (B, n_mel, T_mel), ``new_state`` the batch norms' new running
+    statistics under their ``state_dict`` names (the model's buffers are
+    not written)."""
+    enc_cond, enc_state = _encode_conditioned(
+        model, cfg, inputs, input_lengths, speaker_vecs,
+        masks=masks["encoder"])
+    mel_outputs, gate_outputs, alignments = decoder_forward(
+        model.decoder, cfg.decoder_config(), enc_cond, melspecs,
+        input_lengths, masks)
+    if cfg.freeze_decoder:
+        mel_outputs = mel_outputs.detach()
+        gate_outputs = gate_outputs.detach()
+        alignments = alignments.detach()
+    post_res, post_state = postnet_forward(model.postnet, mel_outputs,
+                                           masks["postnet"])
+    outputs = parse_output(
+        cfg, [mel_outputs, mel_outputs + post_res, gate_outputs, alignments],
+        melspec_lengths)
+    new_state = {}
+    for name, (mean, var) in zip(bn_names(cfg), enc_state + post_state):
+        new_state[f"{name}.running_mean"] = mean
+        new_state[f"{name}.running_var"] = var
+    return outputs, new_state

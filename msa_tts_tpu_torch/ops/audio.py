@@ -1,6 +1,7 @@
-"""Audio DSP for the serving path (counterpart of
-``msa_tts_tpu/ops/audio.py``): STFT/ISTFT, the HTK mel filterbank and its
-pseudo-inverse, Griffin-Lim, and wav output.
+"""Audio DSP (counterpart of ``msa_tts_tpu/ops/audio.py``): STFT/ISTFT,
+the mel filterbanks and the HTK one's pseudo-inverse, Griffin-Lim, the
+"ap" and "ap2" log-mel frontends and silence trimming (host numpy, for
+adaptation clips), and wav input and output.
 
 The transforms follow the JAX package's formulation (framing + rfft;
 overlap-add with squared-window normalisation) rather than
@@ -90,7 +91,7 @@ def istft(spec, n_fft: int, win_length: int, hop_length: int, *,
 
 
 # --------------------------------------------------------------------------
-# Mel filterbank (host numpy, cached)
+# Mel filterbanks (host numpy, cached)
 # --------------------------------------------------------------------------
 
 def _hz_to_mel_htk(f):
@@ -101,20 +102,54 @@ def _mel_to_hz_htk(m):
     return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
 
 
+_F_SP, _MIN_LOG_HZ, _LOGSTEP = 200.0 / 3, 1000.0, np.log(6.4) / 27.0
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    min_log_mel = _MIN_LOG_HZ / _F_SP
+    return np.where(
+        f >= _MIN_LOG_HZ,
+        min_log_mel + np.log(np.maximum(f, _MIN_LOG_HZ) / _MIN_LOG_HZ)
+        / _LOGSTEP,
+        f / _F_SP,
+    )
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    min_log_mel = _MIN_LOG_HZ / _F_SP
+    return np.where(m >= min_log_mel,
+                    _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - min_log_mel)),
+                    _F_SP * m)
+
+
 @lru_cache(maxsize=16)
 def mel_filterbank(n_freqs: int, f_min: float, f_max: float, n_mels: int,
-                   sample_rate: int) -> np.ndarray:
-    """HTK-scale triangular mel filterbank without norm, ``(n_freqs,
-    n_mels)`` float32 (torchaudio's default, the "ap" frontend's)."""
+                   sample_rate: int, mel_scale: str = "htk",
+                   norm: str | None = None) -> np.ndarray:
+    """Triangular mel filterbank ``(n_freqs, n_mels)`` float32:
+    ``mel_scale="htk", norm=None`` is torchaudio's default (the "ap"
+    frontend's), ``mel_scale="slaney", norm="slaney"`` librosa's (the
+    "ap2" / HiFi-GAN frontend's)."""
     all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
-    m_pts = np.linspace(_hz_to_mel_htk(f_min), _hz_to_mel_htk(f_max),
-                        n_mels + 2)
-    f_pts = _mel_to_hz_htk(m_pts)
+    if mel_scale == "htk":
+        to_mel, to_hz = _hz_to_mel_htk, _mel_to_hz_htk
+    elif mel_scale == "slaney":
+        to_mel, to_hz = _hz_to_mel_slaney, _mel_to_hz_slaney
+    else:
+        raise ValueError(f"unknown mel_scale: {mel_scale}")
+    f_pts = to_hz(np.linspace(to_mel(f_min), to_mel(f_max), n_mels + 2))
     f_diff = f_pts[1:] - f_pts[:-1]
     slopes = f_pts[None, :] - all_freqs[:, None]
     down = -slopes[:, :-2] / f_diff[None, :-1]
     up = slopes[:, 2:] / f_diff[None, 1:]
-    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+    fb = np.maximum(0.0, np.minimum(down, up))
+    if norm == "slaney":
+        fb = fb * (2.0 / (f_pts[2: n_mels + 2] - f_pts[:n_mels]))[None, :]
+    elif norm is not None:
+        raise ValueError(f"unknown norm: {norm}")
+    return fb.astype(np.float32)
 
 
 @lru_cache(maxsize=16)
@@ -186,6 +221,106 @@ def griffinlim_logmelspec(log_melspec, audio_params: dict, *,
         n_iter=p.get("griffinlim_iters", 60), power=2.0,
         init_phase=init_phase, generator=generator,
     )
+
+
+# --------------------------------------------------------------------------
+# Log-mel features and silence trimming (host numpy, as the JAX
+# package's ``xp=np`` path computes them)
+# --------------------------------------------------------------------------
+
+def _stft_np(x: np.ndarray, n_fft: int, win_length: int, hop_length: int,
+             *, center: bool) -> np.ndarray:
+    """Complex STFT ``(..., n_freqs, n_frames)`` of float32 ``x`` in
+    numpy: :func:`stft`'s framing and window."""
+    n = np.arange(win_length, dtype=np.float32)
+    window = 0.5 * (1.0 - np.cos(2.0 * math.pi * n / win_length))
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = np.pad(window, (lpad, n_fft - win_length - lpad))
+    if center:
+        pad = n_fft // 2
+        x = np.pad(x, [(0, 0)] * (x.ndim - 1) + [(pad, pad)],
+                   mode="reflect")
+    n_frames = 1 + (x.shape[-1] - n_fft) // hop_length
+    if n_frames <= 0:
+        raise ValueError(
+            f"signal too short to frame: {x.shape[-1]} samples < "
+            f"frame_length {n_fft} (after any padding)"
+        )
+    idx = (np.arange(n_frames)[:, None] * hop_length
+           + np.arange(n_fft)[None, :])
+    spec = np.fft.rfft(x[..., idx] * window, n=n_fft, axis=-1)
+    return np.swapaxes(spec, -1, -2)
+
+
+def melspec_ap(wav: np.ndarray, audio_params: dict) -> np.ndarray:
+    """The "ap" frontend's log-mel ``(..., n_mels, n_frames)``: power
+    STFT → HTK mel → ``log10(max(., 1e-10))``."""
+    p = audio_params
+    spec = np.abs(_stft_np(wav, p["n_fft"], p["win_length"],
+                           p["hop_length"], center=True)) ** 2.0
+    fb = mel_filterbank(p["n_fft"] // 2 + 1, p["f_min"], p["f_max"],
+                        p["n_mels"], p["sample_rate"])
+    mel = np.swapaxes(np.swapaxes(spec, -1, -2) @ fb, -1, -2)
+    return np.log10(np.maximum(mel, 1e-10))
+
+
+def dynamic_range_compression(x, C: float = 1.0, clip_val: float = 1e-5):
+    return np.log(np.maximum(x, clip_val) * C)
+
+
+def melspec_ap2(wav: np.ndarray, audio_params: dict) -> np.ndarray:
+    """The "ap2" (HiFi-GAN) frontend's log-mel ``(..., n_mels,
+    n_frames)``: reflect pad by ``(n_fft - hop) / 2``, magnitude STFT
+    with a 1e-9 floor, Slaney mel, natural log clamped at 1e-5."""
+    p = audio_params
+    n_fft, hop, win = p["n_fft"], p["hop_size"], p["win_size"]
+    pad = (n_fft - hop) // 2
+    wav = np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(pad, pad)],
+                 mode="reflect")
+    spec = _stft_np(wav, n_fft, win, hop, center=bool(p.get("center",
+                                                            False)))
+    mag = np.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    fb = mel_filterbank(n_fft // 2 + 1, p["fmin"], p["fmax"], p["n_mels"],
+                        p["sample_rate"], mel_scale="slaney", norm="slaney")
+    mel = np.swapaxes(np.swapaxes(mag, -1, -2) @ fb, -1, -2)
+    return dynamic_range_compression(mel)
+
+
+def trim_margin_silence_slice(wav: np.ndarray, ref_level_db: float = 26,
+                              frame_length: int = 1024,
+                              hop_length: int = 256) -> tuple[int, int]:
+    """Bounds ``(start, end)`` of :func:`trim_margin_silence`'s slice."""
+    wav = np.asarray(wav)
+    if wav.size == 0:
+        return 0, 0
+    pad = frame_length // 2
+    padded = np.pad(wav, (pad, pad))
+    n_frames = 1 + (padded.shape[-1] - frame_length) // hop_length
+    idx = (np.arange(n_frames)[:, None] * hop_length
+           + np.arange(frame_length)[None, :])
+    power = np.mean(padded[idx] ** 2, axis=-1)
+    ref = np.max(power)
+    if ref <= 0:
+        return 0, int(wav.shape[-1])
+    db = 10.0 * np.log10(np.maximum(power, 1e-20) / ref)
+    nz = np.flatnonzero(db > -ref_level_db)
+    if nz.size == 0:
+        return 0, 0
+    start = int(nz[0]) * hop_length
+    end = min(int(wav.shape[-1]), int(nz[-1] + 1) * hop_length)
+    return start, end
+
+
+def trim_margin_silence(wav: np.ndarray, ref_level_db: float = 26,
+                        frame_length: int = 1024,
+                        hop_length: int = 256) -> np.ndarray:
+    """Trim leading and trailing frames more than ``ref_level_db`` below
+    the peak frame power (librosa.effects.trim semantics)."""
+    wav = np.asarray(wav)
+    start, end = trim_margin_silence_slice(wav, ref_level_db, frame_length,
+                                           hop_length)
+    return wav[start:end]
 
 
 def load_wav(path: str, target_sample_rate: int | None = None) -> np.ndarray:

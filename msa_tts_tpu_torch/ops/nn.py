@@ -122,6 +122,38 @@ def batchnorm1d(bn: nn.BatchNorm1d, x, *, eps: float | None = None):
     return y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
 
 
+def batchnorm1d_train(bn: nn.BatchNorm1d, x, *, momentum: float = 0.1,
+                      eps: float = 1e-5):
+    """Training-mode BatchNorm over ``(B, C, T)`` or ``(B, C)``: normalise
+    with the batch's mean and biased variance (padded columns included)
+    and return ``(y, (running_mean, running_var))``, the running
+    statistics moved toward the batch's mean and unbiased variance.  The
+    module's buffers are read, never written."""
+    dims = (0,) if x.dim() == 2 else (0, 2)
+    shape = (1, -1) if x.dim() == 2 else (1, -1, 1)
+    mean = x.mean(dim=dims)
+    var = x.var(dim=dims, unbiased=False)
+    n = x.numel() // x.shape[1]
+    unbiased = var * n / max(n - 1, 1)
+    new_state = ((1 - momentum) * bn.running_mean + momentum * mean,
+                 (1 - momentum) * bn.running_var + momentum * unbiased)
+    y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
+    return (y * bn.weight.reshape(shape) + bn.bias.reshape(shape),
+            new_state)
+
+
+# ---------------------------------------------------------------- dropout
+
+def dropout(x, mask, rate: float):
+    """Inverted dropout with an injected raw 0/1 ``mask`` of ``x``'s
+    shape: ``where(mask, x / keep, 0)``; the identity when ``rate`` is 0.
+    The mask is never premultiplied by ``1/keep`` (an ulp off for a keep
+    such as 0.9)."""
+    if rate == 0.0:
+        return x
+    return torch.where(mask != 0, x / (1.0 - rate), 0.0)
+
+
 # -------------------------------------------------------------- embedding
 
 @torch.no_grad()

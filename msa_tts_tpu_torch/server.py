@@ -562,17 +562,17 @@ def main(argv=None):
     The model is served from the GPU unless ``--device cpu`` is given.
     The default voice comes from the experiment's ``spk_emb.pkl``
     (``--speaker`` picks one; otherwise the first).  ``--voices_dir``
-    (adapted ``*.voice`` files) raises NotImplementedError until the
-    port reads the msgpack voice format.
+    registers every ``*.voice`` file in it (written by either package's
+    ``AdaptiveTTS.save_voice``) under its stem name.
     """
+    import glob
     import os
     import pickle
 
     args = _arg_parser().parse_args(argv)
-    if args.voices_dir:
-        raise NotImplementedError(
-            "--voices_dir: the port does not read msgpack .voice files yet"
-        )
+    if args.voices_dir and not os.path.isdir(args.voices_dir):
+        raise FileNotFoundError(
+            f"--voices_dir {args.voices_dir!r} is not a directory")
 
     tts = AdaptiveTTS.from_experiment(
         args.experiment_path, args.checkpoint_id, device=args.device
@@ -596,6 +596,12 @@ def main(argv=None):
         stream_mux_adapted=args.stream_mux_adapted,
         stream_mux_max_pending=args.stream_mux_max_pending,
     )
+    if args.voices_dir:
+        for p in sorted(glob.glob(os.path.join(args.voices_dir,
+                                               "*.voice"))):
+            name = os.path.splitext(os.path.basename(p))[0]
+            server.register_voice(name, tts.load_voice(p))
+            print(f"[server] registered voice {name!r}")
     if args.warmup_text:
         print("[server] warming up ...")
         server.warmup(args.warmup_text)

@@ -1,11 +1,22 @@
-"""Few-shot TTS serving API, synthesis and streaming paths (counterpart
-of ``msa_tts_tpu/serving.py``).
+"""Few-shot TTS serving API: speaker adaptation, synthesis and streaming
+(counterpart of ``msa_tts_tpu/serving.py``).
 
     tts = AdaptiveTTS.from_experiment("output/maml/vctk_maml",
                                       checkpoint_id="0", device="cuda")
-    wav = tts.synthesize("Hello there.", spk_emb=dvec)
-    for chunk in tts.synthesize_stream("Hello there.", spk_emb=dvec):
+    voice = tts.adapt(["a.wav", "b.wav"], ["<phonemes of a>", "..."],
+                      spk_emb=dvec)
+    tts.save_voice(voice, "voices/spk.voice")
+    wav = tts.synthesize("Hello there.", voice)
+    for chunk in tts.synthesize_stream("Hello there.", voice):
         ...
+
+``adapt`` runs the JAX package's meta-test protocol on the clips: log-mel
+features, one collated batch, ``n_inner_test`` steps of ``optim_inner``
+on the teacher-forced training loss (``meta/maml.py``), then the loss of
+the same batch on the adapted weights.  It always starts from the
+float32 weights the object was built with, whatever ``infer_dtype``, and
+never touches the serving model's tensors.  Voices and ``.ckpt``
+checkpoints are the JAX package's msgpack files (``utils/checkpoint.py``).
 
 Text → phonemes (``utils/g2p``) → Tacotron-2 with the decoder loop as
 the CUDA kernel on a GPU (its plain PyTorch version on the CPU) →
@@ -28,9 +39,8 @@ float32 here (the JAX package's ``auto`` routes by a batch gate measured
 on its own hardware, which is not carried over).  Solo, streamed and
 multiplexed decoding use the same type.
 
-Not in this version (each raises ``NotImplementedError``): speaker
-adaptation (``adapt``), ``.ckpt`` (flax msgpack) checkpoints and
-``parallel`` dp/tp serving.
+Not in this version: ``parallel`` dp/tp serving (raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -43,8 +53,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .utils.g2p import N_SYMBOLS, Grapheme2Phoneme
-
+from .dataloaders.collate import collate
+from .dataloaders.dataset import Item, compute_logmel
+from .meta.maml import make_metatest_fn
 from .models.cuda_decoder import (
     check_supported,
     cuda_decoder_segment,
@@ -52,25 +63,39 @@ from .models.cuda_decoder import (
     segment_inputs,
 )
 from .models.decoder import decoder_infer_segment, decoder_stream_init
+from .models.loss import tacotron2_loss
 from .models.tacotron2nv import (
     Tacotron2NV,
     _encode,
     config_from_params,
+    dropout_masks,
     postnet_residual,
     tacotron2nv_infer,
 )
-from .ops.audio import griffinlim_logmelspec
+from .ops.audio import griffinlim_logmelspec, load_wav, trim_margin_silence
+from .optim import make_optimizer
 from .utils.backend import load_device, resolve_kernel_backend
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.convert import jax_from_state_dict, state_dict_from_jax
+from .utils.g2p import N_SYMBOLS, Grapheme2Phoneme
 
 
 @dataclass(eq=False)
 class Voice:
-    """An adapted speaker: the model's ``state_dict`` and its d-vector.
+    """An adapted speaker: the model's float32 ``state_dict``, its
+    d-vector and the loss ``adapt`` ended with (the query loss).
     Identity-keyed, so that :class:`AdaptiveTTS` loads each voice onto
     the device once."""
 
     state_dict: dict
     spk_emb: np.ndarray
+    support_loss: float = float("nan")
+
+
+def _hop(ap: dict) -> int:
+    """The hop in samples: ``hop_length`` ("ap" params), else
+    ``hop_size`` ("ap2" / HiFi-GAN params)."""
+    return ap.get("hop_length", ap.get("hop_size"))
 
 
 class AdaptiveTTS:
@@ -106,9 +131,17 @@ class AdaptiveTTS:
             device if device is not None
             else next(model.parameters()).device
         )
-        # the model itself is cast (in place, as it is moved): no second
-        # copy of the weights stays behind
-        self.model = model.to(self.device, self.infer_dtype).eval()
+        # the float32 weights adapt starts from; the serving model is
+        # derived from them at infer_dtype (in float32 it holds them
+        # itself; in bfloat16 the cast leaves them to _master alone)
+        model = model.to(self.device, torch.float32)
+        self._master = {k: v.detach() for k, v in model.state_dict().items()}
+        self._param_names = [k for k, _ in model.named_parameters()]
+        self.model = model.to(self.infer_dtype).eval()
+        self._inner_tx = make_optimizer(
+            params.get("optim_inner", {"optimizer_type": "SGD", "lr": 1e-2})
+        )
+        self._n_inner = int(params.get("n_inner_test", 5))
         self.decode_backend = params.get("decode_backend") or "auto"
         # raises now, not at the first request, for `cuda` on a CPU or a
         # config the kernel does not lower on a GPU
@@ -124,8 +157,10 @@ class AdaptiveTTS:
     @classmethod
     def from_experiment(cls, experiment_path: str, checkpoint_id: str = "0",
                         *, device="cuda", **overrides):
-        """Load ``params.yml`` and ``checkpoints/checkpoint_{id}.pt`` (the
-        reference ``state_dict`` layout) from an experiment directory onto
+        """Load ``params.yml`` and ``checkpoints/checkpoint_{id}.ckpt``
+        (a JAX-package trainer's msgpack checkpoint: its ``params`` and
+        ``model_state``) or ``checkpoint_{id}.pt`` (the reference
+        ``state_dict`` layout) from an experiment directory onto
         ``device``: the GPU unless ``device="cpu"`` is asked for (without
         a CUDA device the default raises)."""
         from .config import load_params
@@ -143,20 +178,136 @@ class AdaptiveTTS:
             experiment_path, "checkpoints", f"checkpoint_{checkpoint_id}"
         )
         if os.path.exists(ckpt + ".ckpt"):
-            raise NotImplementedError(
-                f"{ckpt}.ckpt is a flax msgpack checkpoint; the port reads "
-                "only the reference .pt state_dict layout"
-            )
-        if not os.path.exists(ckpt + ".pt"):
+            raw = load_checkpoint(ckpt + ".ckpt")
+            sd = state_dict_from_jax(raw["params"], raw["model_state"],
+                                     model.cfg)
+        elif os.path.exists(ckpt + ".pt"):
+            sd = torch.load(ckpt + ".pt", map_location="cpu",
+                            weights_only=True)
+        else:
             raise FileNotFoundError(ckpt + ".{ckpt,pt}")
-        sd = torch.load(ckpt + ".pt", map_location="cpu", weights_only=True)
         model.load_state_dict(sd, strict=True)
         return cls(params, model, device=device)
 
-    def adapt(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speaker adaptation is not ported yet (it needs the training "
-            "path: loss, optimizer, inner loop)"
+    # ------------------------------------------------------------ adapt
+    def adapt_batch(self, wav_paths: Sequence[str],
+                    phonemes: Sequence[str], spk_emb: np.ndarray) -> dict:
+        """The clips as the one training batch ``adapt`` runs on, device
+        tensors: each wav loaded at the model's rate, trimmed of margin
+        silence when ``dataset_train.trim_margin_silence``, turned into
+        the ``audio_processor``'s log-mel, and collated with its
+        phonemes (sorted by text length, longest first)."""
+        if len(wav_paths) != len(phonemes):
+            raise ValueError(f"{len(wav_paths)} clips but {len(phonemes)} "
+                             "phonemizations")
+        ap = self.params["audio_params"]
+        trim = self.params.get("dataset_train", {}).get(
+            "trim_margin_silence", False)
+        spk_emb = np.asarray(spk_emb, np.float32)
+        items = []
+        for path, ph in zip(wav_paths, phonemes):
+            wav = load_wav(path, target_sample_rate=ap["sample_rate"])
+            if trim:
+                wav = trim_margin_silence(wav)
+            mel = compute_logmel(
+                wav, self.params.get("audio_processor", "ap"), ap)
+            seq, _ = self.g2p.convert(ph, convert_mode="phone_to_idx")
+            items.append(Item(phonemes=np.asarray(seq, np.int32), mel=mel,
+                              spk_emb=spk_emb))
+        b = collate(items, reduction_factor=self.cfg.n_frames_per_step,
+                    text_pad_multiple=16, mel_pad_multiple=32)
+        dev = self.device
+
+        def t(x, dtype=None):
+            return torch.as_tensor(x, dtype=dtype, device=dev)
+
+        return {
+            "inputs": t(b.inputs, torch.int64),
+            "input_lengths": t(b.input_lengths, torch.int64),
+            "melspecs": t(b.mels),
+            "melspec_lengths": t(b.mel_lengths, torch.int64),
+            "speaker_vecs": t(b.spk_embs),
+            "stop_labels": t(b.stop_labels),
+        }
+
+    def adapt(self, wav_paths: Sequence[str], phonemes: Sequence[str],
+              spk_emb: np.ndarray, *, seed: int = 0, masks=None) -> Voice:
+        """k-shot adaptation from reference clips and their
+        phonemizations; the support set is also the query set.
+
+        ``masks``: every dropout mask of the ``n_inner_test`` steps and
+        the query pass, a list of ``n_inner_test + 1`` dictionaries as
+        ``models.tacotron2nv.dropout_masks`` draws them for the batch
+        (arrays or tensors; rows in the batch's order, longest text
+        first).  Without it they are drawn on the device from a generator
+        seeded with ``seed``."""
+        batch = self.adapt_batch(wav_paths, phonemes, spk_emb)
+        dev = self.device
+        B, T_in = batch["inputs"].shape
+        T_mel = batch["melspecs"].shape[-1]
+        if masks is None:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            masks = [dropout_masks(self.cfg, B, T_in, T_mel, g, device=dev)
+                     for _ in range(self._n_inner + 1)]
+        elif len(masks) != self._n_inner + 1:
+            raise ValueError(f"{len(masks)} passes of masks, want "
+                             f"n_inner_test + 1 = {self._n_inner + 1}")
+        else:
+            masks = [_on_device(m, dev) for m in masks]
+
+        # a weightless copy of the model's structure for functional_call:
+        # the serving model is never reparametrised, so requests that run
+        # meanwhile see their own weights
+        with torch.device("meta"):
+            template = Tacotron2NV(self.cfg)
+        crit = self.params.get("criterion",
+                               {"reduction": "none", "pos_weight": 1.0})
+
+        def loss_fn(p, ms, b, m):
+            outs, new_ms = torch.func.functional_call(
+                template, {**p, **ms},
+                (b["inputs"], b["input_lengths"], b["melspecs"],
+                 b["melspec_lengths"], b["speaker_vecs"], m))
+            loss = tacotron2_loss(
+                outs, (b["melspecs"], b["stop_labels"]),
+                b["melspec_lengths"],
+                n_frames_per_step=self.cfg.n_frames_per_step,
+                reduction=crit.get("reduction", "none"),
+                pos_weight=float(crit.get("pos_weight", 1.0)))
+            return loss, {**ms, **new_ms}
+
+        params = {k: self._master[k] for k in self._param_names}
+        state = {k: v for k, v in self._master.items() if k not in params}
+        with torch.enable_grad():           # also under a caller's no_grad
+            qloss, adapted, ms, _ = make_metatest_fn(
+                loss_fn, self._inner_tx, self._n_inner)(
+                    params, state, batch, batch, masks)
+        sd = {k: v.detach() for k, v in {**adapted, **ms}.items()}
+        return Voice(state_dict=sd,
+                     spk_emb=np.asarray(spk_emb, np.float32),
+                     support_loss=float(qloss))
+
+    # ---------------------------------------------------- voice storage
+    def save_voice(self, voice: Voice, path: str) -> None:
+        """Write ``voice`` as the JAX package writes one: one msgpack
+        file (atomic) of ``params``, ``model_state`` (its trees),
+        ``spk_emb`` and ``support_loss``; either package loads it."""
+        params, state = jax_from_state_dict(voice.state_dict, self.cfg)
+        save_checkpoint(path, {
+            "params": params,
+            "model_state": state,
+            "spk_emb": np.asarray(voice.spk_emb, np.float32),
+            "support_loss": np.float32(voice.support_loss),
+        })
+
+    def load_voice(self, path: str) -> Voice:
+        """A voice file written by either package's ``save_voice``."""
+        raw = load_checkpoint(path)
+        return Voice(
+            state_dict=state_dict_from_jax(raw["params"],
+                                           raw["model_state"], self.cfg),
+            spk_emb=np.asarray(raw["spk_emb"], np.float32),
+            support_loss=float(raw["support_loss"]),
         )
 
     def _voice_model(self, voice: Voice | None) -> Tacotron2NV:
@@ -312,9 +463,19 @@ class AdaptiveTTS:
         wavs = griffinlim_logmelspec(
             batch, ap, init_phase=phase, generator=generator,
         ).cpu().numpy()
-        hop = ap["hop_length"]
+        hop = _hop(ap)
         return [wavs[i][: (m.shape[1] - 1) * hop]
                 for i, m in enumerate(mels)]
+
+
+def _on_device(masks, device):
+    """One pass's dropout masks (a dict of arrays and lists of arrays) as
+    float32 tensors on ``device``."""
+    if isinstance(masks, dict):
+        return {k: _on_device(v, device) for k, v in masks.items()}
+    if isinstance(masks, (list, tuple)):
+        return [_on_device(v, device) for v in masks]
+    return torch.as_tensor(masks, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +622,7 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
     cfg = tts.cfg
     r = cfg.n_frames_per_step
     ap = tts.params["audio_params"]
+    hop = _hop(ap)
     pctx = _postnet_ctx(cfg)
 
     def post_fn(x, width):
@@ -491,12 +653,12 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
 
         # HiFi-GAN emits exactly W·hop samples, the other two (W-1)·hop
         voc = _StreamingVocoder(
-            vocode_neural, ap["hop_length"], chunk_frames,
+            vocode_neural, hop, chunk_frames,
             vocode_ctx_frames, tail_frames=0 if vocoder == "hifigan" else 1)
         return _StreamCursor(cfg, r, post, voc)
 
     n_freqs = ap["n_fft"] // 2 + 1
-    min_frames = ap["n_fft"] // ap["hop_length"] + 1
+    min_frames = ap["n_fft"] // hop + 1
     phases: dict = {}
 
     def phase_for(n_frames: int) -> torch.Tensor:
@@ -517,7 +679,7 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
         phase = phase_for(max(mel.shape[-1], min_frames))
         return griffinlim_logmelspec(mel, ap, init_phase=phase)
 
-    voc = _StreamingVocoder(vocode, ap["hop_length"], chunk_frames,
+    voc = _StreamingVocoder(vocode, hop, chunk_frames,
                             vocode_ctx_frames, tail_frames=1)
     return _StreamCursor(cfg, r, post, voc)
 

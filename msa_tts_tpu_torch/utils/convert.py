@@ -1,10 +1,10 @@
-"""JAX parameter pytrees → the port's ``state_dict``, without jax.
+"""JAX parameter pytrees ↔ the port's ``state_dict``, without jax.
 
-Counterpart of ``msa_tts_tpu/utils/torch_import.py::pytrees_to_state_dict``:
-the same key mapping, from nested dicts of numpy arrays (a JAX
-``(params, state)`` pair after ``jax.device_get``, or a restored
-checkpoint) to torch tensors that ``Tacotron2NV.load_state_dict(...,
-strict=True)`` takes.
+Counterpart of ``msa_tts_tpu/utils/torch_import.py`` (its
+``state_dict_to_pytrees`` and ``pytrees_to_state_dict``): the same key
+mapping between nested dicts of numpy arrays (a JAX ``(params, state)``
+pair after ``jax.device_get``, or a restored checkpoint) and the torch
+tensors that ``Tacotron2NV.load_state_dict(..., strict=True)`` takes.
 """
 
 from __future__ import annotations
@@ -19,86 +19,115 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
-def _conv_bn(sd: dict, base: str, layer: dict, bn_state: dict):
-    sd[f"{base}.0.conv.weight"] = _t(layer["conv"]["weight"])
-    sd[f"{base}.0.conv.bias"] = _t(layer["conv"]["bias"])
-    sd[f"{base}.1.weight"] = _t(layer["bn"]["weight"])
-    sd[f"{base}.1.bias"] = _t(layer["bn"]["bias"])
-    sd[f"{base}.1.running_mean"] = _t(bn_state["running_mean"])
-    sd[f"{base}.1.running_var"] = _t(bn_state["running_var"])
-    sd[f"{base}.1.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+_LSTM = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+
+
+def _layout(cfg: ModelConfig):
+    """``(tree, path, key)`` for every tensor of the model: ``tree``
+    ``"params"`` or ``"state"`` of the JAX pair, ``path`` the keys into
+    it (ints index lists), ``key`` the ``state_dict`` name."""
+    out = [("params", ("embedding", "weight"), "embedding.weight")]
+
+    def conv_bn(part, n):
+        for i in range(n):
+            base = f"{part}.convolutions.{i}"
+            for sub, name in (("conv", "0.conv"), ("bn", "1")):
+                for k in ("weight", "bias"):
+                    out.append(("params", (part, "convolutions", i, sub, k),
+                                f"{base}.{name}.{k}"))
+            for k in ("running_mean", "running_var"):
+                out.append(("state", (part, "convolutions", i, k),
+                            f"{base}.1.{k}"))
+
+    conv_bn("encoder", cfg.encoder_n_convolutions)
+    for direction, suffix in (("forward", ""), ("backward", "_reverse")):
+        for k in _LSTM:
+            out.append(("params", ("encoder", "lstm", direction, k),
+                        f"encoder.lstm.{k}_l0{suffix}"))
+    if cfg.speaker_emb_type == "learnable_lookup":
+        out.append(("params", ("speaker_embedder", "weight"),
+                    "speaker_embedder.weight"))
+    elif cfg.speaker_emb_type == "static+linear":
+        for k in ("weight", "bias"):
+            out.append(("params", ("speaker_lin", k), f"speaker_lin.{k}"))
+
+    dec = ("decoder",)
+    for i in range(2):
+        out.append(("params", dec + ("prenet", "layers", i, "weight"),
+                    f"decoder.prenet.layers.{i}.linear_layer.weight"))
+    for rnn in ("attention_rnn", "decoder_rnn"):
+        for k in _LSTM:
+            out.append(("params", dec + (rnn, k), f"decoder.{rnn}.{k}"))
+    ap = cfg.attention_params
+    al, at = "decoder.attention_layer", dec + ("attention_layer",)
+    forward = ap["attention_type"] == "ForwardAttention"
+    linears = [("query_layer", "weight"),
+               ("inputs_layer" if forward else "memory_layer", "weight"),
+               ("v", "weight")] + ([("v", "bias")] if forward else [])
+    for name, k in linears:
+        out.append(("params", at + (name, k), f"{al}.{name}.linear_layer.{k}"))
+    if forward and ap.get("trans_agent", True):
+        for k in ("weight", "bias"):
+            out.append(("params", at + ("ta", k), f"{al}.ta.{k}"))
+    if not forward or ap.get("location_attention", True):
+        conv = "location_conv1d" if forward else "location_conv.conv"
+        loc = at + ("location_layer",)
+        out.append(("params", loc + ("location_conv1d", "weight"),
+                    f"{al}.location_layer.{conv}.weight"))
+        out.append(("params", loc + ("location_dense", "weight"),
+                    f"{al}.location_layer.location_dense.linear_layer.weight"))
+    for name in ("linear_projection", "gate_layer"):
+        for k in ("weight", "bias"):
+            out.append(("params", dec + (name, k),
+                        f"decoder.{name}.linear_layer.{k}"))
+    conv_bn("postnet", cfg.postnet_n_convolutions)
+    return out
+
+
+def _get(tree, path):
+    for p in path:
+        # a list, or a restored checkpoint's {"0": ..., "1": ...} map
+        tree = tree[p] if isinstance(tree, list) else tree[
+            str(p) if isinstance(p, int) else p]
+    return tree
 
 
 def state_dict_from_jax(params_np: dict, state_np: dict,
                         cfg: ModelConfig) -> dict:
     """The reference-layout ``state_dict`` of a JAX ``(params, state)``
-    pytree pair given as nested dicts/lists of numpy arrays."""
-    sd: dict = {"embedding.weight": _t(params_np["embedding"]["weight"])}
-
-    enc = params_np["encoder"]
-    for i, (layer, bn_s) in enumerate(
-        zip(enc["convolutions"], state_np["encoder"]["convolutions"])
-    ):
-        _conv_bn(sd, f"encoder.convolutions.{i}", layer, bn_s)
-    for direction, suffix in (("forward", ""), ("backward", "_reverse")):
-        p = enc["lstm"][direction]
-        for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
-            sd[f"encoder.lstm.{k}_l0{suffix}"] = _t(p[k])
-
-    if cfg.speaker_emb_type == "learnable_lookup":
-        sd["speaker_embedder.weight"] = _t(
-            params_np["speaker_embedder"]["weight"]
-        )
-    elif cfg.speaker_emb_type == "static+linear":
-        sd["speaker_lin.weight"] = _t(params_np["speaker_lin"]["weight"])
-        sd["speaker_lin.bias"] = _t(params_np["speaker_lin"]["bias"])
-
-    dec = params_np["decoder"]
-    for i, layer in enumerate(dec["prenet"]["layers"]):
-        sd[f"decoder.prenet.layers.{i}.linear_layer.weight"] = _t(
-            layer["weight"]
-        )
-    for rnn in ("attention_rnn", "decoder_rnn"):
-        for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
-            sd[f"decoder.{rnn}.{k}"] = _t(dec[rnn][k])
-
-    attn = dec["attention_layer"]
-    al = "decoder.attention_layer"
-    sd[f"{al}.query_layer.linear_layer.weight"] = _t(
-        attn["query_layer"]["weight"]
-    )
-    sd[f"{al}.v.linear_layer.weight"] = _t(attn["v"]["weight"])
-    if cfg.attention_params["attention_type"] == "ForwardAttention":
-        sd[f"{al}.inputs_layer.linear_layer.weight"] = _t(
-            attn["inputs_layer"]["weight"]
-        )
-        sd[f"{al}.v.linear_layer.bias"] = _t(attn["v"]["bias"])
-        if "ta" in attn:
-            sd[f"{al}.ta.weight"] = _t(attn["ta"]["weight"])
-            sd[f"{al}.ta.bias"] = _t(attn["ta"]["bias"])
-        conv_key = f"{al}.location_layer.location_conv1d.weight"
-    else:
-        sd[f"{al}.memory_layer.linear_layer.weight"] = _t(
-            attn["memory_layer"]["weight"]
-        )
-        conv_key = f"{al}.location_layer.location_conv.conv.weight"
-    if "location_layer" in attn:
-        loc = attn["location_layer"]
-        sd[conv_key] = _t(loc["location_conv1d"]["weight"])
-        sd[f"{al}.location_layer.location_dense.linear_layer.weight"] = _t(
-            loc["location_dense"]["weight"]
-        )
-
-    for name in ("linear_projection", "gate_layer"):
-        sd[f"decoder.{name}.linear_layer.weight"] = _t(dec[name]["weight"])
-        sd[f"decoder.{name}.linear_layer.bias"] = _t(dec[name]["bias"])
-
-    for i, (layer, bn_s) in enumerate(
-        zip(params_np["postnet"]["convolutions"],
-            state_np["postnet"]["convolutions"])
-    ):
-        _conv_bn(sd, f"postnet.convolutions.{i}", layer, bn_s)
+    pytree pair given as nested dicts and lists of numpy arrays, or as
+    the JAX package's checkpoint or voice file restored (lists as
+    ``{"0": ...}`` maps)."""
+    trees = {"params": params_np, "state": state_np}
+    sd = {}
+    for tree, path, key in _layout(cfg):
+        sd[key] = _t(_get(trees[tree], path))
+        if key.endswith(".running_var"):
+            sd[key.replace("running_var", "num_batches_tracked")] = (
+                torch.zeros((), dtype=torch.int64))
     return sd
+
+
+def jax_from_state_dict(sd: dict, cfg: ModelConfig):
+    """The inverse of :func:`state_dict_from_jax`: the JAX package's
+    ``(params, state)`` trees (nested dicts and lists of float32 numpy
+    arrays), as its ``init_tacotron2nv`` lays them out, of a
+    ``state_dict``."""
+    trees: dict = {"params": {}, "state": {}}
+    for tree, path, key in _layout(cfg):
+        node = trees[tree]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = sd[key].detach().to("cpu", torch.float32).numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(trees["params"]), lists(trees["state"])
 
 
 # ------------------------------------------------------------- vocoders

@@ -9,7 +9,8 @@ wider than a warp).
 Also the model's decode routing on CUDA tensors: ``auto`` and ``cuda``
 launch the kernel for a config it lowers and raise for one it does not;
 only ``torch`` runs the plain loop on the card.  And the opt-in phase
-clock stamps.
+clock stamps.  At the end, ``AdaptiveTTS.adapt`` on the card against the
+CPU, and the adapted voice through the decoder kernels.
 
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the GPU
 host (no jax there, so without the JAX-side conftest):
@@ -857,3 +858,81 @@ def test_serving_vocodes_through_the_gen_kernel(device):
         chunk_frames=8, vocode_ctx_frames=2))
     assert n == 23 * 128
     assert G.GEN_LAUNCHES > before + 2
+
+
+# ---------------------------------------------------------------------
+# Few-shot adaptation on the card (serving.AdaptiveTTS.adapt) and the
+# adapted voice through the decoder kernels
+# ---------------------------------------------------------------------
+# Tolerance: the card's adapted weights against the CPU's after two
+# steps on the same clips and masks, float32 on both sides (TF32 off):
+# cuDNN's LSTM and the convolutions sum in other orders than the CPU's.
+# Read on an NVIDIA H100 80GB HBM3 (700 W): weights and statistics
+# 2.4e-7, the query loss equal; held at 9e-7 and at 1e-6 relative (a few
+# ulp of the loss, for another run's summation order).
+ADAPT_ATOL = 9e-7
+ADAPT_LOSS_RTOL = 1e-6
+
+
+def _adapt_pair(device, tmp_path):
+    """The same seeded tiny model adapted on the card and on the CPU from
+    two clips with the same dropout masks."""
+    import numpy as np
+
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+    from msa_tts_tpu_torch.ops.audio import save_wav
+
+    params = {"n_inner_test": 2,
+              "criterion": {"reduction": "none", "pos_weight": 6.0}}
+    card, cpu = _tiny_tts(device, **params), _tiny_tts("cpu", **params)
+    wavs = []
+    for i, n in enumerate((6000, 9000)):
+        t = np.arange(n) / 22050
+        wavs.append(str(tmp_path / f"clip{i}.wav"))
+        save_wav(wavs[-1], 0.5 * np.sin(2 * np.pi * (150 + 70 * i) * t)
+                 + 0.05 * np.random.default_rng(i).standard_normal(n),
+                 22050)
+    phones = [cpu.g2p.text_to_phone(t) for t in ("hello", "good morning")]
+    emb = np.zeros(8, np.float32)
+    b = cpu.adapt_batch(wavs, phones, emb)
+    g = torch.Generator().manual_seed(0)
+    masks = [dropout_masks(cpu.cfg, *b["inputs"].shape,
+                           b["melspecs"].shape[-1], g, device="cpu")
+             for _ in range(3)]
+    return (card, card.adapt(wavs, phones, emb, masks=masks),
+            cpu.adapt(wavs, phones, emb, masks=masks))
+
+
+def test_adapt_on_the_card_matches_cpu(device, tmp_path):
+    card, v, ref = _adapt_pair(device, tmp_path)
+    worst = 0.0
+    for k, t in v.state_dict.items():
+        assert t.device.type == "cuda" and t.dtype == ref.state_dict[k].dtype
+        assert torch.isfinite(t.float()).all(), k
+        worst = max(worst, float((t.cpu().float()
+                                  - ref.state_dict[k].float()).abs().max()))
+    assert worst <= ADAPT_ATOL
+    assert (abs(v.support_loss - ref.support_loss)
+            <= ADAPT_LOSS_RTOL * ref.support_loss)
+
+
+def test_adapted_voice_through_the_decoder_kernels(device, tmp_path):
+    """The card's adapted voice: synthesize launches the whole-loop
+    kernel once and gives the plain decode's mel; a stream launches the
+    segment kernel once per segment and gives the offline mel."""
+    import numpy as np
+
+    card, v, _ = _adapt_pair(device, tmp_path)
+    plain = _tiny_tts(device, decode_backend="torch")
+    before = CD.LAUNCHES
+    mel = card.synthesize("hello world", v, vocoder="none", seed=2)
+    assert CD.LAUNCHES == before + 1
+    ref = plain.synthesize("hello world", v, vocoder="none", seed=2)
+    assert mel.shape == ref.shape
+    assert np.abs(mel - ref).max() <= 1e-4
+    before = CD.SEG_LAUNCHES
+    streamed = np.concatenate(list(card.synthesize_stream(
+        "hello world", v, vocoder="none", seed=2, segment_steps=5)), -1)
+    assert CD.SEG_LAUNCHES == before + 5           # ceil(24 / 5)
+    assert streamed.shape == mel.shape
+    assert np.abs(streamed - mel).max() <= 1e-4

@@ -2,8 +2,10 @@
 interpreter where ``import jax`` and ``import msa_tts_tpu`` both fail,
 every ``msa_tts_tpu_torch`` module imports (serving, stream_mux and
 server among them), the tiny CPU slice runs from text to a wav file
-(once more with ``infer_dtype: bfloat16``), one stream and one multiplexed stream run to their end, and an attached
-WaveRNN and HiFi-GAN each vocode a request."""
+(once more with ``infer_dtype: bfloat16``), a voice is adapted from two
+clips, saved, loaded and served, one stream and one multiplexed stream
+run to their end, and an attached WaveRNN and HiFi-GAN each vocode a
+request."""
 
 import os
 import subprocess
@@ -57,6 +59,22 @@ tts16 = AdaptiveTTS(
 wav16 = tts16.synthesize("hello world", spk_emb=np.zeros(8, np.float32))
 assert wav16.dtype == np.float32 and wav16.shape == wav.shape
 assert np.isfinite(wav16).all()
+
+clips = []
+for i, n in enumerate((6000, 8000)):
+    t = np.arange(n) / audio["sample_rate"]
+    clips.append(f"clip{i}.wav")
+    save_wav(clips[-1], 0.5 * np.sin(2 * np.pi * (150 + 60 * i) * t),
+             audio["sample_rate"])
+phones = [tts.g2p.text_to_phone(t) for t in ("hello", "good morning")]
+voice = tts.adapt(clips, phones, np.zeros(8, np.float32), seed=1)
+assert np.isfinite(voice.support_loss)
+tts.save_voice(voice, "adapted.voice")
+loaded = tts.load_voice("adapted.voice")
+assert all(torch.equal(loaded.state_dict[k], v.cpu())
+           for k, v in voice.state_dict.items())
+assert np.array_equal(tts.synthesize("hello", loaded, seed=3),
+                      tts.synthesize("hello", voice, seed=3))
 
 from msa_tts_tpu_torch import server, stream_mux
 assert {"msa_tts_tpu_torch.serving", "msa_tts_tpu_torch.stream_mux",

@@ -437,11 +437,13 @@ def test_adapted_mux_without_base_multiplex():
 
 
 def test_main_rejects_voices_dir(tmp_path):
+    """A --voices_dir that is not a directory raises before the model
+    loads (tests/test_torch_adapt.py registers the voices of one)."""
     from msa_tts_tpu_torch.server import main
 
-    with pytest.raises(NotImplementedError, match="voices_dir"):
+    with pytest.raises(FileNotFoundError, match="voices_dir"):
         main(["--experiment_path", str(tmp_path), "--voices_dir",
-              str(tmp_path)])
+              str(tmp_path / "missing")])
 
 
 @pytest.mark.parametrize("decode_backend", ["auto", "torch"])

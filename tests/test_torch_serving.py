@@ -128,7 +128,7 @@ def test_voice_and_seeded_requests(both):
     np.testing.assert_array_equal(v, a)
 
 
-def test_not_ported_features_raise(both, experiment, tmp_path):
+def test_not_ported_features_raise(both):
     _, tts = both
     base = {"model": dict(tts.params["model"]),
             "audio_params": dict(AP)}
@@ -145,15 +145,6 @@ def test_not_ported_features_raise(both, experiment, tmp_path):
             tts.synthesize("hi", spk_emb=EMB, vocoder=voc)
     with pytest.raises(ValueError, match="unknown vocoder name"):
         tts.attach_vocoder("melgan", object())
-    with pytest.raises(NotImplementedError):
-        tts.adapt([], [], EMB)
-    ckpt_dir = tmp_path / "checkpoints"
-    os.makedirs(ckpt_dir)
-    with open(tmp_path / "params.yml", "w") as f:
-        yaml.safe_dump(base, f)
-    (ckpt_dir / "checkpoint_0.ckpt").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        AdaptiveTTS.from_experiment(str(tmp_path), device="cpu")
     with pytest.raises(ValueError):
         AdaptiveTTS(dict(base, decode_backend="cuda"), tts.model)
 
@@ -268,8 +259,9 @@ def test_port_g2p_and_config_are_equal_copies():
 
 
 def test_chip_smoke_config_is_the_shipped_config():
-    """chip_smoke.py carries examples/maml/params.yml's model and
-    audio_params as a dict (the GPU host may have no yaml)."""
+    """chip_smoke.py carries examples/maml/params.yml's model,
+    audio_params and what adaptation reads as dicts (the GPU host may
+    have no yaml)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
@@ -278,6 +270,12 @@ def test_chip_smoke_config_is_the_shipped_config():
         shipped = yaml.safe_load(f)
     assert smoke.SHIPPED_MODEL == shipped["model"]
     assert smoke.SHIPPED_AUDIO == shipped["audio_params"]
+    for key, value in smoke.SHIPPED_ADAPT.items():
+        if key == "dataset_train":
+            assert value == {"trim_margin_silence": shipped[key][
+                "trim_margin_silence"]}
+        else:
+            assert value == shipped[key], key
 
 
 def test_chip_smoke_fails_without_cuda():

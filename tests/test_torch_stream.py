@@ -225,10 +225,10 @@ def test_postnet_width_mask_exact():
 
 
 # ------------------------------------------------------------ serving
-def _tts_pair(**over):
+def _tts_pair(audio=AP, **over):
     """JAX and port AdaptiveTTS on the same weights (JAX init, seed 3)."""
     mp = dict(MODEL, **over)
-    params = {"model": mp, "audio_params": dict(AP)}
+    params = {"model": mp, "audio_params": dict(audio)}
     p0, s0 = init_tacotron2nv(jax.random.PRNGKey(3), jax_cfp(dict(mp)))
     cfg = config_from_params(dict(mp))
     model = Tacotron2NV(cfg)
@@ -337,6 +337,29 @@ def test_streamed_neural_vocoder_matches_jax(vocoder):
         assert a.dtype == np.float32 and a.shape == b.shape
         assert np.isfinite(a).all()
         np.testing.assert_allclose(a, b, atol=atol, rtol=0)
+
+
+def test_ap2_params_stream_through_hifigan():
+    """"ap2" (HiFi-GAN style) audio params name the hop ``hop_size``
+    only: an attached HiFi-GAN streams with it, chunk for chunk as the
+    JAX package streams (1e-3, as above)."""
+    ap2 = dict(sample_rate=22050, n_fft=512, win_size=512, hop_size=128,
+               fmin=0.0, fmax=8000.0, n_mels=AP["n_mels"])
+    jtts, tts = _tts_pair(audio=ap2, max_decoder_steps=20)
+    jv, tv = vocoder_pairs(AP["n_mels"], 128)["hifigan"]
+    jtts.attach_vocoder("hifigan", jv)
+    tts.attach_vocoder("hifigan", tv)
+    kw = dict(vocoder="hifigan", spk_emb=EMB, segment_steps=8,
+              chunk_frames=12, vocode_ctx_frames=4)
+    ref = [np.asarray(c) for c in jtts.synthesize_stream("hello world",
+                                                         **kw)]
+    out = list(tts.synthesize_stream("hello world",
+                                     pre_masks=_jax_masks(tts), **kw))
+    assert len(out) == len(ref) > 1
+    assert sum(len(c) for c in out) == MODEL["n_frames_per_step"] * 20 * 128
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-3, rtol=0)
 
 
 def test_stream_neural_vocoder_context_rules():

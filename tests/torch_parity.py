@@ -139,3 +139,53 @@ def jax_wavernn_noise(jvoc, rng, n_utts: int, n_frames_padded: int,
         n1, n2 = JW._generation_noise(cfg, key, target + 2 * overlap, n_pad)
         out.append((np.array(n1), np.array(n2)))
     return out
+
+
+# ------------------------------------------------------------ adaptation
+
+def jax_forward_masks(rng, jcfg, B: int, T_in: int, T_mel: int) -> dict:
+    """The raw 0/1 dropout masks the JAX package's training
+    ``tacotron2nv_forward(..., rng, train=True)`` draws from ``rng``, in
+    the port's layout (``models.tacotron2nv.dropout_masks``): the
+    encoder under ``fold_in(rng, 1)`` split per convolution; the decoder
+    under ``fold_in(rng, 2)`` split into the prenet's key (``fold_in``
+    per layer over (T_dec, B, P)) and the scan's (split per step, each
+    step's split into the attention's and the decoder's mask); the
+    postnet under ``fold_in(rng, 3)`` split per layer."""
+    from jax import random as R
+
+    def draw(key, rate, shape):
+        return np.asarray(R.bernoulli(key, 1.0 - rate, shape), np.float32)
+
+    T_dec = T_mel // jcfg.n_frames_per_step
+    E, M = jcfg.encoder_embedding_dim, jcfg.postnet_embedding_dim
+    n_post = jcfg.postnet_n_convolutions
+    enc_keys = R.split(R.fold_in(rng, 1), jcfg.encoder_n_convolutions)
+    k_pre, k_scan = R.split(R.fold_in(rng, 2))
+    steps = [R.split(k) for k in R.split(k_scan, T_dec)]
+    post_keys = R.split(R.fold_in(rng, 3), n_post)
+    return {
+        "encoder": [draw(k, 0.5, (B, E, T_in)) for k in enc_keys],
+        "prenet": np.stack([draw(R.fold_in(k_pre, i), jcfg.p_prenet_dropout,
+                                 (T_dec, B, jcfg.prenet_dim))
+                            for i in range(2)], axis=1),
+        "attention": np.stack([draw(k1, jcfg.p_attention_dropout,
+                                    (B, jcfg.attention_rnn_dim))
+                               for k1, _ in steps]),
+        "decoder": np.stack([draw(k2, jcfg.p_decoder_dropout,
+                                  (B, jcfg.decoder_rnn_dim))
+                             for _, k2 in steps]),
+        "postnet": [draw(k, 0.5, (B, jcfg.n_mel_channels if i == n_post - 1
+                                  else M, T_mel))
+                    for i, k in enumerate(post_keys)],
+    }
+
+
+def jax_metatest_masks(rng, jcfg, n_inner: int, B: int, T_in: int,
+                       T_mel: int) -> list:
+    """Every pass's masks of the JAX package's ``make_metatest_fn`` under
+    ``rng``: ``split(rng)`` into the adaptation's key (split ``n_inner``
+    ways, one per step) and the query pass's."""
+    k_adapt, k_query = jax.random.split(rng)
+    keys = list(jax.random.split(k_adapt, n_inner)) + [k_query]
+    return [jax_forward_masks(k, jcfg, B, T_in, T_mel) for k in keys]

@@ -4,6 +4,7 @@ of examples/maml/params.yml with seeded random weights.
 
     python3 tools/profile_decode.py [--infer-dtype bfloat16]
         [--out build/profile_decode.json]
+    python3 tools/profile_decode.py --adapt [--out ...]
 
 Three readings, at B = 1 and B = 4, in float32 or (``--infer-dtype
 bfloat16``) with the model served in bfloat16:
@@ -17,6 +18,11 @@ bfloat16``) with the model served in bfloat16:
      decoder kernel, postnet, Griffin-Lim with the copy to the host;
   3. the device's busy share over one request under ``torch.profiler``:
      the union of the device-side intervals over the request's span.
+
+``--adapt`` takes one reading instead: one warm ``AdaptiveTTS.adapt``
+(chip_smoke phase 11's four clips, the shipped loss, 5 SGD steps and the
+query pass, float32) under ``torch.profiler``: its wall time, device
+events and the device's busy share.
 
 Every decode runs all 500 steps (random weights would stop at once).
 Prints a summary and writes the numbers as JSON to ``--out``.
@@ -161,27 +167,25 @@ def request_stages(tts, device, texts, seed=0):
     return out
 
 
-def busy_share(tts, texts, emb):
-    """Reading 3: union of device intervals over the request's span."""
+def device_busy(fn, label: str = "request"):
+    """``fn()`` under ``torch.profiler``: its wall time, the union of the
+    device's intervals inside it, and those device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("request"):
-            if len(texts) == 1:
-                tts.synthesize(texts[0], spk_emb=emb)
-            else:
-                tts.synthesize_batch(texts, spk_emb=emb)
+        with record_function(label):
+            fn()
             torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     span = [e for e in events
-            if e.name == "request" and e.device_type != cuda][0].time_range
-    # device-side kernels and copies; not the annotation of "request"
+            if e.name == label and e.device_type != cuda][0].time_range
+    # device-side kernels and copies; not the annotation of the span
     # itself, which newer profilers also put on the device's timeline
     dev_events = [e for e in events
-                  if e.device_type == cuda and e.name != "request"]
+                  if e.device_type == cuda and e.name != label]
     dev = sorted(
         (max(e.time_range.start, span.start), min(e.time_range.end, span.end))
         for e in dev_events
@@ -192,16 +196,69 @@ def busy_share(tts, texts, emb):
         if end > lo:
             busy += end - lo
             hi = end
-    loop = sum(e.time_range.elapsed_us() for e in dev_events
-               if "decoder_loop" in e.name)
     wall = span.elapsed_us()
     return {
         "device_events": len(dev),
         "wall_ms": wall / 1e3,
         "device_busy_ms": busy / 1e3,
         "busy_share": busy / wall if dev else None,
-        "decoder_kernel_ms": loop / 1e3,
-    }
+    }, dev_events
+
+
+def busy_share(tts, texts, emb):
+    """Reading 3: union of device intervals over the request's span."""
+    if len(texts) == 1:
+        res, events = device_busy(lambda: tts.synthesize(texts[0],
+                                                         spk_emb=emb))
+    else:
+        res, events = device_busy(lambda: tts.synthesize_batch(
+            texts, spk_emb=emb))
+    res["decoder_kernel_ms"] = sum(
+        e.time_range.elapsed_us() for e in events
+        if "decoder_loop" in e.name) / 1e3
+    return res
+
+
+def adapt_busy(device):
+    """The ``--adapt`` reading: one warm ``adapt`` under the profiler."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import (
+        SHIPPED_ADAPT,
+        SHIPPED_AUDIO,
+        SHIPPED_MODEL,
+        TEXTS,
+        _clips,
+    )
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        config_from_params,
+    )
+    from msa_tts_tpu_torch.serving import N_SYMBOLS, AdaptiveTTS
+
+    mp = dict(SHIPPED_MODEL, n_mel_channels=SHIPPED_AUDIO["n_mels"],
+              n_symbols=N_SYMBOLS)
+    model = Tacotron2NV(config_from_params(mp),
+                        generator=torch.Generator().manual_seed(0))
+    tts = AdaptiveTTS(dict(SHIPPED_ADAPT, model=mp,
+                           audio_params=dict(SHIPPED_AUDIO)),
+                      model, device=device)
+    tmp = tempfile.mkdtemp(prefix="profile_adapt_")
+    try:
+        wavs = _clips(tmp, 4, SHIPPED_AUDIO["sample_rate"])
+        phones = [tts.g2p.text_to_phone(t) for t in TEXTS[:4]]
+        emb = np.random.default_rng(5).standard_normal(
+            tts.cfg.speaker_embedding_dim).astype(np.float32)
+        tts.adapt(wavs, phones, emb, seed=0)                  # warm
+        res, _ = device_busy(lambda: tts.adapt(wavs, phones, emb, seed=1),
+                             "adapt")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
 
 
 def main() -> int:
@@ -213,6 +270,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--infer-dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--adapt", action="store_true",
+                    help="profile one adapt call instead")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "profile_decode.json"))
     args = ap.parse_args()
@@ -225,6 +284,11 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gpu = _gpu_line()
     print(gpu)
+    if args.adapt:
+        res = {"gpu": gpu, "adapt": adapt_busy(device)}
+        print(f"adapt under torch.profiler: {res['adapt']}")
+        _write(args.out, res)
+        return 0
     tts = _build_tts(device, args.infer_dtype)
     emb = np.random.default_rng(0).standard_normal(
         tts.cfg.speaker_embedding_dim).astype(np.float32)
@@ -249,11 +313,15 @@ def main() -> int:
         p = busy_share(tts, TEXTS[:B], emb)
         res["profiler"][f"B={B}"] = p
         print(f"profiler B={B}: {p}")
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(res, f, indent=1)
-    print(f"wrote {args.out}")
+    _write(args.out, res)
     return 0
+
+
+def _write(path: str, res: dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"wrote {path}")
 
 
 if __name__ == "__main__":
