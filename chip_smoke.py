@@ -44,14 +44,25 @@ Phases (any failure exits non-zero):
      check the query loss is below the first inner step's, round-trip
      the voice file, and serve the adapted voice through the whole-loop
      kernel (float32 and bfloat16) and the segment kernel against the
-     plain decode.
+     plain decode;
+ 12. meta-train at that width through ``python -m
+     msa_tts_tpu_torch.trainers.maml`` (``main``: examples/maml/params.yml
+     with only the data and run-length entries changed, MAML_REDUCED;
+     second order, bfloat16 compute, 4 tasks x 8 shots) for 3 epochs on a
+     synthetic corpus: meta-step times, mel frames per second, peak device
+     memory, the meta-test's losses and MCD; 2 epochs resumed to 3
+     against the unbroken run; one float32 meta-step, second and first
+     order, on the card against the CPU; and the trained checkpoint
+     (``from_experiment``) served through the whole-loop kernel (float32
+     and bfloat16) and the segment kernel against the plain decode.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel with its launches on its main
 path (phase 3 for the whole loop, phase 5 for the segments, phase 9 for
 the sample loop, phase 10's scan for the cell; the decoder kernels'
-``adapted_voice_launches`` are phase 11's), its error against the
+``adapted_voice_launches`` are phase 11's, ``trained_checkpoint_launches``
+phase 12's), its error against the
 plain version, both times, and the least time the card could take for
 the same work (``bound_ms``: the larger of bytes over 3.35 TB/s and
 operations over the peak rate of their type; weights count once per
@@ -1476,6 +1487,489 @@ def adapt_phase(device, mp: dict, audio: dict, adapt_params: dict,
     return res
 
 
+# ---------------------------------------------------------------- phase 12
+# examples/maml/params.yml with only the data and run-length entries
+# changed; everything else (widths, compute_dtype bfloat16, second order,
+# 4 tasks x 8 shots, 1 inner step, 5 meta-test steps, the optimizers and
+# the clip) is the shipped file's.
+MAML_REDUCED = {
+    "dataset_*.dataset_path / meta_file / speakers_list":
+        "the synthetic corpus: 4 speakers x 12 clips of 0.4-1.2 s, seed 0 "
+        "(VCTK's clips are ~2-4 s; no VCTK in the repository)",
+    "output_path": "a temporary directory",
+    "n_epochs": "3 (500); one meta-step an epoch (4 speakers, 4 tasks)",
+    "ckpt_save_epoch_interval": "1 (5)",
+    "metatest_epoch_interval": "3 (10)",
+    "plot_examples": "false (no matplotlib on the GPU host)",
+    "use_tensorboard": "false",
+}
+MAML_SPEAKERS = ["spk00", "spk01", "spk02", "spk03"]
+# Card against CPU, one float32 meta-step (TF32 off) on the same init,
+# episode and masks, K = 2 tasks x 2 shots; the outer step there is SGD
+# with lr 1, so the new weights carry the (clipped) meta-gradient itself
+# (Adam's first step is lr·sign(g), which turns float noise in a
+# near-zero gradient into a step of lr).  Limits set from the readings of
+# an earlier run (NVIDIA H100 80GB HBM3, 700 W), no looser than 4x the
+# larger of the two orders': new weights 1.6e-7 / 1.9e-7 absolute (the
+# step moved them by up to 4.8e-2), merged statistics 3.7e-6 / 2.8e-6
+# relative to each tensor's largest value, the query loss equal (0 read:
+# held to one float32 ulp, 1.2e-7 relative), the gradient norm 1.4e-6 /
+# 1.7e-6 relative.
+MAML_W_ATOL = 7.6e-7
+MAML_STAT_RTOL = 1.4e-5
+MAML_LOSS_RTOL = 1.2e-7
+MAML_NORM_RTOL = 6.6e-6
+# The same second-order card step with compute_dtype bfloat16 against
+# float32, 4x the readings of an earlier run (same card and limit): new
+# weights 1.1e-3 absolute, statistics 2.3e-2 relative to each tensor's
+# largest value, the query loss 3.6e-4 and the gradient norm 1.1e-2
+# relative (bfloat16 keeps 8 bits).
+MAML_BF16_W_ATOL = 4.2e-3
+MAML_BF16_STAT_RTOL = 9.2e-2
+MAML_BF16_LOSS_RTOL = 1.4e-3
+MAML_BF16_NORM_RTOL = 4.2e-2
+# The resumed run against the unbroken one, in the shipped bfloat16: a
+# bfloat16 meta-step is not bit-reproducible on the card (the same step
+# twice from the same state, the first in its process against a later
+# one, differed by up to 2e-3 in 18.8 M weights; float32 repeated bit
+# for bit; cuDNN's deterministic algorithms are on for the phase, and
+# torch.use_deterministic_algorithms left the resume's readings
+# unchanged), so each is held to 4x its reading (NVIDIA H100
+# 80GB HBM3, 700 W, two runs, equal readings): weights 5.7e-3 absolute
+# (three Adam steps of lr 1e-3 move a weight by up to 3e-3), statistics
+# 4.2e-2 relative to each tensor's largest value, step 3's train/loss
+# 1.2e-4 relative (the loss moves 13 % a step: a resume on other data or
+# state would show there).
+MAML_RESUME_W_ATOL = 2.3e-2
+MAML_RESUME_STAT_RTOL = 0.17
+MAML_RESUME_LOSS_RTOL = 4.7e-4
+
+
+def maml_params(corpus: str, out: str, **over) -> dict:
+    """examples/maml/params.yml pointed at ``corpus`` and ``out`` with the
+    run-length entries of MAML_REDUCED, then ``over``."""
+    import os
+
+    from msa_tts_tpu_torch.config import load_params
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = load_params(os.path.join(here, "examples", "maml", "params.yml"))
+    for k in ("dataset_train", "dataset_metatrain", "dataset_metatest"):
+        p[k] = dict(p[k], dataset_path=corpus, meta_file="metadata.csv",
+                    speakers_list=list(MAML_SPEAKERS))
+    p.update(output_path=out, n_epochs=3, ckpt_save_epoch_interval=1,
+             metatest_epoch_interval=3, plot_examples=False,
+             use_tensorboard=False)
+    p.update(over)
+    return p
+
+
+def _run_maml(params: dict, workdir: str) -> list:
+    """``trainers.maml.main`` on ``params`` written to
+    ``workdir/params.yml``; returns one record per meta-step: wall s,
+    peak device bytes above what was held before it, and the valid mel
+    frames of its support and query sets."""
+    import argparse
+    import os
+
+    import torch
+
+    from msa_tts_tpu_torch.config import save_params
+    from msa_tts_tpu_torch.trainers import maml as TM
+
+    os.makedirs(workdir, exist_ok=True)
+    save_params(params, os.path.join(workdir, "params.yml"))
+    steps = []
+
+    class Timed(TM.MAML):
+        def _init_criterion_optimizer(self):
+            super()._init_criterion_optimizer()
+            step = self._maml_step
+
+            def timed(state, sup, qry, masks):
+                dev = self.device
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                t0 = time.perf_counter()
+                out = step(state, sup, qry, masks)
+                torch.cuda.synchronize(dev)
+                steps.append({
+                    "s": time.perf_counter() - t0,
+                    "peak_above_bytes":
+                        torch.cuda.max_memory_allocated(dev) - base,
+                    "frames": int(sup["melspec_lengths"].sum()
+                                  + qry["melspec_lengths"].sum()),
+                })
+                return out
+
+            self._maml_step = timed
+
+    orig, TM.MAML = TM.MAML, Timed
+    try:
+        TM.main(argparse.Namespace(params_path=workdir))
+    finally:
+        TM.MAML = orig
+    return steps
+
+
+def _logged(run_dir: str) -> dict:
+    """Every value the run logged, ``{(tag, step): value}``."""
+    import glob
+    import os
+
+    out = {}
+    for path in glob.glob(os.path.join(run_dir, "logs", "*",
+                                       "metrics.jsonl")):
+        with open(path) as f:
+            for line in f:
+                d = json.loads(line)
+                out[(d["tag"], d["step"])] = d["value"]
+    return out
+
+
+def _ckpt_state(run_dir: str, cfg, name: str = "checkpoint_0.ckpt"):
+    import os
+
+    from msa_tts_tpu_torch.utils.checkpoint import load_checkpoint
+    from msa_tts_tpu_torch.utils.convert import state_dict_from_jax
+
+    raw = load_checkpoint(os.path.join(run_dir, "checkpoints", name))
+    return state_dict_from_jax(raw["params"], raw["model_state"], cfg), raw
+
+
+def _compare_steps(a, b, theta: dict) -> dict:
+    """Two meta-steps' results ``(state, metrics)``: new weights max|d|
+    (and how far ``a``'s moved from ``theta``), merged statistics
+    relative to each tensor's largest value, query loss and gradient
+    norm relative."""
+    (new_a, m_a), (new_b, m_b) = a, b
+    return {
+        "w_max_abs": max(float((new_a.params[k].cpu() - v.cpu()).abs().max())
+                         for k, v in new_b.params.items()),
+        "moved": max(float((v.cpu() - theta[k].cpu()).abs().max())
+                     for k, v in new_b.params.items()),
+        "stat_rel": max(float((new_a.model_state[k].cpu() - v.cpu()).abs()
+                              .max() / v.abs().max())
+                        for k, v in new_b.model_state.items()
+                        if "running" in k),
+        "loss_rel": abs(float(m_a.loss) - float(m_b.loss))
+        / abs(float(m_b.loss)),
+        "norm_rel": abs(float(m_a.grad_norm) - float(m_b.grad_norm))
+        / float(m_b.grad_norm),
+        "loss": float(m_b.loss), "grad_norm": float(m_b.grad_norm),
+    }
+
+
+def _step_card_vs_cpu(device, params: dict, second_order: bool,
+                      tmp: str) -> dict:
+    """One float32 meta-step (TF32 off) of K = 2 tasks x 2 shots on the
+    card and on the CPU from the same init, episode and masks (drawn on
+    the CPU); the new weights, the merged batch-norm statistics, the
+    query loss and the gradient norm, each as max|d|.  With
+    ``second_order``, also the same step on the card with compute_dtype
+    bfloat16 against float32 (``bf16_vs_f32``)."""
+    import torch
+
+    from msa_tts_tpu_torch.dataloaders.loader_meta import unpack_task_batch
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+    from msa_tts_tpu_torch.trainers.maml import MAML
+
+    tag = "second" if second_order else "first"
+    p = dict(params, compute_dtype="float32", meta_batch_size=2,
+             track_higher_grads=second_order,
+             optim_outer={"optimizer_type": "SGD", "lr": 1.0},
+             dataset_metatrain=dict(params["dataset_metatrain"],
+                                    batch_size=2))
+    card = MAML(**dict(p, output_path=f"{tmp}/{tag}_card"))
+    cpu = MAML(**dict(p, output_path=f"{tmp}/{tag}_cpu", device="cpu"))
+    speakers, sup, qry = next(card.dataloader_metatrain.iter_stacked())
+    K, B, T_in = sup.inputs.shape
+    T_mel = sup.mels.shape[-1]
+    g = torch.Generator().manual_seed(12)
+    masks = [[dropout_masks(card.cfg, B, T_in, T_mel, g, device="cpu")
+              for _ in range(card.n_inner_train + 1)] for _ in range(K)]
+    out = {}
+    trainers = [(card, "card"), (cpu, "cpu")]
+    if second_order:
+        # the shipped compute type on the card, from the same float32 init
+        trainers.append((MAML(**dict(p, compute_dtype="bfloat16",
+                                     output_path=f"{tmp}/{tag}_bf16")),
+                         "bf16"))
+    for t, name in trainers:
+        m = [[{k: ([x.to(t.device) for x in v] if isinstance(v, list)
+                   else v.to(t.device)) for k, v in d.items()}
+              for d in task] for task in masks]
+        t0 = time.perf_counter()
+        out[name] = t._maml_step(
+            t.train_state, unpack_task_batch(sup, t.speaker_emb_type,
+                                             t.device),
+            unpack_task_batch(qry, t.speaker_emb_type, t.device), m)
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out[name + "_s"] = time.perf_counter() - t0
+    theta = cpu.train_state.params
+    res = dict(_compare_steps(out["card"], out["cpu"], theta), order=tag,
+               card_s=out["card_s"], cpu_s=out["cpu_s"],
+               shape=[K, B, T_in, T_mel])
+    if second_order:
+        res["bf16_vs_f32"] = _compare_steps(out["bf16"], out["card"], theta)
+    return res
+
+
+def maml_phase(device) -> dict:
+    """Phase 12: MAML meta-training at the shipped width through the
+    port's entry point (``trainers.maml.main``, second order, bfloat16
+    compute, 4 tasks x 8 shots) for 3 epochs on a synthetic corpus: each
+    meta-step's wall time, mel frames per second and peak device memory,
+    the meta-test's losses and MCD, every logged value finite; a run of 2
+    epochs resumed to 3 against the unbroken run; one float32 meta-step,
+    second and then first order, on the card against the CPU; and the
+    trained checkpoint served through the whole-loop kernel (float32 and
+    bfloat16) and the segment kernel, held to the plain decode."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.serving import AdaptiveTTS
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_maml_")
+    # as the limits below were read: cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    try:
+        corpus = f"{tmp}/corpus"
+        make_synthetic_corpus(corpus, n_speakers=4,
+                              utterances_per_speaker=12, seed=0,
+                              spk_emb_dim=SHIPPED_MODEL[
+                                  "speaker_embedding_dim"])
+        params = maml_params(corpus, f"{tmp}/full")
+        print("  reduced: " + json.dumps(MAML_REDUCED))
+        mp = params["model"]
+        print(f"  kept: width E {mp['encoder_embedding_dim']} + "
+              f"{mp['speaker_embedding_dim']}, H = Hd "
+              f"{mp['decoder_rnn_dim']}, P {mp['prenet_dim']}, "
+              f"r {mp['n_frames_per_step']}, compute_dtype "
+              f"{params['compute_dtype']}, track_higher_grads "
+              f"{params['track_higher_grads']}, {params['meta_batch_size']}"
+              f" tasks x {params['dataset_metatrain']['batch_size']} shots, "
+              f"n_inner_train {params['n_inner_train']}, n_inner_test "
+              f"{params['n_inner_test']}, optim_outer "
+              f"{params['optim_outer']}, clip {params['grad_clip_thresh']}")
+        t0 = time.perf_counter()
+        steps = _run_maml(params, f"{tmp}/full")
+        res["run_s"] = time.perf_counter() - t0
+        run_dir = f"{tmp}/full/maml/{params['experiment_name']}"
+        walls = [s["s"] for s in steps]
+        warm = walls[1:]
+        res["meta_step_s"] = walls
+        res["meta_step_s_warm_median"] = statistics.median(warm)
+        res["mel_frames_per_s"] = [s["frames"] / s["s"] for s in steps]
+        res["peak_above_bytes"] = max(s["peak_above_bytes"] for s in steps)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        logs = _logged(run_dir)
+        res["test_loss"] = {k[0]: v for k, v in logs.items()
+                            if k[0].startswith("test/loss")}
+        res["test_mcd"] = {k[0]: v for k, v in logs.items()
+                           if k[0].startswith("test/mcd")}
+        res["train_loss"] = [logs[("train/loss", i)] for i in range(3)]
+        print(f"  trainers.maml.main: {len(steps)} meta-steps in "
+              f"{res['run_s']:.1f} s (datasets, checkpoints and the "
+              f"meta-test included); meta-step wall s "
+              + ", ".join(f"{w:.3f}" for w in walls)
+              + f" (warm median {res['meta_step_s_warm_median']:.3f}); "
+              f"mel frames/s " + ", ".join(
+                  f"{f:.0f}" for f in res["mel_frames_per_s"])
+              + f" ({steps[0]['frames']} support+query frames a step); "
+              f"peak device memory of a meta-step "
+              f"{res['peak_above_bytes'] / 2**30:.2f} GiB above what was "
+              f"held ({res['peak_bytes'] / 2**30:.2f} GiB in all); "
+              f"{_gpu_line()}")
+        print(f"  train/loss {res['train_loss']}; meta-test query losses "
+              f"{res['test_loss']}; MCD {res['test_mcd']}")
+        bad = [k for k, v in logs.items() if not np.isfinite(v)]
+        if bad or len(steps) != 3 or not res["test_loss"]:
+            raise AssertionError(f"meta-training: {len(steps)} steps, "
+                                 f"non-finite logs {bad}")
+
+        # ---- resume: 2 epochs, then resume: true to epoch 3
+        part = maml_params(corpus, f"{tmp}/part", n_epochs=2)
+        _run_maml(part, f"{tmp}/part")
+        _run_maml(dict(part, n_epochs=3, resume=True), f"{tmp}/part")
+        cfg = _trained_cfg(run_dir)
+        full_sd, full_raw = _ckpt_state(run_dir, cfg)
+        part_dir = f"{tmp}/part/maml/{params['experiment_name']}"
+        part_sd, part_raw = _ckpt_state(part_dir, cfg)
+        names = [k for k, v in full_sd.items()
+                 if "running" not in k and v.is_floating_point()]
+        w = max(float((part_sd[k] - full_sd[k]).abs().max()) for k in names)
+        n_off = sum(int(((part_sd[k] - full_sd[k]).abs() > 1e-5).sum())
+                    for k in names)
+        n_all = sum(full_sd[k].numel() for k in names)
+        stat = max(float((part_sd[k] - v).abs().max() / v.abs().max())
+                   for k, v in full_sd.items() if "running" in k)
+        part_loss = _logged(part_dir)[("train/loss", 2)]
+        loss = abs(part_loss - res["train_loss"][2]) / res["train_loss"][2]
+        res["resume"] = {"w_max_abs": w, "w_beyond_1e-5": n_off,
+                         "stat_rel": stat, "loss_rel": loss}
+        print(f"  2 epochs + resume to 3 against 3 unbroken (cuDNN "
+              f"deterministic): steps {int(part_raw['step'])} / "
+              f"{int(full_raw['step'])}; weights max|d| {w:.3e} (limit "
+              f"{MAML_RESUME_W_ATOL}), {n_off} of {n_all} beyond 1e-5; "
+              f"statistics max|d|/max|value| {stat:.3e} (limit "
+              f"{MAML_RESUME_STAT_RTOL}); step 3's train/loss "
+              f"{part_loss:.6f} / {res['train_loss'][2]:.6f}, rel "
+              f"{loss:.2e} (limit {MAML_RESUME_LOSS_RTOL})")
+        if int(part_raw["step"]) != 3:
+            raise AssertionError("the resumed run took another step count")
+        for val, lim in ((w, MAML_RESUME_W_ATOL),
+                         (stat, MAML_RESUME_STAT_RTOL),
+                         (loss, MAML_RESUME_LOSS_RTOL)):
+            if not val <= lim:
+                raise AssertionError("the resumed run differs")
+
+        # ---- card against CPU, float32, second and first order
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["card_vs_cpu"] = []
+        for so in (True, False):
+            r = _step_card_vs_cpu(device, params, so, tmp)
+            res["card_vs_cpu"].append(r)
+            print(f"  {r['order']}-order meta-step card vs CPU (K, B, T_in,"
+                  f" T_mel {r['shape']}; card {r['card_s']:.2f} s, CPU "
+                  f"{r['cpu_s']:.1f} s): new weights max|d| "
+                  f"{r['w_max_abs']:.3e} (limit {MAML_W_ATOL}; the step "
+                  f"moved them by up to {r['moved']:.3e}), merged "
+                  f"statistics max|d|/max|value| {r['stat_rel']:.3e} (limit"
+                  f" {MAML_STAT_RTOL}), query loss {r['loss']:.6f} rel "
+                  f"{r['loss_rel']:.2e} (limit {MAML_LOSS_RTOL}), grad norm"
+                  f" {r['grad_norm']:.4f} rel {r['norm_rel']:.2e} (limit "
+                  f"{MAML_NORM_RTOL})")
+            for key, lim in (("w_max_abs", MAML_W_ATOL),
+                             ("stat_rel", MAML_STAT_RTOL),
+                             ("loss_rel", MAML_LOSS_RTOL),
+                             ("norm_rel", MAML_NORM_RTOL)):
+                if not r[key] <= lim:
+                    raise AssertionError(f"{r['order']}-order meta-step: "
+                                         f"{key} {r[key]} > {lim}")
+            if "bf16_vs_f32" in r:
+                b = r["bf16_vs_f32"]
+                print(f"  the same second-order step on the card with "
+                      f"compute_dtype bfloat16 against float32: new weights "
+                      f"max|d| {b['w_max_abs']:.3e} (limit "
+                      f"{MAML_BF16_W_ATOL}), statistics {b['stat_rel']:.3e} "
+                      f"(limit {MAML_BF16_STAT_RTOL}), query loss rel "
+                      f"{b['loss_rel']:.2e} (limit {MAML_BF16_LOSS_RTOL}), "
+                      f"grad norm rel {b['norm_rel']:.2e} (limit "
+                      f"{MAML_BF16_NORM_RTOL})")
+                for key, lim in (("w_max_abs", MAML_BF16_W_ATOL),
+                                 ("stat_rel", MAML_BF16_STAT_RTOL),
+                                 ("loss_rel", MAML_BF16_LOSS_RTOL),
+                                 ("norm_rel", MAML_BF16_NORM_RTOL)):
+                    if not b[key] <= lim:
+                        raise AssertionError(f"bf16 meta-step: {key} "
+                                             f"{b[key]} > {lim}")
+
+        # ---- the trained checkpoint served: every launch from here on
+        exp = run_dir
+        tts = AdaptiveTTS.from_experiment(exp, "0", device=device,
+                                          decode_backend="cuda")
+        tts16 = AdaptiveTTS.from_experiment(exp, "0", device=device,
+                                            decode_backend="cuda",
+                                            infer_dtype="bfloat16")
+        # three steps do not teach the gate: hold it off, as serve() does
+        for t in (tts, tts16):
+            with torch.no_grad():
+                t.model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
+        emb = np.random.default_rng(5).standard_normal(
+            tts.cfg.speaker_embedding_dim).astype(np.float32)
+        S = tts.cfg.max_decoder_steps
+        hop = SHIPPED_AUDIO["hop_length"]
+        want = hop * (S * tts.cfg.n_frames_per_step - 1)
+        for t in (tts, tts16):
+            t.synthesize(TEXTS[2], spk_emb=emb, seed=0)        # warm
+        torch.cuda.synchronize()
+        CD.LAUNCHES = CD.SEG_LAUNCHES = 0
+        wavs = [t.synthesize(text, spk_emb=emb, seed=i)
+                for t in (tts, tts16) for i, text in enumerate(TEXTS[:2])]
+        n_samples = sum(len(c) for c in tts.synthesize_stream(
+            TEXTS[1], spk_emb=emb, seed=1, segment_steps=SEG))
+        torch.cuda.synchronize()
+        res["launches"], res["seg_launches"] = CD.LAUNCHES, CD.SEG_LAUNCHES
+        n_seg = -(-S // SEG)
+        print(f"  trained checkpoint served: 2 sentences in float32 and 2 "
+              f"in bfloat16, {res['launches']} whole-loop launches; one "
+              f"stream, {n_samples} samples, {res['seg_launches']} segment "
+              f"launches for {n_seg} segments")
+        for w in wavs:
+            if w.shape != (want,) or not np.isfinite(w).all():
+                raise AssertionError(f"trained checkpoint: wav {w.shape}")
+        if (res["launches"] != 4 or res["seg_launches"] != n_seg
+                or n_samples != want):
+            raise AssertionError("trained checkpoint: launches or samples")
+
+        # ---- comparisons, not counted: kernels against the plain decode
+        for t, tag in ((tts, "float32"), (tts16, "bfloat16")):
+            plain = AdaptiveTTS(dict(t.params, decode_backend="torch"),
+                                t.model, device=device)
+            for i, text in enumerate(TEXTS[:2]):
+                mel = t.synthesize(text, spk_emb=emb, seed=i,
+                                   vocoder="none")
+                ref = plain.synthesize(text, spk_emb=emb, seed=i,
+                                       vocoder="none")
+                d = np.abs(mel - ref) if mel.shape == ref.shape else np.inf
+                err = float(np.max(d))
+                if tag == "bfloat16":
+                    share = float((d > DEC_BF16_FLIP["mels"]).mean())
+                    ok = err <= SERVE_BF16_MAX and share <= DEC_BF16_SHARE
+                    extra = (f" (limit {SERVE_BF16_MAX}), share beyond "
+                             f"{DEC_BF16_FLIP['mels']}: {share:.2e} (limit "
+                             f"{DEC_BF16_SHARE})")
+                else:
+                    ok, extra = err <= SERVE_ATOL, f" (limit {SERVE_ATOL})"
+                    res["serve_max_abs_err"] = max(
+                        res.get("serve_max_abs_err", 0.0), err)
+                print(f"  trained checkpoint, {tag}, sentence {i}: kernel "
+                      f"vs plain decode, mel max|d| {err:.3e}{extra}")
+                if not ok:
+                    raise AssertionError(f"trained checkpoint ({tag}) "
+                                         "differs from the plain decode")
+        streamed = np.concatenate(list(tts.synthesize_stream(
+            TEXTS[0], spk_emb=emb, seed=0, vocoder="none",
+            segment_steps=SEG)), -1)
+        off = tts.synthesize(TEXTS[0], spk_emb=emb, seed=0, vocoder="none")
+        err = (float(np.abs(streamed - off).max())
+               if streamed.shape == off.shape else float("inf"))
+        print(f"  trained checkpoint streamed (segment kernel) vs offline: "
+              f"mel max|d| {err:.3e} (limit {STREAM_ATOL})")
+        if not err <= STREAM_ATOL:
+            raise AssertionError("trained checkpoint: streamed mel differs")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def _trained_cfg(run_dir: str):
+    """The model config of a trainer's experiment directory, as
+    ``from_experiment`` builds it."""
+    import os
+
+    from msa_tts_tpu_torch.config import load_params
+    from msa_tts_tpu_torch.models.tacotron2nv import config_from_params
+    from msa_tts_tpu_torch.serving import N_SYMBOLS
+
+    p = load_params(os.path.join(run_dir, "params.yml"))
+    return config_from_params(dict(
+        p["model"], n_mel_channels=p["audio_params"]["n_mels"],
+        n_symbols=N_SYMBOLS, num_speakers=1))
+
+
 TEXTS = [
     "The birch canoe slid on the smooth planks.",
     "Glue the sheet to the dark blue background.",
@@ -1680,6 +2174,12 @@ def main() -> int:
                      SHIPPED_AUDIO, SHIPPED_ADAPT)
     print(gpu)
     print(json.dumps({"adapt": ad}))
+    print("phase 12: MAML meta-training at the shipped width "
+          "(trainers.maml.main), resume, card vs CPU, and the trained "
+          "checkpoint served through the decoder kernels")
+    mm = maml_phase(device)
+    print(gpu)
+    print(json.dumps({"maml": mm}))
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in
@@ -1704,11 +2204,14 @@ def main() -> int:
         }
 
     print(json.dumps({"kernels": [
-        # adapted_voice_launches: phase 11's served path
+        # adapted_voice_launches: phase 11's served path;
+        # trained_checkpoint_launches: phase 12's
         dict(dec_entry("decoder_loop", 458, k, launches),
-             adapted_voice_launches=ad["launches"]),
+             adapted_voice_launches=ad["launches"],
+             trained_checkpoint_launches=mm["launches"]),
         dict(dec_entry("decoder_segment", 553, sk, seg_launches),
-             adapted_voice_launches=ad["seg_launches"]),
+             adapted_voice_launches=ad["seg_launches"],
+             trained_checkpoint_launches=mm["seg_launches"]),
         {
         # the serving path's type: bf16 weight matrices, B 44, T 3,850
         "name": "wavernn_loop",

@@ -1,7 +1,8 @@
 """Batch assembly (counterpart of ``msa_tts_tpu/dataloaders/collate.py``,
-the part that adaptation uses): items sorted by text length, longest
-first; text zero-padded to a multiple of ``text_pad_multiple``; mels
-padded to a multiple of ``mel_pad_multiple``, then of the reduction
+the parts that adaptation and the meta loader use): items sorted by text
+length, longest first; text zero-padded to ``text_pad_to``, else to a
+multiple of ``text_pad_multiple``; mels padded to ``mel_pad_to``, else
+to a multiple of ``mel_pad_multiple``, then to one of the reduction
 factor; stop labels 1.0 from the last valid frame on (padding
 included)."""
 
@@ -19,6 +20,7 @@ class Batch(NamedTuple):
     input_lengths: np.ndarray   # (B,) int32
     mels: np.ndarray            # (B, n_mel, T_mel) float32
     mel_lengths: np.ndarray     # (B,) int32
+    speaker_ids: np.ndarray     # (B,) int32
     spk_embs: np.ndarray        # (B, D) float32
     stop_labels: np.ndarray     # (B, T_mel) float32
 
@@ -31,25 +33,32 @@ def _round_up(n: int, multiple: int | None) -> int:
 
 def collate(items: Sequence[Item], *, reduction_factor: int = 1,
             text_pad_multiple: int | None = None,
-            mel_pad_multiple: int | None = None) -> Batch:
+            mel_pad_multiple: int | None = None,
+            text_pad_to: int | None = None,
+            mel_pad_to: int | None = None) -> Batch:
     """Assemble a :class:`Batch` from items."""
     items = sorted(items, key=lambda it: -len(it.phonemes))
     text_lens = np.asarray([len(it.phonemes) for it in items], np.int32)
     mel_lens = np.asarray([it.mel.shape[1] for it in items], np.int32)
-    t_text = _round_up(int(text_lens.max()), text_pad_multiple)
-    t_mel = _round_up(_round_up(int(mel_lens.max()), mel_pad_multiple),
+    t_text = text_pad_to or _round_up(int(text_lens.max()),
+                                      text_pad_multiple)
+    t_mel = _round_up(mel_pad_to or _round_up(int(mel_lens.max()),
+                                              mel_pad_multiple),
                       reduction_factor)
 
     B, n_mel = len(items), items[0].mel.shape[0]
     inputs = np.zeros((B, t_text), np.int32)
     mels = np.zeros((B, n_mel, t_mel), np.float32)
     stop = np.ones((B, t_mel), np.float32)
+    spk_ids = np.zeros((B,), np.int32)
     spk_embs = np.zeros((B, items[0].spk_emb.shape[0]), np.float32)
     for b, it in enumerate(items):
         inputs[b, : len(it.phonemes)] = it.phonemes
         M = it.mel.shape[1]
         mels[b, :, :M] = it.mel
         stop[b, : M - 1] = 0.0
+        spk_ids[b] = it.speaker_id
         spk_embs[b] = it.spk_emb
     return Batch(inputs=inputs, input_lengths=text_lens, mels=mels,
-                 mel_lengths=mel_lens, spk_embs=spk_embs, stop_labels=stop)
+                 mel_lengths=mel_lens, speaker_ids=spk_ids,
+                 spk_embs=spk_embs, stop_labels=stop)

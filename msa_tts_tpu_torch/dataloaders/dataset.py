@@ -1,5 +1,12 @@
-"""Utterance items and log-mel features (the port's own copy of the parts
-of ``msa_tts_tpu/dataloaders/dataset.py`` that adaptation uses)."""
+"""Utterance items, log-mel features and the in-memory dataset (the
+port's own copy of ``msa_tts_tpu/dataloaders/dataset.py``).
+
+Every utterance's log-mel and phoneme ids are computed once, when the
+dataset is built, with the port's own audio ops (``ops/audio.py``,
+equal to the JAX package's numpy path), so that batching is padding
+and stacking only.  The JAX package can also compute the features with
+its host C++ library (``native/feats.cpp``); that library is not
+ported."""
 
 from __future__ import annotations
 
@@ -8,6 +15,13 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops import audio as A
+from ..utils.g2p import Grapheme2Phoneme
+from .metafile import (
+    SpeakerSplit,
+    Utterance,
+    load_speaker_embeddings,
+    resolve_audio_path,
+)
 
 
 @dataclass
@@ -15,6 +29,8 @@ class Item:
     phonemes: np.ndarray      # (T_text,) int32
     mel: np.ndarray           # (n_mel, T_mel) float32 log-mel
     spk_emb: np.ndarray       # (D,) float32 d-vector
+    speaker: str = ""
+    speaker_id: int = 0
 
 
 def compute_logmel(wav: np.ndarray, audio_processor: str,
@@ -28,3 +44,62 @@ def compute_logmel(wav: np.ndarray, audio_processor: str,
     else:
         raise ValueError(f"unknown audio_processor: {audio_processor}")
     return np.asarray(log_mel, dtype=np.float32)
+
+
+class TTSDataset:
+    """One split ("train"/"test") of a speaker dict, in RAM.  Speaker ids
+    follow the enumeration order of the speakers dict, as in the
+    reference."""
+
+    def __init__(self, splits: dict[str, SpeakerSplit], mode: str, *,
+                 dataset_path: str, audio_folder: str = "wavs",
+                 trim_margin_silence: bool = False,
+                 ref_level_db: float = 26, audio_processor: str = "ap",
+                 audio_params: dict, g2p: Grapheme2Phoneme | None = None,
+                 spk_emb_dict: dict | None = None):
+        self.mode = mode
+        self.audio_processor = audio_processor
+        self.audio_params = audio_params
+        g2p = g2p or Grapheme2Phoneme()
+        if spk_emb_dict is None:
+            spk_emb_dict = load_speaker_embeddings(dataset_path)
+        self.speaker_to_id = {s: i for i, s in enumerate(splits.keys())}
+        self.id_to_speaker = {i: s for s, i in self.speaker_to_id.items()}
+
+        sr = audio_params["sample_rate"]
+        self.items: list[Item] = []
+        for speaker, split in splits.items():
+            utts: list[Utterance] = getattr(split, mode)
+            for u in utts:
+                seq, _ = g2p.convert(u.phonemes, convert_mode="phone_to_idx")
+                path = resolve_audio_path(dataset_path, audio_folder,
+                                          speaker, u.filename, len(splits))
+                wav = A.load_wav(path, target_sample_rate=sr)
+                if trim_margin_silence:
+                    start, end = A.trim_margin_silence_slice(
+                        wav, ref_level_db=ref_level_db)
+                    wav = wav[start:end]
+                self.items.append(Item(
+                    phonemes=np.asarray(seq, dtype=np.int32),
+                    mel=compute_logmel(wav, audio_processor, audio_params),
+                    spk_emb=spk_emb_dict[speaker], speaker=speaker,
+                    speaker_id=self.speaker_to_id[speaker],
+                ))
+        self._by_speaker: dict[str, list[Item]] = {}
+        for it in self.items:
+            self._by_speaker.setdefault(it.speaker, []).append(it)
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, idx: int) -> Item:
+        return self.items[idx]
+
+    def items_for_speaker(self, speaker: str) -> list[Item]:
+        return self._by_speaker.get(speaker, [])
+
+    def max_text_len(self) -> int:
+        return max(len(it.phonemes) for it in self.items)
+
+    def max_mel_len(self) -> int:
+        return max(it.mel.shape[1] for it in self.items)

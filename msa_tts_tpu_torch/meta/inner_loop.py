@@ -10,10 +10,12 @@ next step's, as the JAX package threads it through its scan.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
 
+from ..ops.rnn import twice_differentiable
 from ..optim import Transform, apply_updates
 
 
@@ -30,7 +32,8 @@ def make_adapt_fn(loss_fn: Callable, inner_tx: Transform, n_steps: int, *,
     parameters.  With ``create_graph=True`` the updates keep their
     graph, so the adapted parameters can be differentiated with respect
     to the ``params`` given (second-order meta-learning); those must
-    then require grad."""
+    then require grad, and each step's forward runs under
+    ``ops.rnn.twice_differentiable``."""
 
     def adapt(params: dict, model_state: dict, batch, masks):
         if not create_graph:
@@ -39,11 +42,19 @@ def make_adapt_fn(loss_fn: Callable, inner_tx: Transform, n_steps: int, *,
         opt_state = inner_tx.init(params)
         losses = []
         for k in range(n_steps):
-            loss, new_ms = loss_fn(params, model_state, batch, masks[k])
-            grads = torch.autograd.grad(loss, list(params.values()),
-                                        create_graph=create_graph)
-            updates, opt_state = inner_tx.update(
-                dict(zip(params, grads)), opt_state, params)
+            # a second-order step's backward is differentiated again: its
+            # forward must not take cuDNN's RNN (ops/rnn.py)
+            with (twice_differentiable() if create_graph
+                  else contextlib.nullcontext()):
+                loss, new_ms = loss_fn(params, model_state, batch, masks[k])
+                grads = torch.autograd.grad(
+                    loss, list(params.values()), create_graph=create_graph,
+                    allow_unused=True)
+            # a parameter the loss does not reach (a freeze_* flag) gets
+            # a zero gradient, as under jax.grad
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(params.items(), grads)}
+            updates, opt_state = inner_tx.update(grads, opt_state, params)
             params = apply_updates(params, updates)
             if not create_graph:
                 params = {n: p.detach().requires_grad_()

@@ -82,7 +82,8 @@ def prenet_apply(prenet: Prenet, x, masks, keep: float, rnd=_same):
     an ulp off, and the error compounds through the AR feedback.
     ``rnd`` rounds each layer's input (see :func:`compute_view`)."""
     for i, layer in enumerate(prenet.layers):
-        x = torch.relu(layer(rnd(x))) / keep * masks[i]
+        # the 0/1 mask in x's type: a bfloat16 pass stays bfloat16
+        x = torch.relu(layer(rnd(x))) / keep * masks[i].to(x.dtype)
     return x
 
 

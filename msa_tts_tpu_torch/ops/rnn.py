@@ -6,11 +6,16 @@ i, f, g, o), so ``nn.LSTMCell`` and ``nn.LSTM`` hold them under the
 reference's keys.  The BiLSTM runs ``nn.LSTM`` over a packed sequence,
 which gives the semantics the JAX package reproduces by carry masking:
 the reverse direction starts at each row's last valid step and outputs
-at padded positions are zero.
+at padded positions are zero.  Under :func:`twice_differentiable` it
+runs as that masked scan in plain tensor ops instead, whose backward can
+itself be differentiated (second-order meta-learning): cuDNN's RNN
+backward, which ``nn.LSTM`` takes on a GPU, cannot.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -42,10 +47,53 @@ def lstm_cell(cell: nn.LSTMCell, x, hc):
     return o * torch.tanh(c_new), c_new
 
 
+_TWICE = contextvars.ContextVar("twice_differentiable", default=False)
+
+
+@contextlib.contextmanager
+def twice_differentiable():
+    """Within this context (of the calling thread only), :func:`bilstm`
+    runs as a masked scan of plain tensor ops, so that the backward of a
+    forward run here can be differentiated again."""
+    token = _TWICE.set(True)
+    try:
+        yield
+    finally:
+        _TWICE.reset(token)
+
+
+def _masked_lstm_scan(lstm: nn.LSTM, x, lengths, suffix: str):
+    """One direction of :func:`bilstm` as the JAX package writes it: the
+    input projection hoisted, then a step loop whose carry moves only at
+    valid positions (blended by the 0/1 validity), outputs zero at
+    padded ones; ``suffix`` ``""`` forward, ``"_reverse"`` backward."""
+    w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{n}_l0{suffix}") for n in (
+        "weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+    B, T, _ = x.shape
+    x_proj = x @ w_ih.T + b_ih + b_hh                      # (B, T, 4H)
+    valid = (torch.arange(T, device=x.device)[None, :]
+             < lengths.to(x.device)[:, None]).to(x.dtype)  # (B, T)
+    h = c = x.new_zeros(B, lstm.hidden_size)
+    out = [None] * T
+    for t in (range(T - 1, -1, -1) if suffix else range(T)):
+        i, f, g, o = (x_proj[:, t] + h @ w_hh.T).chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        v = valid[:, t, None]
+        h = v * h_new + (1.0 - v) * h
+        c = v * c_new + (1.0 - v) * c
+        out[t] = h_new * v
+    return torch.stack(out, dim=1)
+
+
 def bilstm(lstm: nn.LSTM, x, lengths):
     """Bidirectional masked LSTM: (B, T, D) → (B, T, 2H), zeros at
     padded positions.  ``lstm`` is a one-layer, batch-first,
     bidirectional ``nn.LSTM``."""
+    if _TWICE.get():
+        return torch.cat([_masked_lstm_scan(lstm, x, lengths, ""),
+                          _masked_lstm_scan(lstm, x, lengths, "_reverse")],
+                         dim=-1)
     T = x.shape[1]
     packed = pack_padded_sequence(
         x, lengths.to("cpu", torch.int64), batch_first=True,

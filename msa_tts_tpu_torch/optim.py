@@ -22,11 +22,23 @@ not used: it updates in place.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from .config import parse_optim_params
+
+
+class TrainState(NamedTuple):
+    """A trainer's state: ``params`` (name → float32 tensor, the model's
+    parameters under their ``state_dict`` names), ``model_state`` (the
+    batch norms' buffers), ``opt_state`` (the optimizer's state) and the
+    number of ``step``s taken."""
+
+    params: dict
+    model_state: dict
+    opt_state: Any
+    step: int
 
 
 class Transform(NamedTuple):

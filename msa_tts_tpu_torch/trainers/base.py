@@ -1,0 +1,346 @@
+"""Trainer base: experiment setup, the training loss, checkpoints,
+resume and failure detection (counterpart of
+``msa_tts_tpu/trainers/base.py``).
+
+The model's weights live in ``train_state.params`` (name → float32
+tensor on the trainer's device, under the reference ``state_dict``
+names) and its batch-norm buffers in ``train_state.model_state``; the
+model itself is a weightless meta-device ``Tacotron2NV`` that
+``torch.func.functional_call`` runs on them, as ``AdaptiveTTS.adapt``
+does.  Initial weights are drawn on the CPU from a ``torch.Generator``
+seeded by ``model_seed``, so every device starts from the same ones.
+
+``.ckpt`` files are the JAX package's msgpack layout: ``params`` and
+``model_state`` as its trees (``utils/convert.py``), ``opt_state`` as
+the port's optimizer states (``optim.py``: lists of per-transform
+states; for Adam ``{"count", "mu", "nu"}``) with every per-parameter
+dictionary written as the JAX params tree and every empty state as an
+empty map, which for Adam and plain SGD is optax's own layout.
+
+Read and ignored: ``compilation_cache`` (XLA's compile cache).  Raises:
+a ``parallel`` block (``NotImplementedError``: multi-device training is
+not ported), ``plot_examples: true`` (the default) without matplotlib.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..config import save_params
+from ..models.loss import tacotron2_loss
+from ..models.tacotron2nv import Tacotron2NV, config_from_params
+from ..utils.backend import load_device
+from ..utils.checkpoint import (
+    AsyncCheckpointer,
+    load_checkpoint,
+    load_partial_params,
+    restore_like,
+    save_checkpoint,
+    wait_all_checkpoints,
+)
+from ..utils.convert import jax_from_state_dict, state_dict_from_jax
+from ..utils.g2p.char_list import N_SYMBOLS
+from ..utils.logging_utils import MetricsLogger
+from ..utils.paths import PathManager
+from .train_state import TrainState, make_optimizer
+
+
+class TrainerBase:
+    def __init__(self, **params):
+        self.params = params
+        if params.get("parallel"):
+            raise NotImplementedError(
+                "parallel: multi-device training is not ported to the "
+                "PyTorch package yet (ROADMAP.md item 22)"
+            )
+        # `compilation_cache` / `compilation_cache_dir` configure XLA's
+        # compile cache; nothing here compiles, so they are ignored
+        if params.get("plot_examples", True):
+            from ..utils.plot import pyplot
+
+            pyplot()            # raises now, not after an epoch of training
+        self.device = load_device(params.get("device", "cuda"))
+        output_path = os.path.join(
+            params["output_path"], params["method"], params["experiment_name"]
+        )
+        self.path_manager = PathManager(output_path)
+        save_params(params, os.path.join(output_path, "params.yml"))
+        self.logger = MetricsLogger(
+            self.path_manager.logs_path,
+            use_tensorboard=params.get("use_tensorboard", True),
+        )
+        self.step_global = 0
+
+        self._preempt_guard = None
+        if params.get("handle_preemption", True):
+            from ..utils.preemption import PreemptionGuard
+
+            self._preempt_guard = PreemptionGuard.shared()
+        self._watchdog = None
+        self._async_ckpt = None
+
+        self._init_dataloaders()
+        self._init_model()
+        self._init_criterion_optimizer()
+        if params.get("finetune", False):
+            self._load_finetune_checkpoint()
+
+    # ------------------------------------------------------------ setup
+    def _init_dataloaders(self):  # overridden by subclasses
+        raise NotImplementedError
+
+    def _num_speakers(self) -> int:
+        raise NotImplementedError
+
+    def _init_model(self):
+        params = self.params
+        mp = dict(params["model"])
+        mp["num_speakers"] = self._num_speakers()
+        mp["n_symbols"] = N_SYMBOLS
+        mp["n_mel_channels"] = params["audio_params"]["n_mels"]
+        for k in ("freeze_charemb", "freeze_encoder", "freeze_decoder"):
+            mp[k] = params.get(k, False)
+        params["model"] = mp
+        self.model_name = params.get("model_name", "Tacotron2NV")
+        if self.model_name != "Tacotron2NV":
+            raise NotImplementedError(self.model_name)
+        self.speaker_emb_type = mp["speaker_emb_type"]
+        self.cfg = config_from_params(mp)
+        gen = torch.Generator().manual_seed(int(params.get("model_seed", 0)))
+        sd = Tacotron2NV(self.cfg, generator=gen).state_dict()
+        with torch.device("meta"):
+            self.model = Tacotron2NV(self.cfg)
+        self.param_names = [k for k, _ in self.model.named_parameters()]
+        self.model_params = {k: sd[k].to(self.device)
+                             for k in self.param_names}
+        self.model_state = {k: v.to(self.device) for k, v in sd.items()
+                            if k not in self.model_params}
+
+    def _init_criterion_optimizer(self):
+        params = self.params
+        crit = params["criterion"]
+        if crit.get("criterion_type", "Tacotron2Loss") != "Tacotron2Loss":
+            raise RuntimeError(f"Criterion {crit} not defined.")
+        self.loss_kwargs = dict(
+            n_frames_per_step=self.cfg.n_frames_per_step,
+            reduction=crit.get("reduction", "none"),
+            pos_weight=float(crit.get("pos_weight", 1.0)),
+        )
+        self.tx = make_optimizer(params["optim"])
+        self.inner_optim_cfg = params.get(
+            "optim_inner", {"optimizer_type": "SGD", "lr": 1e-2}
+        )
+        self.train_state = TrainState(
+            params=self.model_params, model_state=self.model_state,
+            opt_state=self.tx.init(self.model_params), step=0,
+        )
+
+    # ------------------------------------------------------------- loss
+    def _compute_dtype(self):
+        dtype = self.params.get("compute_dtype")
+        return torch.bfloat16 if dtype in ("bfloat16", "bf16") else None
+
+    def _loss_for_batch(self, params: dict, model_state: dict, batch: dict,
+                        masks: dict):
+        """The training loss of one teacher-forced pass on the dropout
+        ``masks``: ``(loss, (outputs, new_model_state))``.
+
+        With ``compute_dtype: bfloat16`` the parameters, the batch-norm
+        state, the mels and the speaker vectors are cast to bfloat16
+        inside the differentiated graph, so gradients land on the
+        float32 parameters; outputs, loss and the new state are float32,
+        and the loss's target is the mel as given."""
+        target_mels = batch["melspecs"]
+        dt = self._compute_dtype()
+        ms = model_state
+        if dt is not None:
+            def cast(d):
+                return {k: v.to(dt) if v.dtype == torch.float32 else v
+                        for k, v in d.items()}
+
+            params, ms = cast(params), cast(model_state)
+            batch = dict(batch)
+            for k in ("melspecs", "speaker_vecs"):
+                if batch[k].dtype == torch.float32:
+                    batch[k] = batch[k].to(dt)
+        outs, new_state = torch.func.functional_call(
+            self.model, {**params, **ms},
+            (batch["inputs"], batch["input_lengths"], batch["melspecs"],
+             batch["melspec_lengths"], batch["speaker_vecs"], masks))
+        outs = [o.float() for o in outs]
+        new_state = {**model_state,
+                     **{k: v.float() for k, v in new_state.items()}}
+        loss = tacotron2_loss(
+            outs, (target_mels.float(), batch["stop_labels"]),
+            batch["melspec_lengths"], **self.loss_kwargs)
+        return loss, (outs, new_state)
+
+    # ------------------------------------------------------ checkpoints
+    def _to_trees(self, params: dict, model_state: dict):
+        """``(params, model_state)`` as the JAX package's trees."""
+        return jax_from_state_dict({**params, **model_state}, self.cfg)
+
+    def _params_tree(self, d: dict) -> dict:
+        """A dictionary keyed by the parameter names (gradients, Adam's
+        moments) as the JAX params tree."""
+        return jax_from_state_dict({**d, **self.model_state}, self.cfg)[0]
+
+    def _opt_to_tree(self, state):
+        """The optimizer state as a checkpoint writes it: per-parameter
+        dictionaries as the JAX params tree, empty states as ``{}``."""
+        if state is None:
+            return {}
+        if isinstance(state, dict):
+            if state.keys() == set(self.param_names):
+                return self._params_tree(state)
+            return {k: self._opt_to_tree(v) for k, v in state.items()}
+        if isinstance(state, (list, tuple)):
+            return [self._opt_to_tree(v) for v in state]
+        return state
+
+    def _opt_from_tree(self, template, raw, state_tree):
+        """The inverse of :meth:`_opt_to_tree`, in ``template``'s
+        structure, types and device (``state_tree``: the checkpoint's
+        ``model_state``, which the key mapping reads alongside)."""
+        if isinstance(template, dict):
+            if template.keys() == set(self.param_names):
+                return restore_like(template, state_dict_from_jax(
+                    raw, state_tree, self.cfg))
+            return {k: self._opt_from_tree(v, raw[k], state_tree)
+                    for k, v in template.items()}
+        if isinstance(template, (list, tuple)):
+            return type(template)(
+                self._opt_from_tree(v, raw[str(i)], state_tree)
+                for i, v in enumerate(template))
+        return restore_like(template, raw)
+
+    def _ckpt_payload(self) -> dict:
+        ts = self.train_state
+        params, model_state = self._to_trees(ts.params, ts.model_state)
+        return {"params": params, "model_state": model_state,
+                "opt_state": self._opt_to_tree(ts.opt_state),
+                "step": self.step_global}
+
+    def _save_checkpoint(self, name: str | None = None) -> str:
+        if name is None:
+            name = f"checkpoint_{self.step_global // 100}.ckpt"
+        path = os.path.join(self.path_manager.checkpoints_path, name)
+        save_checkpoint(path, self._ckpt_payload())
+        return path
+
+    def _state_dict_from_raw(self, raw: dict) -> dict:
+        return state_dict_from_jax(raw["params"], raw["model_state"],
+                                   self.cfg)
+
+    def _load_finetune_checkpoint(self):
+        """Start from ``finetune_checkpoint_path``: a ``.ckpt`` of either
+        package or a reference ``.pt`` ``state_dict``; parameters load
+        one by one (a missing name or another shape keeps the current
+        value), the batch-norm statistics with them."""
+        path = self.params["finetune_checkpoint_path"]
+        print(f"Loading checkpoint from  {path}")
+        if path.endswith(".pt"):
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+        else:
+            sd = self._state_dict_from_raw(load_checkpoint(path))
+        ts = self.train_state
+        self.train_state = ts._replace(
+            params=load_partial_params(ts.params, sd),
+            model_state=restore_like(
+                ts.model_state, {k: sd[k] for k in ts.model_state}),
+        )
+
+    # ------------------------------------------------- preemption resume
+    # Epoch-granular auto-resume: the full state and the epoch counter in
+    # one atomic file at every checkpoint interval; `resume: true` skips
+    # the completed epochs while replaying their data draws, so the rest
+    # of the run sees what an unbroken run would.
+
+    _AUTO_CKPT = "auto_resume.ckpt"
+
+    def _save_epoch_state(self, epoch: int, extra: dict | None = None):
+        resume_state = {"epoch": epoch, "step_global": self.step_global}
+        resume_state.update(extra or {})
+        payload = dict(self._ckpt_payload(), resume_state=resume_state)
+        path = os.path.join(self.path_manager.checkpoints_path,
+                            self._AUTO_CKPT)
+        if self.params.get("async_checkpoint", True):
+            if self._async_ckpt is None:
+                self._async_ckpt = AsyncCheckpointer()
+            self._async_ckpt.save(path, payload)
+        else:
+            save_checkpoint(path, payload)
+
+    def _finish_checkpoints(self):
+        """Drain pending writes and stop the writer thread."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.close()
+            self._async_ckpt = None
+
+    def _try_resume_epoch(self):
+        """``(completed_epochs, resume_state | None)``."""
+        if not self.params.get("resume", False):
+            return 0, None
+        wait_all_checkpoints()
+        path = os.path.join(self.path_manager.checkpoints_path,
+                            self._AUTO_CKPT)
+        if not os.path.exists(path):
+            print("resume requested but no auto-resume state found; "
+                  "starting fresh")
+            return 0, None
+        raw = load_checkpoint(path)
+        d = raw["resume_state"]
+        self.restore_raw(raw)
+        self.step_global = int(d["step_global"])
+        print(f"Resuming after epoch {d['epoch']} (step {self.step_global})")
+        return int(d["epoch"]), d
+
+    def restore(self, path: str):
+        """Full-fidelity resume (parameters, optimizer, step)."""
+        self.restore_raw(load_checkpoint(path))
+
+    def restore_raw(self, raw: dict):
+        sd = self._state_dict_from_raw(raw)
+        ts = self.train_state
+        self.train_state = TrainState(
+            params=restore_like(ts.params, sd),
+            model_state=restore_like(ts.model_state, sd),
+            opt_state=self._opt_from_tree(ts.opt_state, raw["opt_state"],
+                                          raw["model_state"]),
+            step=int(raw["step"]),
+        )
+        self.step_global = int(raw["step"])
+
+    # ------------------------------------------------ failure detection
+    def _preempt_requested(self) -> bool:
+        return (self._preempt_guard is not None
+                and self._preempt_guard.should_stop)
+
+    def _start_watchdog(self):
+        """Arm the stall watchdog when ``stall_timeout_s`` is set."""
+        timeout = self.params.get("stall_timeout_s")
+        if timeout:
+            from ..utils.preemption import StallWatchdog
+
+            self._watchdog = StallWatchdog(
+                float(timeout),
+                dump_path=os.path.join(self.path_manager.logs_path,
+                                       "stall_dump.txt"),
+            ).start()
+
+    def _heartbeat(self):
+        if self._watchdog is not None:
+            self._watchdog.beat()
+
+    def _stop_watchdog(self):
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+
+    # ---------------------------------------------------------- logging
+    def log_writer(self, logs: dict):
+        """``logs``: ``{tag: (value, step)}``, to the JSON-lines log (and
+        TensorBoard where it is installed and asked for)."""
+        self.logger.log_scalars(logs)

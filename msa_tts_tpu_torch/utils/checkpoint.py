@@ -9,13 +9,19 @@ name, C-order bytes)`` triple), numpy scalars as ext type 3 (the same
 triple of a 0-d array) and arrays over 1 GiB split into chunks.  This
 module encodes and decodes that subset of msgpack by hand.  Arrays load
 as numpy arrays (bfloat16 ones widened to float32), scalars as numpy
-scalars.
+scalars.  Writes are atomic (``.tmp``, then a rename);
+:class:`AsyncCheckpointer` copies a payload to the host at once and
+writes it on a thread; :func:`restore_like` puts a decoded tree back
+into a template's structure and tensors.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import struct
+import threading
+import weakref
 from typing import Any
 
 import numpy as np
@@ -278,3 +284,123 @@ def save_checkpoint(path: str, payload: dict) -> None:
 def load_checkpoint(path: str) -> dict:
     with open(path, "rb") as f:
         return deserialize_payload(f.read())
+
+
+def _host_copy(tree):
+    """A snapshot of a payload tree on the host: every tensor copied to a
+    numpy array now, so that later in-place updates of the tensors do
+    not reach a write that is still pending."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_copy(v) for v in tree]
+    if hasattr(tree, "detach"):
+        return tree.detach().to("cpu", copy=True).numpy()
+    return tree
+
+
+def restore_like(template, restored):
+    """``restored`` (a decoded tree: sequences as ``{"0": ...}`` maps) in
+    the structure of ``template``: dicts by key, lists and tuples by
+    index, tensors in the template tensor's type and device, None where
+    the template has None (the file holds an empty map there)."""
+    import torch
+
+    if template is None:
+        return None
+    if isinstance(template, torch.Tensor):
+        return torch.as_tensor(np.asarray(restored), dtype=template.dtype,
+                               device=template.device)
+    if isinstance(template, dict):
+        missing = [k for k in template if k not in restored]
+        if missing:
+            raise KeyError(f"checkpoint lacks {missing}")
+        return {k: restore_like(v, restored[k]) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        items = [restore_like(v, restored[str(i)])
+                 for i, v in enumerate(template)]
+        return (type(template)(*items) if hasattr(template, "_fields")
+                else type(template)(items))
+    if isinstance(template, np.ndarray):
+        return np.asarray(restored, dtype=template.dtype)
+    return type(template)(restored)
+
+
+def load_partial_params(params: dict, ckpt_params: dict, *,
+                        verbose: bool = True) -> dict:
+    """Parameter-by-parameter load that keeps the current value where the
+    checkpoint lacks a name or its shape differs (the reference's
+    finetuning behaviour)."""
+    import torch
+
+    out = {}
+    for name, value in params.items():
+        new = ckpt_params.get(name)
+        if new is not None and tuple(new.shape) == tuple(value.shape):
+            out[name] = torch.as_tensor(new, dtype=value.dtype,
+                                        device=value.device)
+        else:
+            if verbose:
+                print(f"Could not load weights for {name}")
+            out[name] = value
+    return out
+
+
+_LIVE_CHECKPOINTERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def wait_all_checkpoints() -> None:
+    """Drain every live :class:`AsyncCheckpointer`: call before reading
+    files that a trainer in this process may still be writing."""
+    for c in list(_LIVE_CHECKPOINTERS):
+        c.wait()
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: ``save`` copies the payload to the
+    host at once (the trainer updates its tensors in place afterwards),
+    and a worker thread encodes and writes it (``.tmp``, then an atomic
+    rename).  Writes are FIFO on one worker; a worker's error is raised
+    by the next ``save`` or ``wait``."""
+
+    def __init__(self):
+        self._q: queue.Queue = queue.Queue()
+        self._error: BaseException | None = None
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                         name="async-checkpoint")
+        self._thread.start()
+        _LIVE_CHECKPOINTERS.add(self)
+
+    def _loop(self):
+        while True:
+            fn = self._q.get()
+            if fn is None:
+                self._q.task_done()
+                return
+            try:
+                fn()
+            except BaseException as e:  # re-raised by the next save/wait
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _check(self):
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, path: str, payload: dict) -> None:
+        """Snapshot ``payload`` to the host now; encode and write later."""
+        self._check()
+        host = _host_copy(payload)
+        self._q.put(lambda: save_checkpoint(path, host))
+
+    def wait(self) -> None:
+        """Block until every pending write has landed; raise its error."""
+        self._q.join()
+        self._check()
+
+    def close(self) -> None:
+        self.wait()
+        self._q.put(None)
+        self._thread.join()

@@ -328,8 +328,9 @@ def test_clip_by_global_norm_matches_jax(max_norm):
 
 def test_collate_matches_jax():
     """Sorted by text length (longest first), text padded to a multiple
-    of 16 (or none), mels to one of 32 (or none) then the reduction
-    factor, stop labels: byte for byte."""
+    of 16 (or none, or a fixed width), mels to one of 32 (or none, or a
+    fixed width) then the reduction factor, speaker ids, stop labels:
+    byte for byte."""
     rng = np.random.default_rng(0)
     specs = [(7, 40), (19, 33), (3, 61), (12, 8)]
     fields = [dict(phonemes=rng.integers(1, 90, n).astype(np.int32),
@@ -338,14 +339,16 @@ def test_collate_matches_jax():
               for n, m in specs]
     for kw in (dict(reduction_factor=2, text_pad_multiple=16,
                     mel_pad_multiple=32),
-               dict(reduction_factor=3)):
+               dict(reduction_factor=3),
+               dict(reduction_factor=2, text_pad_to=32, mel_pad_to=80)):
         ref = jax_collate([JaxItem(item_id=f"u{i}", speaker="s",
                                    speaker_id=i, duration=1.0, **f)
                            for i, f in enumerate(fields)], **kw)
-        out = collate([Item(**f) for f in fields], **kw)
+        out = collate([Item(speaker_id=i, **f)
+                       for i, f in enumerate(fields)], **kw)
         assert ref.item_ids == ("u1", "u3", "u0", "u2")
         assert out._fields == tuple(n for n in ref._fields
-                                    if n not in ("item_ids", "speaker_ids"))
+                                    if n != "item_ids")
         for name in out._fields:
             a, b = getattr(out, name), getattr(ref, name)
             assert a.dtype == b.dtype and a.shape == b.shape, name

@@ -936,3 +936,158 @@ def test_adapted_voice_through_the_decoder_kernels(device, tmp_path):
     assert CD.SEG_LAUNCHES == before + 5           # ceil(24 / 5)
     assert streamed.shape == mel.shape
     assert np.abs(streamed - mel).max() <= 1e-4
+
+
+# ---------------------------------------------------------------------
+# MAML meta-steps on the card (meta/maml.py make_maml_step)
+# ---------------------------------------------------------------------
+# Second order on the card runs the encoder's BiLSTM as a masked scan of
+# plain tensor ops (ops/rnn.py twice_differentiable): cuDNN's RNN
+# backward cannot be differentiated again.  The tiny model's meta-step,
+# card against CPU, float32 (TF32 off), 2 tasks x 2 shots, 2 inner SGD
+# steps, an outer SGD step of lr 1 (the new weights carry the meta-
+# gradient itself).  Limits set from the readings on an NVIDIA H100 80GB
+# HBM3 (700 W), no looser than 4x the larger of the two orders': new
+# weights 6.3e-7 / 5.1e-7 absolute (the step moved them by up to 0.68),
+# statistics 3.5e-7 / 3.0e-7 relative to each tensor's largest value,
+# the loss 1.2e-7 / 0 and the gradient norm 1.9e-7 / 0 relative.
+MAML_CUDA_TOL = {"weights": 2.5e-6, "statistics": 1.3e-6, "loss": 4.9e-7,
+                 "grad_norm": 7.6e-7}
+
+
+def _meta_model(width: str):
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        config_from_params,
+    )
+    from msa_tts_tpu_torch.serving import N_SYMBOLS
+
+    if width == "tiny":
+        mp = _tiny_tts("cpu").params["model"]
+        mp = dict(mp, decoder_no_early_stopping=False, mask_padding=True)
+    else:
+        from chip_smoke import SHIPPED_AUDIO, SHIPPED_MODEL
+
+        mp = dict(SHIPPED_MODEL, n_symbols=N_SYMBOLS, num_speakers=1,
+                  n_mel_channels=SHIPPED_AUDIO["n_mels"])
+    cfg = config_from_params(mp)
+    return cfg, Tacotron2NV(cfg, generator=torch.Generator().manual_seed(3))
+
+
+def _meta_episode(cfg, K, B, T_in, T_mel, seed):
+    """K tasks of B padded utterances with ragged lengths, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    il = torch.tensor([[T_in - 2 * b - k for b in range(B)]
+                       for k in range(K)])
+    ml = torch.tensor([[T_mel - 3 * b - 2 * k for b in range(B)]
+                       for k in range(K)])
+    inputs = torch.randint(1, 50, (K, B, T_in), generator=g)
+    mels = torch.randn(K, B, cfg.n_mel_channels, T_mel, generator=g)
+    t = torch.arange(T_mel)
+    inputs = inputs * (torch.arange(T_in) < il[..., None])
+    mels = mels * (t < ml[..., None])[:, :, None, :]
+    stop = (t >= ml[..., None] - 1).float()
+    spk = torch.randn(K, 1, cfg.speaker_embedding_dim,
+                      generator=g).expand(K, B, -1).contiguous()
+    return dict(inputs=inputs, input_lengths=il, melspecs=mels,
+                melspec_lengths=ml, speaker_vecs=spk, stop_labels=stop)
+
+
+def _meta_step(model, cfg, device, second_order, episode, masks, n_inner):
+    from msa_tts_tpu_torch import optim as TO
+    from msa_tts_tpu_torch.meta.maml import make_maml_step
+    from msa_tts_tpu_torch.models.loss import tacotron2_loss
+
+    with torch.device("meta"):
+        template = type(model)(cfg)
+
+    def loss_fn(p, ms, b, m):
+        outs, new_ms = torch.func.functional_call(
+            template, {**p, **ms}, (b["inputs"], b["input_lengths"],
+                                    b["melspecs"], b["melspec_lengths"],
+                                    b["speaker_vecs"], m))
+        return (tacotron2_loss(outs, (b["melspecs"], b["stop_labels"]),
+                               b["melspec_lengths"], n_frames_per_step=2,
+                               pos_weight=6.0), {**ms, **new_ms})
+
+    def to(x):
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to(v) for v in x]
+        return x.to(device)
+
+    names = [k for k, _ in model.named_parameters()]
+    sd = model.state_dict()
+    params = {k: sd[k].to(device) for k in names}
+    state = {k: v.to(device) for k, v in sd.items() if k not in params}
+    outer = TO.make_optimizer({"optimizer_type": "SGD", "lr": 1.0})
+    step = make_maml_step(loss_fn, TO.make_optimizer(
+        {"optimizer_type": "SGD", "lr": 1e-2}), outer, n_inner,
+        second_order=second_order, clip_thresh=None)
+    return params, step(TO.TrainState(params, state, outer.init(params), 0),
+                        to(episode[0]), to(episode[1]), to(masks))
+
+
+@pytest.mark.parametrize("second_order", [True, False],
+                         ids=["second_order", "first_order"])
+def test_meta_step_on_the_card_matches_cpu(device, second_order):
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+
+    cfg, model = _meta_model("tiny")
+    K, B, T_in, T_mel, n_inner = 2, 2, 9, 12, 2
+    ep = (_meta_episode(cfg, K, B, T_in, T_mel, 0),
+          _meta_episode(cfg, K, B, T_in, T_mel, 1))
+    g = torch.Generator().manual_seed(4)
+    masks = [[dropout_masks(cfg, B, T_in, T_mel, g, device="cpu")
+              for _ in range(n_inner + 1)] for _ in range(K)]
+    _, (card, mc) = _meta_step(model, cfg, device, second_order, ep, masks,
+                               n_inner)
+    p0, (ref, mr) = _meta_step(model, cfg, "cpu", second_order, ep, masks,
+                               n_inner)
+    read = {
+        "weights": max(float((card.params[k].cpu() - v).abs().max())
+                       for k, v in ref.params.items()),
+        "statistics": max(float((card.model_state[k].cpu() - v).abs().max()
+                                / v.abs().max())
+                          for k, v in ref.model_state.items()
+                          if "running" in k),
+        "loss": abs(float(mc.loss) - float(mr.loss)) / float(mr.loss),
+        "grad_norm": (abs(float(mc.grad_norm) - float(mr.grad_norm))
+                      / float(mr.grad_norm)),
+    }
+    moved = max(float((v - p0[k]).abs().max()) for k, v in ref.params.items())
+    print(f"meta-step card vs CPU ({'second' if second_order else 'first'}"
+          f" order): {read}; the step moved weights by up to {moved:.3e}")
+    assert moved > 1e-2
+    for key, lim in MAML_CUDA_TOL.items():
+        assert lim is None or read[key] <= lim, (key, read[key], lim)
+
+
+def test_meta_step_at_the_shipped_width(device):
+    """One second-order meta-step at the width of examples/maml/params.yml
+    (2 tasks x 2 shots, T_in 32, T_mel 64, one inner step): it runs on the
+    card (cuDNN's RNN is not in its double backward), every new weight is
+    finite, the step moved them and the batch-norm statistics."""
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+
+    cfg, model = _meta_model("shipped")
+    K, B, T_in, T_mel = 2, 2, 32, 64
+    ep = (_meta_episode(cfg, K, B, T_in, T_mel, 0),
+          _meta_episode(cfg, K, B, T_in, T_mel, 1))
+    g = torch.Generator(device=device).manual_seed(4)
+    masks = [[dropout_masks(cfg, B, T_in, T_mel, g, device=device)
+              for _ in range(2)] for _ in range(K)]
+    torch.cuda.reset_peak_memory_stats(device)
+    p0, (new, m) = _meta_step(model, cfg, device, True, ep, masks, 1)
+    print(f"shipped-width meta-step: loss {float(m.loss):.4f}, grad norm "
+          f"{float(m.grad_norm):.4f}, peak "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    assert torch.isfinite(m.loss) and torch.isfinite(m.grad_norm)
+    assert all(torch.isfinite(v).all() for v in new.params.values())
+    assert max(float((v - p0[k]).abs().max())
+               for k, v in new.params.items()) > 1e-3
+    assert not torch.equal(
+        new.model_state["postnet.convolutions.0.1.running_mean"],
+        model.state_dict()["postnet.convolutions.0.1.running_mean"].to(
+            device))

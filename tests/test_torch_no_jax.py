@@ -4,8 +4,9 @@ every ``msa_tts_tpu_torch`` module imports (serving, stream_mux and
 server among them), the tiny CPU slice runs from text to a wav file
 (once more with ``infer_dtype: bfloat16``), a voice is adapted from two
 clips, saved, loaded and served, one stream and one multiplexed stream
-run to their end, and an attached WaveRNN and HiFi-GAN each vocode a
-request."""
+run to their end, an attached WaveRNN and HiFi-GAN each vocode a
+request, and the MAML trainer takes two second-order steps on a
+synthetic corpus and its checkpoint serves."""
 
 import os
 import subprocess
@@ -109,6 +110,24 @@ for voc, want in (("wavernn", (n_frames - 1) * 128), ("hifigan", n_frames * 128)
     assert w.shape == (want,) and np.isfinite(w).all(), (voc, w.shape)
 assert server.TTSServer(tts, default_spk_emb=emb).servable_vocoders() == {
     "griffinlim", "wavernn", "hifigan"}
+from msa_tts_tpu_torch.dataloaders.synthetic import (
+    make_synthetic_corpus, synthetic_params)
+from msa_tts_tpu_torch.trainers.maml import MAML
+make_synthetic_corpus("corpus", n_speakers=2, utterances_per_speaker=4,
+                      min_dur=0.2, max_dur=0.3, spk_emb_dim=8)
+mp = dict(mp, mask_padding=True)
+params = synthetic_params("corpus", n_speakers=2, batch_size=2,
+                          model_overrides=mp)
+params.update(method="maml", output_path="out", device="cpu", n_epochs=2,
+              audio_params=dict(audio, hop_length=256, n_fft=1024,
+                                win_length=1024),
+              use_tensorboard=False, plot_examples=False, n_inner_test=1,
+              metatest_epoch_interval=2)
+trainer = MAML(**params)
+trainer.run()
+assert trainer.step_global == 2
+served = AdaptiveTTS.from_experiment("out/maml/synthetic", device="cpu")
+assert np.isfinite(served.synthesize("hello", spk_emb=emb)).all()
 for blocked in ("jax", "msa_tts_tpu"):
     bad = sorted(m for m in sys.modules
                  if m == blocked or m.startswith(blocked + "."))
@@ -120,6 +139,7 @@ print("modules", len(names))
 def test_port_imports_and_runs_without_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "MSA_PLATFORM"}
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"     # tiny ops; workers run side by side
     out = tmp_path / "hello.wav"
     res = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(out)], capture_output=True,

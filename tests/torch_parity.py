@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
 
 BASE_AP = {
     "attention_type": "ForwardAttention",
@@ -189,3 +190,88 @@ def jax_metatest_masks(rng, jcfg, n_inner: int, B: int, T_in: int,
     k_adapt, k_query = jax.random.split(rng)
     keys = list(jax.random.split(k_adapt, n_inner)) + [k_query]
     return [jax_forward_masks(k, jcfg, B, T_in, T_mel) for k in keys]
+
+
+# ------------------------------------------------------- meta-training
+
+def jax_trainer_masks(train_seed: int, jcfg, phase: str, epoch: int,
+                      itr_b: int, n_tasks: int, n_pass: int, B: int,
+                      T_in: int, T_mel: int) -> list:
+    """Every dropout mask the JAX package's MAML trainer draws for one
+    meta-batch, ``[task][pass]``, for the port trainer's ``_draw_masks``:
+    ``split(rng, 3)`` per epoch into ``(rng, k_train, k_meta)`` from
+    ``PRNGKey(train_seed)``; a step's key ``fold_in(k_train, itr_b)``
+    (meta-test: ``k_meta``) split per task, each task's passes as
+    :func:`jax_metatest_masks` draws them; a meta-test task's last pass
+    is the forward its MCD is read from, under the task's key itself."""
+    rng = jax.random.PRNGKey(train_seed)
+    for _ in range(epoch):
+        rng, k_train, k_meta = jax.random.split(rng, 3)
+    base = k_train if phase == "train" else k_meta
+    keys = jax.random.split(jax.random.fold_in(base, itr_b), n_tasks)
+    if phase == "train":
+        return [jax_metatest_masks(k, jcfg, n_pass - 1, B, T_in, T_mel)
+                for k in keys]
+    return [jax_metatest_masks(k, jcfg, n_pass - 2, B, T_in, T_mel)
+            + [jax_forward_masks(k, jcfg, B, T_in, T_mel)] for k in keys]
+
+
+def jax_serve_masks(tts) -> np.ndarray:
+    """The prenet masks the JAX package's ``synthesize`` draws under its
+    default key, for the port's ``synthesize(..., pre_masks=...)``."""
+    from msa_tts_tpu.models.pallas_decoder import _prenet_masks
+
+    dcfg = tts.cfg.decoder_config()
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 2)
+    return np.array(_prenet_masks(dcfg, key, dcfg.max_decoder_steps, 1))
+
+
+TINY_AUDIO = {"n_fft": 1024, "win_length": 1024, "hop_length": 256,
+              "n_mels": 10, "sample_rate": 22050, "f_min": 0.0,
+              "f_max": 8000.0, "n_mfcc": 13, "griffinlim_iters": 4}
+
+
+def tiny_corpus(root: str, n_speakers: int = 2) -> str:
+    """A synthetic corpus for the tiny model (8-dim d-vectors, 5 clips of
+    0.25-0.4 s per speaker); returns ``root``."""
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+
+    make_synthetic_corpus(root, n_speakers=n_speakers,
+                          utterances_per_speaker=5, min_dur=0.25,
+                          max_dur=0.4, spk_emb_dim=8, seed=4)
+    return root
+
+
+def tiny_maml_params(root: str, out: str, **over) -> dict:
+    """The tiny MAML experiment on :func:`tiny_corpus`: the model of
+    :data:`TINY_MODEL` (mask_padding on), 2 tasks a meta-batch (one step
+    an epoch with 2 speakers), 2 shots, one second-order inner step, a
+    meta-test of one step after epoch 2, SGD outer steps, the clip on."""
+    from msa_tts_tpu_torch.dataloaders.synthetic import synthetic_params
+
+    p = synthetic_params(root, n_speakers=2, batch_size=2,
+                         model_overrides=model_dict(mask_padding=True))
+    p.update(
+        method="maml", experiment_name="tiny", output_path=out,
+        audio_params=dict(TINY_AUDIO), n_epochs=2, meta_batch_size=2,
+        n_inner_train=1, n_inner_test=1, track_higher_grads=True,
+        metatest_epoch_interval=2, ckpt_save_epoch_interval=1,
+        use_tensorboard=False, plot_examples=False, train_seed=3,
+        optim_outer={"optimizer_type": "SGD", "lr": "1e-2"},
+        grad_clip_thresh=5.0, maml_remat=False,
+    )
+    p.update(over)
+    return p
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side of a module on one CPU thread (restored after):
+    the tiny model's ops are too small to share, and test workers running
+    side by side otherwise oversubscribe the cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

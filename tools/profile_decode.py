@@ -5,6 +5,7 @@ of examples/maml/params.yml with seeded random weights.
     python3 tools/profile_decode.py [--infer-dtype bfloat16]
         [--out build/profile_decode.json]
     python3 tools/profile_decode.py --adapt [--out ...]
+    python3 tools/profile_decode.py --maml [--out ...]
 
 Three readings, at B = 1 and B = 4, in float32 or (``--infer-dtype
 bfloat16``) with the model served in bfloat16:
@@ -22,7 +23,10 @@ bfloat16``) with the model served in bfloat16:
 ``--adapt`` takes one reading instead: one warm ``AdaptiveTTS.adapt``
 (chip_smoke phase 11's four clips, the shipped loss, 5 SGD steps and the
 query pass, float32) under ``torch.profiler``: its wall time, device
-events and the device's busy share.
+events and the device's busy share.  ``--maml`` does the same for one
+warm MAML meta-step of chip_smoke phase 12 (examples/maml/params.yml at
+full width: second order, bfloat16 compute, 4 tasks x 8 shots of the
+synthetic corpus), with the step's device time by kernel name.
 
 Every decode runs all 500 steps (random weights would stop at once).
 Prints a summary and writes the numbers as JSON to ``--out``.
@@ -261,6 +265,51 @@ def adapt_busy(device):
     return res
 
 
+def maml_busy(device, n_top: int = 12):
+    """The ``--maml`` reading: one warm meta-step under the profiler."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from chip_smoke import SHIPPED_MODEL, maml_params
+    from msa_tts_tpu_torch.dataloaders.loader_meta import unpack_task_batch
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+    from msa_tts_tpu_torch.trainers.maml import MAML
+
+    tmp = tempfile.mkdtemp(prefix="profile_maml_")
+    try:
+        corpus = f"{tmp}/corpus"
+        make_synthetic_corpus(corpus, n_speakers=4, utterances_per_speaker=12,
+                              seed=0, spk_emb_dim=SHIPPED_MODEL[
+                                  "speaker_embedding_dim"])
+        t = MAML(**maml_params(corpus, f"{tmp}/out"))
+        episodes = list(t.dataloader_metatrain.iter_stacked())
+        _, sup, qry = episodes[0]
+        sup = unpack_task_batch(sup, t.speaker_emb_type, device)
+        qry = unpack_task_batch(qry, t.speaker_emb_type, device)
+        K = sup["inputs"].shape[0]
+
+        def step(i):
+            masks = t._draw_masks("train", 1, i, K, t.n_inner_train + 1, sup)
+            t.train_state, _ = t._maml_step(t.train_state, sup, qry, masks)
+
+        step(0)                                                 # warm
+        torch.cuda.synchronize()
+        res, events = device_busy(lambda: step(1), "meta_step")
+        by_name: dict = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.elapsed_us() / 1e3)
+        res["top_kernels_ms"] = dict(sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:n_top])
+        res["frames"] = int(sup["melspec_lengths"].sum()
+                            + qry["melspec_lengths"].sum())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -272,6 +321,8 @@ def main() -> int:
                     choices=("float32", "bfloat16"))
     ap.add_argument("--adapt", action="store_true",
                     help="profile one adapt call instead")
+    ap.add_argument("--maml", action="store_true",
+                    help="profile one MAML meta-step instead")
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "profile_decode.json"))
     args = ap.parse_args()
@@ -284,6 +335,11 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gpu = _gpu_line()
     print(gpu)
+    if args.maml:
+        res = {"gpu": gpu, "maml": maml_busy(device)}
+        print(f"MAML meta-step under torch.profiler: {res['maml']}")
+        _write(args.out, res)
+        return 0
     if args.adapt:
         res = {"gpu": gpu, "adapt": adapt_busy(device)}
         print(f"adapt under torch.profiler: {res['adapt']}")
