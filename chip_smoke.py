@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA GPU.
+"""Drive the PyTorch port's serving and training paths once on one CUDA
+GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only 12,13]
+
+(``--only``: phase 1, then only the training phases named.)
 
 Phases (any failure exits non-zero):
   1. require CUDA, build the hand-written kernels from the sources in
@@ -54,7 +57,20 @@ Phases (any failure exits non-zero):
      against the unbroken run; one float32 meta-step, second and first
      order, on the card against the CPU; and the trained checkpoint
      (``from_experiment``) served through the whole-loop kernel (float32
-     and bfloat16) and the segment kernel against the plain decode.
+     and bfloat16) and the segment kernel against the plain decode;
+ 13. train at that width through the entry points of the joint trainer
+     (``trainers.baseline.main``, 2 epochs of examples/baseline/params.yml
+     with a meta-test), Reptile (2 sequential meta-steps, 1 batched) and
+     the continual streams (EWC and ER-KD of 3 speakers; ER, ER-reg and
+     cumulative of 2), each examples/<method>/params.yml with only data
+     and run length changed (TRAIN_REDUCED): step times, mel frames per
+     second, peak device memory, the joint step's device busy share under
+     ``torch.profiler``, each task's and the Fisher's time; the joint run
+     resumed from epoch 1 and the EWC stream from task 2, each equal bit
+     for bit to its unbroken run; one float32 joint and one EWC step on
+     the card against the CPU; and the joint checkpoint and the last EWC
+     checkpoint served through the whole-loop kernel (float32 and
+     bfloat16) and the segment kernel against the plain decode.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -62,7 +78,8 @@ the line before it lists each kernel with its launches on its main
 path (phase 3 for the whole loop, phase 5 for the segments, phase 9 for
 the sample loop, phase 10's scan for the cell; the decoder kernels'
 ``adapted_voice_launches`` are phase 11's, ``trained_checkpoint_launches``
-phase 12's), its error against the
+phase 12's, ``joint_`` and ``ewc_checkpoint_launches`` phase 13's), its
+error against the
 plain version, both times, and the least time the card could take for
 the same work (``bound_ms``: the larger of bytes over 3.35 TB/s and
 operations over the peak rate of their type; weights count once per
@@ -1528,21 +1545,12 @@ MAML_BF16_W_ATOL = 4.2e-3
 MAML_BF16_STAT_RTOL = 9.2e-2
 MAML_BF16_LOSS_RTOL = 1.4e-3
 MAML_BF16_NORM_RTOL = 4.2e-2
-# The resumed run against the unbroken one, in the shipped bfloat16: a
-# bfloat16 meta-step is not bit-reproducible on the card (the same step
-# twice from the same state, the first in its process against a later
-# one, differed by up to 2e-3 in 18.8 M weights; float32 repeated bit
-# for bit; cuDNN's deterministic algorithms are on for the phase, and
-# torch.use_deterministic_algorithms left the resume's readings
-# unchanged), so each is held to 4x its reading (NVIDIA H100
-# 80GB HBM3, 700 W, two runs, equal readings): weights 5.7e-3 absolute
-# (three Adam steps of lr 1e-3 move a weight by up to 3e-3), statistics
-# 4.2e-2 relative to each tensor's largest value, step 3's train/loss
-# 1.2e-4 relative (the loss moves 13 % a step: a resume on other data or
-# state would show there).
-MAML_RESUME_W_ATOL = 2.3e-2
-MAML_RESUME_STAT_RTOL = 0.17
-MAML_RESUME_LOSS_RTOL = 4.7e-4
+# The resumed run against the unbroken one, in the shipped bfloat16: equal
+# bit for bit (weights, statistics, step 3's train/loss).  The trainers
+# make their steps reproducible on the card (utils/determinism.py: the
+# backward on the calling thread, so a second-order step's summation
+# order no longer depends on how many steps the autograd engine's worker
+# thread ran before).
 
 
 def maml_params(corpus: str, out: str, **over) -> dict:
@@ -1735,13 +1743,9 @@ def maml_phase(device) -> dict:
     import torch
 
     from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
-    from msa_tts_tpu_torch.models import cuda_decoder as CD
-    from msa_tts_tpu_torch.serving import AdaptiveTTS
 
     res = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_maml_")
-    # as the limits below were read: cuDNN's deterministic algorithms
-    torch.backends.cudnn.deterministic = True
     try:
         corpus = f"{tmp}/corpus"
         make_synthetic_corpus(corpus, n_speakers=4,
@@ -1808,30 +1812,23 @@ def maml_phase(device) -> dict:
         names = [k for k, v in full_sd.items()
                  if "running" not in k and v.is_floating_point()]
         w = max(float((part_sd[k] - full_sd[k]).abs().max()) for k in names)
-        n_off = sum(int(((part_sd[k] - full_sd[k]).abs() > 1e-5).sum())
-                    for k in names)
-        n_all = sum(full_sd[k].numel() for k in names)
-        stat = max(float((part_sd[k] - v).abs().max() / v.abs().max())
+        stat = max(float((part_sd[k] - v).abs().max())
                    for k, v in full_sd.items() if "running" in k)
+        n_off = sum(not torch.equal(part_sd[k], v)
+                    for k, v in full_sd.items())
         part_loss = _logged(part_dir)[("train/loss", 2)]
-        loss = abs(part_loss - res["train_loss"][2]) / res["train_loss"][2]
-        res["resume"] = {"w_max_abs": w, "w_beyond_1e-5": n_off,
-                         "stat_rel": stat, "loss_rel": loss}
-        print(f"  2 epochs + resume to 3 against 3 unbroken (cuDNN "
-              f"deterministic): steps {int(part_raw['step'])} / "
-              f"{int(full_raw['step'])}; weights max|d| {w:.3e} (limit "
-              f"{MAML_RESUME_W_ATOL}), {n_off} of {n_all} beyond 1e-5; "
-              f"statistics max|d|/max|value| {stat:.3e} (limit "
-              f"{MAML_RESUME_STAT_RTOL}); step 3's train/loss "
-              f"{part_loss:.6f} / {res['train_loss'][2]:.6f}, rel "
-              f"{loss:.2e} (limit {MAML_RESUME_LOSS_RTOL})")
+        res["resume"] = {"w_max_abs": w, "stat_max_abs": stat,
+                         "n_differ": n_off,
+                         "loss": [part_loss, res["train_loss"][2]]}
+        print(f"  2 epochs + resume to 3 against 3 unbroken: steps "
+              f"{int(part_raw['step'])} / {int(full_raw['step'])}; weights "
+              f"max|d| {w:.3e}, statistics max|d| {stat:.3e}, {n_off} of "
+              f"{len(full_sd)} tensors differ; step 3's train/loss "
+              f"{part_loss!r} / {res['train_loss'][2]!r} (all must be equal)")
         if int(part_raw["step"]) != 3:
             raise AssertionError("the resumed run took another step count")
-        for val, lim in ((w, MAML_RESUME_W_ATOL),
-                         (stat, MAML_RESUME_STAT_RTOL),
-                         (loss, MAML_RESUME_LOSS_RTOL)):
-            if not val <= lim:
-                raise AssertionError("the resumed run differs")
+        if n_off or part_loss != res["train_loss"][2]:
+            raise AssertionError("the resumed run differs")
 
         # ---- card against CPU, float32, second and first order
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1876,82 +1873,591 @@ def maml_phase(device) -> dict:
                                              f"{b[key]} > {lim}")
 
         # ---- the trained checkpoint served: every launch from here on
-        exp = run_dir
-        tts = AdaptiveTTS.from_experiment(exp, "0", device=device,
-                                          decode_backend="cuda")
-        tts16 = AdaptiveTTS.from_experiment(exp, "0", device=device,
-                                            decode_backend="cuda",
-                                            infer_dtype="bfloat16")
-        # three steps do not teach the gate: hold it off, as serve() does
-        for t in (tts, tts16):
-            with torch.no_grad():
-                t.model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
-        emb = np.random.default_rng(5).standard_normal(
-            tts.cfg.speaker_embedding_dim).astype(np.float32)
-        S = tts.cfg.max_decoder_steps
-        hop = SHIPPED_AUDIO["hop_length"]
-        want = hop * (S * tts.cfg.n_frames_per_step - 1)
-        for t in (tts, tts16):
-            t.synthesize(TEXTS[2], spk_emb=emb, seed=0)        # warm
-        torch.cuda.synchronize()
-        CD.LAUNCHES = CD.SEG_LAUNCHES = 0
-        wavs = [t.synthesize(text, spk_emb=emb, seed=i)
-                for t in (tts, tts16) for i, text in enumerate(TEXTS[:2])]
-        n_samples = sum(len(c) for c in tts.synthesize_stream(
-            TEXTS[1], spk_emb=emb, seed=1, segment_steps=SEG))
-        torch.cuda.synchronize()
-        res["launches"], res["seg_launches"] = CD.LAUNCHES, CD.SEG_LAUNCHES
-        n_seg = -(-S // SEG)
-        print(f"  trained checkpoint served: 2 sentences in float32 and 2 "
-              f"in bfloat16, {res['launches']} whole-loop launches; one "
-              f"stream, {n_samples} samples, {res['seg_launches']} segment "
-              f"launches for {n_seg} segments")
-        for w in wavs:
-            if w.shape != (want,) or not np.isfinite(w).all():
-                raise AssertionError(f"trained checkpoint: wav {w.shape}")
-        if (res["launches"] != 4 or res["seg_launches"] != n_seg
-                or n_samples != want):
-            raise AssertionError("trained checkpoint: launches or samples")
-
-        # ---- comparisons, not counted: kernels against the plain decode
-        for t, tag in ((tts, "float32"), (tts16, "bfloat16")):
-            plain = AdaptiveTTS(dict(t.params, decode_backend="torch"),
-                                t.model, device=device)
-            for i, text in enumerate(TEXTS[:2]):
-                mel = t.synthesize(text, spk_emb=emb, seed=i,
-                                   vocoder="none")
-                ref = plain.synthesize(text, spk_emb=emb, seed=i,
-                                       vocoder="none")
-                d = np.abs(mel - ref) if mel.shape == ref.shape else np.inf
-                err = float(np.max(d))
-                if tag == "bfloat16":
-                    share = float((d > DEC_BF16_FLIP["mels"]).mean())
-                    ok = err <= SERVE_BF16_MAX and share <= DEC_BF16_SHARE
-                    extra = (f" (limit {SERVE_BF16_MAX}), share beyond "
-                             f"{DEC_BF16_FLIP['mels']}: {share:.2e} (limit "
-                             f"{DEC_BF16_SHARE})")
-                else:
-                    ok, extra = err <= SERVE_ATOL, f" (limit {SERVE_ATOL})"
-                    res["serve_max_abs_err"] = max(
-                        res.get("serve_max_abs_err", 0.0), err)
-                print(f"  trained checkpoint, {tag}, sentence {i}: kernel "
-                      f"vs plain decode, mel max|d| {err:.3e}{extra}")
-                if not ok:
-                    raise AssertionError(f"trained checkpoint ({tag}) "
-                                         "differs from the plain decode")
-        streamed = np.concatenate(list(tts.synthesize_stream(
-            TEXTS[0], spk_emb=emb, seed=0, vocoder="none",
-            segment_steps=SEG)), -1)
-        off = tts.synthesize(TEXTS[0], spk_emb=emb, seed=0, vocoder="none")
-        err = (float(np.abs(streamed - off).max())
-               if streamed.shape == off.shape else float("inf"))
-        print(f"  trained checkpoint streamed (segment kernel) vs offline: "
-              f"mel max|d| {err:.3e} (limit {STREAM_ATOL})")
-        if not err <= STREAM_ATOL:
-            raise AssertionError("trained checkpoint: streamed mel differs")
+        res.update(serve_checkpoint(run_dir, "0", device, "trained "
+                                    "checkpoint"))
     finally:
-        torch.backends.cudnn.deterministic = False
         shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------- phase 13
+# examples/{baseline,reptile,continual_ewc,continual_erkd}/params.yml with
+# only the data and run-length entries changed; everything else (widths,
+# compute_dtype bfloat16, batch sizes, optimizers and weight decay, the
+# clip, Reptile's 4 tasks x 8 shots and 3 inner steps, the buffers,
+# ewc_importance) is the shipped files'.
+TRAIN_REDUCED = {
+    "dataset_*.dataset_path / meta_file / speakers_list":
+        "phase 12's synthetic corpus (4 speakers x 12 clips of 0.4-1.2 s, "
+        "seed 0); the streams take its first 3 speakers (the shipped files "
+        "name VCTK's p225-p228; no VCTK in the repository)",
+    "output_path": "a temporary directory",
+    "baseline n_epochs": "2 (200): 2 steps an epoch (40 training clips, "
+                         "batches of 32)",
+    "baseline ckpt_save_epoch_interval": "1 (5), so that epoch 1 resumes",
+    "baseline metatest_epoch_interval": "2 (10), so the meta-test runs once",
+    "reptile n_epochs": "2 (500), then 1 in batched mode; one meta-step an "
+                        "epoch",
+    "continual n_max_epochs": "1 (50, early stopping on): one epoch a task",
+    "continual_er, continual_er_reg, cumulative": "streams of 2 speakers "
+                                                  "(the shipped 4)",
+    "plot_examples": "false (no matplotlib on the GPU host)",
+    "use_tensorboard": "false",
+    "card against CPU": "batches of 2 (buffer 2, buffer batches of 2) and "
+                        "SGD of lr 1, so the new weights carry the clipped "
+                        "gradient; float32, TF32 off",
+}
+TRAIN_METHODS = {"baseline": "JointTrainer", "reptile": "Reptile",
+                 "continual_ewc": "EWCTrainer",
+                 "continual_erkd": "ExperienceReplayKnowledgeDistillTrainer",
+                 "continual_er": "ExperienceReplayTrainer",
+                 "continual_er_reg": "ExperienceReplayRegTrainer",
+                 "cumulative": "CumulativeTrainer"}
+# Card against CPU, one float32 step of the joint trainer and one of EWC
+# (its penalised step after the Fisher of two buffer batches, the weights
+# moved off the anchor by a seeded 1e-2 normal drawn on the CPU), same
+# init, batch and masks: limits 4x the readings of a first run (NVIDIA
+# H100 80GB HBM3, 700 W): joint new weights 1.2e-7 absolute (the step
+# moved them by up to 2.6e-2), statistics 4.8e-6 relative to each
+# tensor's largest value, loss 9.0e-8 and gradient norm 2.5e-7 relative;
+# EWC 2.5e-7 (moved up to 0.35), 3.4e-6, 6.5e-8 and 1.5e-7, its Fisher
+# within 7.1e-7 of its largest value.  (An earlier move off the anchor,
+# 1e-2 sin(i) computed on each device, read 6.4e-5 and 1.7e-4 for EWC:
+# the two devices' float32 sines of arguments up to 4e6 differ, and the
+# penalty's importance of 1000 carries that into the gradient.)
+TRAIN_LIMITS = {
+    "joint": {"w_max_abs": 4.8e-7, "stat_rel": 1.9e-5, "loss_rel": 3.6e-7,
+              "norm_rel": 1.0e-6},
+    "ewc": {"w_max_abs": 1.0e-6, "stat_rel": 1.4e-5, "loss_rel": 2.6e-7,
+            "norm_rel": 6.1e-7},
+}
+
+
+def example_params(name: str, corpus: str, out: str, speakers: list,
+                   **over) -> dict:
+    """examples/<name>/params.yml pointed at ``corpus``, ``speakers`` and
+    ``out``, without plots or TensorBoard, then ``over``."""
+    import os
+
+    from msa_tts_tpu_torch.config import load_params
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = load_params(os.path.join(here, "examples", name, "params.yml"))
+    for k in ("dataset_train", "dataset_metatrain", "dataset_metatest"):
+        if k in p:
+            p[k] = dict(p[k], dataset_path=corpus, meta_file="metadata.csv",
+                        speakers_list=list(speakers))
+    p.update(output_path=out, plot_examples=False, use_tensorboard=False)
+    p.update(over)
+    return p
+
+
+def _run_trainer(method: str, params: dict, workdir: str,
+                 timed: tuple = (), preempt_task: int | None = None):
+    """``trainers.<method>.main`` on ``params`` written to
+    ``workdir/params.yml``.  Each method named in ``timed`` (``"step"``:
+    Reptile's meta-step) is wrapped to record its wall time (synchronised)
+    and the device memory it peaked at above what was held, and for a
+    step the valid mel frames of its batches; with ``preempt_task`` the
+    stream dies entering that task.  Returns ``(trainer, {name:
+    [records]})``."""
+    import argparse
+    import importlib
+    import os
+
+    import torch
+
+    from msa_tts_tpu_torch.config import save_params
+
+    os.makedirs(workdir, exist_ok=True)
+    save_params(params, os.path.join(workdir, "params.yml"))
+    mod = importlib.import_module(f"msa_tts_tpu_torch.trainers.{method}")
+    name = TRAIN_METHODS[method]
+    base = getattr(mod, name)
+    recs = {n: [] for n in timed}
+
+    def timer(n, fn):
+        def call(*a, **k):
+            dev = torch.device("cuda", 0)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            rec = {"s": time.perf_counter() - t0,
+                   "peak_above_bytes":
+                       torch.cuda.max_memory_allocated(dev) - held}
+            batches = [x for x in a if isinstance(x, dict)
+                       and "melspec_lengths" in x]
+            if batches:
+                rec["frames"] = sum(int(b["melspec_lengths"].sum())
+                                    for b in batches)
+            recs[n].append(rec)
+            return out
+        return call
+
+    ran = []
+
+    class Timed(base):
+        def _init_criterion_optimizer(self):
+            super()._init_criterion_optimizer()
+            if "step" in timed:
+                self._reptile_step = timer("step", self._reptile_step)
+
+        def run(self):
+            ran.append(self)
+            for n in timed:
+                if n != "step":
+                    setattr(self, n, timer(n, getattr(self, n)))
+            super().run()
+
+        def _task_train_items(self, speaker, spk_itr):
+            if spk_itr == preempt_task:
+                raise RuntimeError("simulated preemption")
+            return super()._task_train_items(speaker, spk_itr)
+
+    setattr(mod, name, Timed)
+    try:
+        mod.main(argparse.Namespace(params_path=workdir))
+    except RuntimeError as e:
+        if preempt_task is None or "simulated preemption" not in str(e):
+            raise
+    finally:
+        setattr(mod, name, base)
+    return ran[0], recs
+
+
+def _same_state(a, b) -> tuple:
+    """``(weights max|d|, statistics max|d|, number of tensors that
+    differ)`` of two train states."""
+    import torch
+
+    w = max(float((a.params[k] - v).abs().max()) for k, v in b.params.items())
+    st = max(float((a.model_state[k].float() - v.float()).abs().max())
+             for k, v in b.model_state.items())
+    n = sum(not torch.equal(a.params[k], v) for k, v in b.params.items())
+    n += sum(not torch.equal(a.model_state[k], v)
+             for k, v in b.model_state.items())
+    return w, st, n
+
+
+def _train_card_vs_cpu(kind: str, params: dict, tmp: str) -> dict:
+    """One float32 step (TF32 off) on the card and on the CPU from the same
+    init, batch and masks (drawn on the CPU): the joint trainer's step, or
+    EWC's penalised step after the Fisher of a buffer of two tasks (the
+    weights moved off its anchor by a seeded 1e-2 normal drawn on the
+    CPU); batches of 2, SGD of lr 1.  The new weights, statistics, loss
+    and gradient norm, as max|d|; for EWC also its Fisher's."""
+    import importlib
+
+    import torch
+
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+
+    method = "baseline" if kind == "joint" else "continual_ewc"
+    base = getattr(importlib.import_module(
+        f"msa_tts_tpu_torch.trainers.{method}"), TRAIN_METHODS[method])
+
+    class OnHost(base):
+        """Every pass's masks drawn on the CPU (the Fisher's too), so that
+        both devices see the same."""
+
+        def _draw_step_masks(self, phase, key, batch):
+            B, T_in = batch["inputs"].shape
+            g = torch.Generator().manual_seed(
+                self._mask_generator(phase, *key).initial_seed())
+            return {k: ([x.to(self.device) for x in v]
+                        if isinstance(v, list) else v.to(self.device))
+                    for k, v in dropout_masks(
+                        self.cfg, B, T_in, batch["melspecs"].shape[-1], g,
+                        device="cpu").items()}
+
+    p = dict(params, compute_dtype="float32",
+             dataset_train=dict(params["dataset_train"], batch_size=2),
+             optim={"optimizer_type": "SGD", "lr": 1.0},
+             buffer_sample_size=2, buffer_batch_size=2, do_metatest=False)
+    out, ts, fishers = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t = OnHost(**dict(p, output_path=f"{tmp}/{kind}_{dev}", device=dev))
+        t0 = time.perf_counter()
+        if kind == "joint":
+            b = next(iter(t.dataloader_train))
+        else:
+            t.speakers_so_far = []
+            for i, spk in enumerate(t.all_speakers[:2]):
+                t.speakers_so_far.append(spk)
+                t._reset_optimizer(spk)
+                items = t._task_train_items(spk, i)
+            b = next(iter(t._make_loader(items, seed=1)))
+            g = torch.Generator().manual_seed(13)
+            with torch.no_grad():
+                t.train_state = t.train_state._replace(params={
+                    k: v + 1e-2 * torch.randn(v.shape, generator=g).to(
+                        v.device)
+                    for k, v in t.train_state.params.items()})
+            fishers[dev] = {k: v.cpu() for k, v in t._ewc[0].items()}
+        batch = t._unpack_batch(b)
+        B, T_in = batch["inputs"].shape
+        masks = t._draw_step_masks("task", (1, 0), batch)
+        p0 = {k: v.cpu() for k, v in t.train_state.params.items()}
+        step = t._task_step if kind == "ewc" else t._train_step
+        out[dev] = step(t.train_state, batch, masks)
+        if t.device.type == "cuda":
+            torch.cuda.synchronize()
+        ts[dev] = time.perf_counter() - t0
+    (sc, mc, _), (sr, mr, _) = out["cuda"], out["cpu"]
+    rel = lambda a, b: abs(float(a) - float(b)) / abs(float(b))  # noqa: E731
+    extra = {}
+    if fishers:
+        top = max(float(v.abs().max()) for v in fishers["cpu"].values())
+        extra = {"fisher_rel": max(float((fishers["cuda"][k] - v).abs().max())
+                                   for k, v in fishers["cpu"].items()) / top,
+                 "fisher_max": top,
+                 "base_loss": float(mr["base_loss"])}
+    return {**extra,
+        "kind": kind, "shape": [B, T_in, batch["melspecs"].shape[-1]],
+        "card_s": ts["cuda"], "cpu_s": ts["cpu"],
+        "w_max_abs": max(float((sc.params[k].cpu() - v).abs().max())
+                         for k, v in sr.params.items()),
+        "moved": max(float((v - p0[k]).abs().max())
+                     for k, v in sr.params.items()),
+        "stat_rel": max(float((sc.model_state[k].cpu() - v).abs().max()
+                              / v.abs().max())
+                        for k, v in sr.model_state.items() if "running" in k),
+        "loss_rel": rel(mc["loss"], mr["loss"]),
+        "norm_rel": rel(mc["grad_norm"], mr["grad_norm"]),
+        "loss": float(mr["loss"]),
+    }
+
+
+def _check_card_vs_cpu(r: dict) -> None:
+    lim = TRAIN_LIMITS[r["kind"]]
+    fisher = (f"; the Fisher max|d| {r['fisher_rel']:.3e} of its largest "
+              f"value {r['fisher_max']:.3e}, the loss without the penalty "
+              f"{r['base_loss']:.6f}" if "fisher_rel" in r else "")
+    print(f"  {r['kind']} step card vs CPU (B, T_in, T_mel {r['shape']}; "
+          f"card {r['card_s']:.2f} s, CPU {r['cpu_s']:.1f} s, set-up "
+          f"included): new weights max|d| {r['w_max_abs']:.3e} (limit "
+          f"{lim['w_max_abs']}; the step moved them by up to "
+          f"{r['moved']:.3e}), statistics {r['stat_rel']:.3e} (limit "
+          f"{lim['stat_rel']}), loss {r['loss']:.6f} rel {r['loss_rel']:.2e} "
+          f"(limit {lim['loss_rel']}), grad norm rel {r['norm_rel']:.2e} "
+          f"(limit {lim['norm_rel']}){fisher}")
+    for key, limit in lim.items():
+        if not r[key] <= limit:
+            raise AssertionError(f"{r['kind']} step card vs CPU: {key} "
+                                 f"{r[key]} > {limit}")
+
+
+def _steps_summary(recs: list) -> dict:
+    import statistics
+
+    walls = [r["s"] for r in recs]
+    out = {"step_s": walls,
+           "peak_above_bytes": max(r["peak_above_bytes"] for r in recs)}
+    if len(walls) > 1:
+        out["step_s_warm_median"] = statistics.median(walls[1:])
+    if "frames" in recs[0]:
+        out["mel_frames_per_s"] = [r["frames"] / r["s"] for r in recs]
+    return out
+
+
+def train_phase(device) -> dict:
+    """Phase 13: the joint trainer, Reptile and the continual streams
+    (EWC and ER-KD of 3 speakers, ER, ER-reg and cumulative of 2) at the
+    shipped width through their entry points (``main``), then the joint
+    checkpoint and the last EWC checkpoint served through the decoder
+    kernels."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+    from tools.profile_decode import device_busy
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        corpus = f"{tmp}/corpus"
+        make_synthetic_corpus(corpus, n_speakers=4, utterances_per_speaker=12,
+                              seed=0, spk_emb_dim=SHIPPED_MODEL[
+                                  "speaker_embedding_dim"])
+        print("  reduced: " + json.dumps(TRAIN_REDUCED))
+
+        # ---- joint training: 2 epochs, a meta-test after epoch 2
+        jp = example_params("baseline", corpus, f"{tmp}/joint", MAML_SPEAKERS,
+                            n_epochs=2, ckpt_save_epoch_interval=1,
+                            metatest_epoch_interval=2)
+        t0 = time.perf_counter()
+        joint, recs = _run_trainer("baseline", jp, f"{tmp}/joint",
+                                   ("_train_step",))
+        j = _steps_summary(recs["_train_step"])
+        j["run_s"] = time.perf_counter() - t0
+        run_dir = joint.path_manager.output_path
+        logs = _logged(run_dir)
+        j["train_loss"] = [logs[("train/loss", i)]
+                           for i in range(joint.step_global)
+                           if ("train/loss", i) in logs]
+        j["test_loss"] = {k[0]: v for k, v in logs.items()
+                          if k[0].startswith("test/loss")}
+        bad = [k for k, v in logs.items() if not np.isfinite(v)]
+        if bad or joint.step_global != 4 or "test/loss_spk00" not in \
+                j["test_loss"]:
+            raise AssertionError(f"joint training: {joint.step_global} steps,"
+                                 f" non-finite logs {bad}")
+        batch = joint._unpack_batch(next(iter(joint.dataloader_train)))
+        masks = joint._draw_step_masks("train", (3, 1), batch)
+        joint._train_step(joint.train_state, batch, masks)       # warm
+        busy, _ = device_busy(lambda: joint._train_step(
+            joint.train_state, batch, masks), "joint_step")
+        j["profiled"] = busy
+        j["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        print(f"  trainers.baseline.main: {joint.step_global} steps (batch "
+              f"{jp['dataset_train']['batch_size']}) in {j['run_s']:.1f} s "
+              "(datasets, test passes, checkpoints and the meta-test "
+              "included); step wall s " + ", ".join(
+                  f"{w:.3f}" for w in j["step_s"])
+              + f" (warm median {j['step_s_warm_median']:.3f}); mel "
+              "frames/s " + ", ".join(f"{f:.0f}"
+                                      for f in j["mel_frames_per_s"])
+              + f"; peak device memory of a step "
+              f"{j['peak_above_bytes'] / 2**30:.2f} GiB above what was held; "
+              f"profiled warm step: {busy['wall_ms']:.1f} ms wall, device "
+              f"busy {busy['device_busy_ms']:.1f} ms (share "
+              f"{busy['busy_share']:.3f}, {busy['device_events']} device "
+              f"events); {_gpu_line()}")
+        print(f"  train/loss {j['train_loss']}; test losses {j['test_loss']}")
+
+        # resume: 1 epoch, then resume: true to 2, against the 2 above
+        part = dict(jp, n_epochs=1)
+        _run_trainer("baseline", part, f"{tmp}/joint_part")
+        resumed, _ = _run_trainer("baseline", dict(part, n_epochs=2,
+                                                   resume=True),
+                                  f"{tmp}/joint_part")
+        w, st, n = _same_state(resumed.train_state, joint.train_state)
+        j["resume"] = {"w_max_abs": w, "stat_max_abs": st, "n_differ": n,
+                       "best_equal": resumed.best_test_loss
+                       == joint.best_test_loss}
+        print(f"  1 epoch + resume to 2 against 2 unbroken: steps "
+              f"{resumed.step_global} / {joint.step_global}; weights max|d| "
+              f"{w:.3e}, statistics {st:.3e}, {n} tensors differ; best test "
+              f"loss {resumed.best_test_loss} / {joint.best_test_loss}")
+        if n or not j["resume"]["best_equal"] or \
+                resumed.step_global != joint.step_global:
+            raise AssertionError("the resumed joint run differs")
+        res["joint"] = j
+
+        # ---- Reptile: 2 sequential meta-steps, then 1 batched
+        res["reptile"] = {}
+        for mode, n_ep in (("sequential", 2), ("batched", 1)):
+            rp = example_params("reptile", corpus, f"{tmp}/reptile_{mode}",
+                                MAML_SPEAKERS, n_epochs=n_ep,
+                                reptile_mode=mode)
+            rt, recs = _run_trainer("reptile", rp, f"{tmp}/reptile_{mode}",
+                                    ("step",))
+            r = _steps_summary(recs["step"])
+            r["train_loss"] = [v for k, v in sorted(
+                _logged(rt.path_manager.output_path).items())
+                if k[0] == "train/loss"]
+            res["reptile"][mode] = r
+            print(f"  trainers.reptile.main ({mode}, "
+                  f"{rp['meta_batch_size']} tasks x "
+                  f"{rp['dataset_metatrain']['batch_size']} shots, "
+                  f"{rp['n_inner_train']} inner steps): meta-step wall s "
+                  + ", ".join(f"{x:.3f}" for x in r["step_s"])
+                  + "; mel frames/s " + ", ".join(
+                      f"{f:.0f}" for f in r["mel_frames_per_s"])
+                  + f"; peak {r['peak_above_bytes'] / 2**30:.2f} GiB above "
+                  f"held; train/loss {r['train_loss']}")
+            if (len(r["step_s"]) != n_ep or rt.train_state.step
+                    != n_ep * (4 if mode == "sequential" else 1)
+                    or not all(np.isfinite(r["train_loss"]))):
+                raise AssertionError(f"Reptile {mode}: steps or losses")
+
+        # ---- continual streams of 3 speakers
+        speakers = MAML_SPEAKERS[:3]
+        res["streams"] = {}
+        for method, timed in (("continual_ewc", ("_train_task",
+                                                 "_compute_fisher")),
+                              ("continual_erkd", ("_train_task",
+                                                  "_soften"))):
+            cp = example_params(method, corpus, f"{tmp}/{method}", speakers,
+                                n_max_epochs=1)
+            ct, recs = _run_trainer(method, cp, f"{tmp}/{method}", timed)
+            cumu = ct.cumutest_dict
+            c = {"task_s": [r["s"] for r in recs["_train_task"]],
+                 timed[1] + "_s": [r["s"] for r in recs[timed[1]]],
+                 "cumutest": {k: v["losses"] for k, v in cumu.items()},
+                 "steps": ct.step_global}
+            res["streams"][method] = c
+            print(f"  trainers.{method}.main, {len(speakers)} speakers "
+                  f"(order {ct.all_speakers}): task wall s "
+                  + ", ".join(f"{x:.2f}" for x in c["task_s"])
+                  + f"; {timed[1]} s " + ", ".join(
+                      f"{x:.2f}" for x in c[timed[1] + "_s"])
+                  + f"; {ct.step_global} steps; cumulative test "
+                  f"{c['cumutest']}")
+            if (sorted(cumu) != [0, 1, 2] or len(cumu[2]["losses"]) != 3
+                    or not all(np.isfinite(v)
+                               for v in cumu[2]["losses"].values())):
+                raise AssertionError(f"{method}: cumulative test")
+            if method == "continual_ewc":
+                ewc = ct
+                if ct._ewc is None or len(c["_compute_fisher_s"]) != 2:
+                    raise AssertionError("EWC: no Fisher")
+            elif not all(it.soft_mel is not None for it in ct.buffer):
+                raise AssertionError("ER-KD: buffer without soft targets")
+
+        # the other three methods, streams of 2 speakers
+        for method in ("continual_er", "continual_er_reg", "cumulative"):
+            cp = example_params(method, corpus, f"{tmp}/{method}",
+                                MAML_SPEAKERS[:2], n_max_epochs=1)
+            ct, recs = _run_trainer(method, cp, f"{tmp}/{method}",
+                                    ("_train_task",))
+            last = ct.cumutest_dict[1]["losses"]
+            res["streams"][method] = {
+                "task_s": [r["s"] for r in recs["_train_task"]],
+                "cumutest": last}
+            print(f"  trainers.{method}.main, 2 speakers: task wall s "
+                  + ", ".join(f"{r['s']:.2f}" for r in recs["_train_task"])
+                  + f"; cumulative test after task 1 {last}")
+            if len(last) != 2 or not all(np.isfinite(v)
+                                         for v in last.values()):
+                raise AssertionError(f"{method}: cumulative test")
+
+        # EWC resume at task 2, against the unbroken stream
+        ep = example_params("continual_ewc", corpus, f"{tmp}/ewc_part",
+                            speakers, n_max_epochs=1)
+        _run_trainer("continual_ewc", ep, f"{tmp}/ewc_part", preempt_task=2)
+        resumed, _ = _run_trainer("continual_ewc", dict(ep, resume=True),
+                                  f"{tmp}/ewc_part")
+        w, st, n = _same_state(resumed.train_state, ewc.train_state)
+        same_cumu = resumed.cumutest_dict == ewc.cumutest_dict
+        same_buf = ([it.item_id for it in resumed.buffer]
+                    == [it.item_id for it in ewc.buffer])
+        res["streams"]["continual_ewc"]["resume"] = {
+            "w_max_abs": w, "stat_max_abs": st, "n_differ": n,
+            "cumutest_equal": same_cumu, "buffer_equal": same_buf}
+        print(f"  EWC stream died entering task 2, resumed, against the "
+              f"unbroken stream: weights max|d| {w:.3e}, statistics "
+              f"{st:.3e}, {n} tensors differ; cumulative test equal "
+              f"{same_cumu}, buffer equal {same_buf}")
+        if n or not same_cumu or not same_buf or \
+                resumed.step_global != ewc.step_global:
+            raise AssertionError("the resumed EWC stream differs")
+        print(_gpu_line())
+
+        # ---- the joint and the last EWC checkpoints served
+        res["joint_served"] = serve_checkpoint(run_dir, "best", device,
+                                               "joint checkpoint")
+        ewc_dir = ewc.path_manager.output_path
+        last = f"best_2_{ewc.all_speakers[2]}.ckpt"
+        shutil.copy(os.path.join(ewc_dir, "checkpoints", last),
+                    os.path.join(ewc_dir, "checkpoints",
+                                 "checkpoint_last_task.ckpt"))
+        res["ewc_served"] = serve_checkpoint(ewc_dir, "last_task", device,
+                                             f"EWC checkpoint {last}")
+
+        # ---- card against CPU: one float32 joint step, one EWC step
+        for kind, params in (("joint", jp), ("ewc", ep)):
+            res[f"{kind}_card_vs_cpu"] = _train_card_vs_cpu(kind, params,
+                                                            tmp)
+        for kind in ("joint", "ewc"):
+            _check_card_vs_cpu(res[f"{kind}_card_vs_cpu"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def serve_checkpoint(run_dir: str, ckpt_id: str, device, label: str) -> dict:
+    """A trainer's checkpoint (``checkpoints/checkpoint_{ckpt_id}.ckpt``)
+    served through ``from_experiment``: two sentences in float32 and two
+    in bfloat16 through the whole-loop kernel and one stream through the
+    segment kernel, their launches counted (the counts set to 0 just
+    before); then, not counted, each kernel's mel held against the plain
+    decode of its type and the stream against the offline mel.  The gate
+    bias is held at -1e4 (a few steps do not teach the gate), so every
+    decode runs all its steps."""
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.serving import AdaptiveTTS
+
+    res = {}
+    tts = AdaptiveTTS.from_experiment(run_dir, ckpt_id, device=device,
+                                      decode_backend="cuda")
+    tts16 = AdaptiveTTS.from_experiment(run_dir, ckpt_id, device=device,
+                                        decode_backend="cuda",
+                                        infer_dtype="bfloat16")
+    for t in (tts, tts16):
+        with torch.no_grad():
+            t.model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
+    emb = np.random.default_rng(5).standard_normal(
+        tts.cfg.speaker_embedding_dim).astype(np.float32)
+    S = tts.cfg.max_decoder_steps
+    hop = SHIPPED_AUDIO["hop_length"]
+    want = hop * (S * tts.cfg.n_frames_per_step - 1)
+    for t in (tts, tts16):
+        t.synthesize(TEXTS[2], spk_emb=emb, seed=0)        # warm
+    torch.cuda.synchronize()
+    CD.LAUNCHES = CD.SEG_LAUNCHES = 0
+    wavs = [t.synthesize(text, spk_emb=emb, seed=i)
+            for t in (tts, tts16) for i, text in enumerate(TEXTS[:2])]
+    n_samples = sum(len(c) for c in tts.synthesize_stream(
+        TEXTS[1], spk_emb=emb, seed=1, segment_steps=SEG))
+    torch.cuda.synchronize()
+    res["launches"], res["seg_launches"] = CD.LAUNCHES, CD.SEG_LAUNCHES
+    n_seg = -(-S // SEG)
+    print(f"  {label} served: 2 sentences in float32 and 2 in bfloat16, "
+          f"{res['launches']} whole-loop launches; one stream, {n_samples} "
+          f"samples, {res['seg_launches']} segment launches for {n_seg} "
+          "segments")
+    for w in wavs:
+        if w.shape != (want,) or not np.isfinite(w).all():
+            raise AssertionError(f"{label}: wav {w.shape}")
+    if (res["launches"] != 4 or res["seg_launches"] != n_seg
+            or n_samples != want):
+        raise AssertionError(f"{label}: launches or samples")
+
+    # ---- comparisons, not counted: kernels against the plain decode
+    for t, tag in ((tts, "float32"), (tts16, "bfloat16")):
+        plain = AdaptiveTTS(dict(t.params, decode_backend="torch"), t.model,
+                            device=device)
+        for i, text in enumerate(TEXTS[:2]):
+            mel = t.synthesize(text, spk_emb=emb, seed=i, vocoder="none")
+            ref = plain.synthesize(text, spk_emb=emb, seed=i, vocoder="none")
+            d = np.abs(mel - ref) if mel.shape == ref.shape else np.inf
+            err = float(np.max(d))
+            if tag == "bfloat16":
+                share = float((d > DEC_BF16_FLIP["mels"]).mean())
+                ok = err <= SERVE_BF16_MAX and share <= DEC_BF16_SHARE
+                extra = (f" (limit {SERVE_BF16_MAX}), share beyond "
+                         f"{DEC_BF16_FLIP['mels']}: {share:.2e} (limit "
+                         f"{DEC_BF16_SHARE})")
+            else:
+                ok, extra = err <= SERVE_ATOL, f" (limit {SERVE_ATOL})"
+                res["serve_max_abs_err"] = max(
+                    res.get("serve_max_abs_err", 0.0), err)
+            print(f"  {label}, {tag}, sentence {i}: kernel vs plain decode, "
+                  f"mel max|d| {err:.3e}{extra}")
+            if not ok:
+                raise AssertionError(f"{label} ({tag}) differs from the "
+                                     "plain decode")
+    streamed = np.concatenate(list(tts.synthesize_stream(
+        TEXTS[0], spk_emb=emb, seed=0, vocoder="none", segment_steps=SEG)),
+        -1)
+    off = tts.synthesize(TEXTS[0], spk_emb=emb, seed=0, vocoder="none")
+    err = (float(np.abs(streamed - off).max())
+           if streamed.shape == off.shape else float("inf"))
+    print(f"  {label} streamed (segment kernel) vs offline: mel max|d| "
+          f"{err:.3e} (limit {STREAM_ATOL})")
+    if not err <= STREAM_ATOL:
+        raise AssertionError(f"{label}: streamed mel differs")
     return res
 
 
@@ -2058,9 +2564,17 @@ def serve(tts, device, n_single: int = 2, batch: bool = True) -> int:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated training phases (12, 13) to run "
+                         "after phase 1 instead of all phases; the kernels "
+                         "line is then not printed")
+    only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -2101,6 +2615,18 @@ def main() -> int:
                              "opcode")
     gpu = _gpu_line()
     print(gpu)
+    if only:
+        for phase in only.split(","):
+            print(f"phase {phase} alone")
+            t0 = time.perf_counter()
+            res = {"12": maml_phase, "13": train_phase}[phase](device)
+            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+            print(gpu)
+            print(json.dumps({phase: res}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     from msa_tts_tpu_torch.models.tacotron2nv import (
         Tacotron2NV,
@@ -2180,6 +2706,15 @@ def main() -> int:
     mm = maml_phase(device)
     print(gpu)
     print(json.dumps({"maml": mm}))
+    print("phase 13: joint, Reptile and continual (EWC, ER-KD) training at "
+          "the shipped width through their entry points, resumes, card vs "
+          "CPU, and the joint and EWC checkpoints served through the "
+          "decoder kernels")
+    t0 = time.perf_counter()
+    tp = train_phase(device)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    print(gpu)
+    print(json.dumps({"train": tp}))
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in
@@ -2205,13 +2740,18 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         # adapted_voice_launches: phase 11's served path;
-        # trained_checkpoint_launches: phase 12's
+        # trained_checkpoint_launches: phase 12's; joint_ and
+        # ewc_checkpoint_launches: phase 13's
         dict(dec_entry("decoder_loop", 458, k, launches),
              adapted_voice_launches=ad["launches"],
-             trained_checkpoint_launches=mm["launches"]),
+             trained_checkpoint_launches=mm["launches"],
+             joint_checkpoint_launches=tp["joint_served"]["launches"],
+             ewc_checkpoint_launches=tp["ewc_served"]["launches"]),
         dict(dec_entry("decoder_segment", 553, sk, seg_launches),
              adapted_voice_launches=ad["seg_launches"],
-             trained_checkpoint_launches=mm["seg_launches"]),
+             trained_checkpoint_launches=mm["seg_launches"],
+             joint_checkpoint_launches=tp["joint_served"]["seg_launches"],
+             ewc_checkpoint_launches=tp["ewc_served"]["seg_launches"]),
         {
         # the serving path's type: bf16 weight matrices, B 44, T 3,850
         "name": "wavernn_loop",

@@ -31,6 +31,15 @@ class Item:
     spk_emb: np.ndarray       # (D,) float32 d-vector
     speaker: str = ""
     speaker_id: int = 0
+    item_id: str = ""         # "{speaker}_{index in its split}"
+    duration: float = 0.0     # seconds, from the metafile
+    # ER-KD's replay slot: when set, this (soft) mel replaces the ground
+    # truth in batching (the reference's dataloader_default_buffer.py)
+    soft_mel: np.ndarray | None = None
+
+    @property
+    def mel_for_training(self) -> np.ndarray:
+        return self.soft_mel if self.soft_mel is not None else self.mel
 
 
 def compute_logmel(wav: np.ndarray, audio_processor: str,
@@ -70,7 +79,7 @@ class TTSDataset:
         self.items: list[Item] = []
         for speaker, split in splits.items():
             utts: list[Utterance] = getattr(split, mode)
-            for u in utts:
+            for itr, u in enumerate(utts):
                 seq, _ = g2p.convert(u.phonemes, convert_mode="phone_to_idx")
                 path = resolve_audio_path(dataset_path, audio_folder,
                                           speaker, u.filename, len(splits))
@@ -84,6 +93,7 @@ class TTSDataset:
                     mel=compute_logmel(wav, audio_processor, audio_params),
                     spk_emb=spk_emb_dict[speaker], speaker=speaker,
                     speaker_id=self.speaker_to_id[speaker],
+                    item_id=f"{speaker}_{itr}", duration=u.duration,
                 ))
         self._by_speaker: dict[str, list[Item]] = {}
         for it in self.items:
@@ -94,6 +104,9 @@ class TTSDataset:
 
     def __getitem__(self, idx: int) -> Item:
         return self.items[idx]
+
+    def get_audio_durations(self) -> list[float]:
+        return [it.duration for it in self.items]
 
     def items_for_speaker(self, speaker: str) -> list[Item]:
         return self._by_speaker.get(speaker, [])

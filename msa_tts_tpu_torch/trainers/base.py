@@ -1,6 +1,6 @@
-"""Trainer base: experiment setup, the training loss, checkpoints,
-resume and failure detection (counterpart of
-``msa_tts_tpu/trainers/base.py``).
+"""Trainer base: experiment setup, the training loss, the train and
+eval steps, the dropout-mask seam, checkpoints, resume and failure
+detection (counterpart of ``msa_tts_tpu/trainers/base.py``).
 
 The model's weights live in ``train_state.params`` (name → float32
 tensor on the trainer's device, under the reference ``state_dict``
@@ -9,6 +9,18 @@ model itself is a weightless meta-device ``Tacotron2NV`` that
 ``torch.func.functional_call`` runs on them, as ``AdaptiveTTS.adapt``
 does.  Initial weights are drawn on the CPU from a ``torch.Generator``
 seeded by ``model_seed``, so every device starts from the same ones.
+
+Dropout masks.  The JAX package draws each pass's masks from a key
+schedule of its trainer.  Here every pass draws them on the device
+through one seam, :meth:`TrainerBase._draw_step_masks`, from a
+``torch.Generator`` seeded by ``train_seed``, the kind of pass and the
+trainer's own indices of it (epoch and step, task and step, ...), so a
+resumed run draws what an unbroken one would; a test replaces that one
+method to inject the JAX package's masks.
+
+On a CUDA device the trainer makes its steps reproducible when it starts
+(``utils/determinism.py``): the same step from the same state gives the
+same bits, so a resumed run equals an unbroken one.
 
 ``.ckpt`` files are the JAX package's msgpack layout: ``params`` and
 ``model_state`` as its trees (``utils/convert.py``), ``opt_state`` as
@@ -26,11 +38,19 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from ..config import save_params
+from ..dataloaders.prefetch import host_tensors, tree_map
 from ..models.loss import tacotron2_loss
-from ..models.tacotron2nv import Tacotron2NV, config_from_params
+from ..models.tacotron2nv import (
+    Tacotron2NV,
+    config_from_params,
+    dropout_masks,
+)
+from ..ops.metrics import mcd_batch
+from ..optim import apply_updates
 from ..utils.backend import load_device
 from ..utils.checkpoint import (
     AsyncCheckpointer,
@@ -41,10 +61,17 @@ from ..utils.checkpoint import (
     wait_all_checkpoints,
 )
 from ..utils.convert import jax_from_state_dict, state_dict_from_jax
+from ..utils.determinism import make_reproducible
 from ..utils.g2p.char_list import N_SYMBOLS
 from ..utils.logging_utils import MetricsLogger
 from ..utils.paths import PathManager
-from .train_state import TrainState, make_optimizer
+from .train_state import TrainState, clip_by_global_norm, make_optimizer
+
+# the kinds of pass a mask seed tells apart (train and test keep the
+# values the MAML trainer has always used)
+_PHASES = {"train": 0, "test": 1, "metatest": 2, "task": 3, "task_test": 4,
+           "cumulative": 5, "fisher": 6, "kd": 7}
+_P = 1_000_003          # a prime: distinct (seed, phase, indices) seeds
 
 
 class TrainerBase:
@@ -62,6 +89,9 @@ class TrainerBase:
 
             pyplot()            # raises now, not after an epoch of training
         self.device = load_device(params.get("device", "cuda"))
+        make_reproducible(self.device)
+        # the mask seam's seed (TrainerBase._draw_step_masks)
+        self._mask_seed = int(params.get("train_seed", 1234))
         output_path = os.path.join(
             params["output_path"], params["method"], params["experiment_name"]
         )
@@ -176,6 +206,134 @@ class TrainerBase:
             outs, (target_mels.float(), batch["stop_labels"]),
             batch["melspec_lengths"], **self.loss_kwargs)
         return loss, (outs, new_state)
+
+    # ------------------------------------------------------------ masks
+    def _mask_generator(self, phase: str, *idx: int) -> torch.Generator:
+        """A generator on the device seeded by ``train_seed`` (the mask
+        seed), ``phase`` and ``idx``."""
+        s = self._mask_seed * _P + _PHASES[phase]
+        for i in idx:
+            s = s * _P + int(i)
+        return torch.Generator(device=self.device).manual_seed(s % (1 << 63))
+
+    def _draw_step_masks(self, phase: str, key: tuple, batch: dict) -> dict:
+        """The dropout masks of one pass over ``batch``
+        (``models.tacotron2nv.dropout_masks``), ``key`` the trainer's
+        indices of the pass: ``"train"`` / ``"test"`` (epoch, step) of the
+        joint trainer; ``"task"`` (task, global step) and ``"task_test"``
+        (task, step) of a continual task, ``"cumulative"`` (task, step) of
+        its cumulative test; ``"fisher"`` (task, step) of EWC's Fisher;
+        ``"kd"`` (kd_seed,) of ER-KD's soft targets."""
+        B, T_in = batch["inputs"].shape
+        return dropout_masks(self.cfg, B, T_in, batch["melspecs"].shape[-1],
+                             self._mask_generator(phase, *key),
+                             device=self.device)
+
+    def _draw_masks(self, phase: str, epoch: int, itr_b: int, n_tasks: int,
+                    n_pass: int, batch: dict) -> list:
+        """Every dropout mask of one meta-batch: ``[task][pass]`` dicts as
+        ``models.tacotron2nv.dropout_masks`` draws them for ``batch``'s
+        shapes (leading axis the task).  ``phase`` ``"train"``: each
+        task's inner steps, then its query pass; ``"test"``: the same,
+        then the forward its MCD is read from; ``"metatest"``: the joint
+        trainer's meta-test, the inner steps and the query pass."""
+        _, B, T_in = batch["inputs"].shape
+        T_mel = batch["melspecs"].shape[-1]
+        g = self._mask_generator(phase, epoch, itr_b)
+        return [[dropout_masks(self.cfg, B, T_in, T_mel, g,
+                               device=self.device)
+                 for _ in range(n_pass)] for _ in range(n_tasks)]
+
+    # ------------------------------------------------------------ steps
+    def _mcd(self, outs, batch) -> float:
+        return mcd_batch(outs[1].transpose(1, 2),
+                         batch["melspecs"].transpose(1, 2),
+                         batch["melspec_lengths"])
+
+    def _grad_step(self, state: TrainState, batch: dict, masks: dict,
+                   penalty=None):
+        """One optimisation step on ``batch``: the loss (plus
+        ``penalty(params)`` where given), its gradients on the float32
+        parameters, the clip (``clip_grad_norm``, ``grad_clip_thresh``
+        read now), the optimizer ``self.tx``.  Returns ``(new_state,
+        metrics, outputs)``; metrics ``loss``, ``mcd``, ``grad_norm``
+        (0 without the clip), and ``base_loss`` with a penalty."""
+        params = {k: p.detach().requires_grad_()
+                  for k, p in state.params.items()}
+        with torch.enable_grad():
+            base, (outs, new_ms) = self._loss_for_batch(
+                params, state.model_state, batch, masks)
+            loss = base if penalty is None else base + penalty(params)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+        with torch.no_grad():
+            # a parameter a freeze_* flag cuts off gets a zero gradient
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(params.items(), grads)}
+            if self.params.get("clip_grad_norm", False):
+                grads, grad_norm = clip_by_global_norm(
+                    grads, float(self.params.get("grad_clip_thresh", 1.0)))
+            else:
+                grad_norm = torch.zeros((), device=self.device)
+            updates, opt_state = self.tx.update(grads, state.opt_state,
+                                                state.params)
+            new_state = TrainState(
+                params=apply_updates(state.params, updates),
+                model_state={k: v.detach() for k, v in new_ms.items()},
+                opt_state=opt_state, step=state.step + 1)
+        outs = [o.detach() for o in outs]
+        metrics = {"loss": loss.detach(), "mcd": self._mcd(outs, batch),
+                   "grad_norm": grad_norm}
+        if penalty is not None:
+            metrics["base_loss"] = base.detach()
+        return new_state, metrics, outs
+
+    def _train_step(self, state: TrainState, batch: dict, masks: dict):
+        """``(new_state, {loss, mcd, grad_norm}, outputs)``."""
+        return self._grad_step(state, batch, masks)
+
+    @torch.no_grad()
+    def _eval_step(self, state: TrainState, batch: dict, masks: dict):
+        """The loss and MCD of one pass in training mode, as the
+        reference tests (dropout on, batch-norm statistics advance):
+        ``(state with the new statistics, {loss, mcd}, outputs)``."""
+        loss, (outs, new_ms) = self._loss_for_batch(
+            state.params, state.model_state, batch, masks)
+        return (state._replace(model_state=new_ms),
+                {"loss": loss, "mcd": self._mcd(outs, batch)}, outs)
+
+    def _plot_example(self, last, name: str):
+        """The last item of ``last = (batch, outputs)``: its predicted and
+        target mels and its alignment, to ``examples/<name>.png``."""
+        from ..utils.plot import plot_spec_attn_example
+
+        batch, outs = last
+        plot_spec_attn_example(
+            outs[1][-1].cpu().numpy(), batch["melspecs"][-1].cpu().numpy(),
+            outs[3][-1].cpu().numpy(),
+            os.path.join(self.path_manager.examples_path, name),
+            length_mel=int(batch["melspec_lengths"][-1]),
+            length_attn=int(batch["input_lengths"][-1]),
+        )
+
+    # ----------------------------------------------------------- batches
+    def _host_batch(self, batch) -> dict:
+        """A collated batch as the model's batch dictionary of host
+        tensors (integers as int64)."""
+        return host_tensors({
+            "inputs": batch.inputs,
+            "input_lengths": batch.input_lengths,
+            "melspecs": batch.mels,
+            "melspec_lengths": batch.mel_lengths,
+            "speaker_vecs": batch.speaker_vecs(self.speaker_emb_type),
+            "stop_labels": batch.stop_labels,
+        })
+
+    def _unpack_batch(self, batch) -> dict:
+        """A collated batch as the model's batch dictionary on the
+        device."""
+        return tree_map(lambda x: x.to(self.device),
+                        self._host_batch(batch))
 
     # ------------------------------------------------------ checkpoints
     def _to_trees(self, params: dict, model_state: dict):
@@ -340,7 +498,32 @@ class TrainerBase:
             self._watchdog = None
 
     # ---------------------------------------------------------- logging
-    def log_writer(self, logs: dict):
+    def log_writer(self, logs: dict, type: str = "scalar"):
         """``logs``: ``{tag: (value, step)}``, to the JSON-lines log (and
-        TensorBoard where it is installed and asked for)."""
-        self.logger.log_scalars(logs)
+        TensorBoard where it is installed and asked for); ``type="hist"``
+        for histograms."""
+        if type == "scalar":
+            self.logger.log_scalars(logs)
+        elif type == "hist":
+            self.logger.log_histograms(logs)
+        else:
+            raise NotImplementedError(type)
+
+    def get_module_grads_flattened(self, grads: dict, step: int) -> dict:
+        """Per top-level module of the JAX params tree, its gradients as
+        one flat numpy vector in the tree's leaf order (for histogram
+        logging): ``{"grad_<module>": (vector, step)}``."""
+        def leaves(t):
+            if isinstance(t, dict):
+                return [x for k in sorted(t) for x in leaves(t[k])]
+            if isinstance(t, (list, tuple)):
+                return [x for v in t for x in leaves(v)]
+            return [np.asarray(t)]
+
+        out = {}
+        for mod, sub in self._params_tree(grads).items():
+            ls = leaves(sub)
+            if ls:
+                out["grad_" + mod] = (np.concatenate([x.ravel() for x in ls]),
+                                      step)
+        return out

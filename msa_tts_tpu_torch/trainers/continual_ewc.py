@@ -1,0 +1,105 @@
+"""Continual learning with Elastic Weight Consolidation (counterpart of
+``msa_tts_tpu/trainers/continual_ewc.py``).
+
+The stream keeps an ER-style sample buffer but trains each task on its
+own speaker's data only.  At every task after the first (once the
+current speaker's samples are in the buffer) a diagonal Fisher is
+estimated over the buffer: per batch the squared gradient of the batch's
+mean loss, divided by the number of batches; it is anchored at a copy of
+the current weights θ*, and the task's loss gains ``ewc_importance`` ·
+Σ F (θ − θ*)² over every parameter.  The logged ``loss`` is that total,
+``base_loss`` the loss without it.  The Fisher is recomputed at a task's
+start from the buffer, so a resumed stream needs no copy of it.  Entry
+point::
+
+    python -m msa_tts_tpu_torch.trainers.continual_ewc --params_path <dir>
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from .continual_base import ContinualTrainerBase
+
+
+class EWCTrainer(ContinualTrainerBase):
+    def _init_criterion_optimizer(self):
+        super()._init_criterion_optimizer()
+        self._ewc = None        # (fisher, means) once past the first task
+
+    # --------------------------------------------------------- EWC math
+    def _compute_fisher(self, spk_itr: int):
+        p = self.params
+        loader = self._make_loader(
+            list(self.buffer),
+            batch_size=p.get("buffer_batch_size",
+                             p["dataset_train"]["batch_size"]),
+            shuffle=bool(p.get("buffer_shuffle", True)))
+        n = max(len(loader), 1)
+        ts = self.train_state
+        fisher = {k: torch.zeros_like(p) for k, p in ts.params.items()}
+        for itr, b in enumerate(loader, 1):
+            batch = self._unpack_batch(b)
+            masks = self._draw_step_masks("fisher", (spk_itr, itr), batch)
+            params = {k: p.detach().requires_grad_()
+                      for k, p in ts.params.items()}
+            with torch.enable_grad():
+                loss, _ = self._loss_for_batch(params, ts.model_state, batch,
+                                               masks)
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            allow_unused=True)
+            with torch.no_grad():
+                for k, g in zip(params, grads):
+                    if g is not None:
+                        fisher[k] = fisher[k] + g * g / n
+        # a copy: the penalty is measured from the weights of this moment
+        means = {k: p.detach().clone() for k, p in ts.params.items()}
+        self._ewc = (fisher, means)
+
+    def _penalty(self, params: dict):
+        fisher, means = self._ewc
+        importance = float(self.params["ewc_importance"])
+        return importance * sum(torch.sum(fisher[k] * (params[k] - means[k])
+                                          ** 2) for k in params)
+
+    def _task_step(self, state, batch, masks):
+        if self._ewc is not None:
+            return self._grad_step(state, batch, masks, self._penalty)
+        return self._train_step(state, batch, masks)
+
+    # ------------------------------------------------------------ stream
+    def _initial_task_items(self, speakers):
+        items = self._task_items(speakers, "train")
+        self.buffer = self._sample_items(items,
+                                         self.params["buffer_sample_size"])
+        return items
+
+    def _task_train_items(self, speaker: str, spk_itr: int):
+        current = self._task_items([speaker], "train")
+        if not hasattr(self, "buffer"):
+            self.buffer = self._sample_items(
+                current, self.params["buffer_sample_size"])
+            return current
+        # past the first task: the current speaker's samples join the
+        # buffer, then the Fisher is estimated at the current weights
+        self.buffer = list(self.buffer) + self._sample_items(
+            current, self.params["buffer_sample_size"])
+        print("Computing EWC Fisher matrix")
+        self._compute_fisher(spk_itr)
+        return current
+
+
+def main(args):
+    from ..config import load_params
+
+    params = load_params(os.path.join(args.params_path, "params.yml"))
+    EWCTrainer(**params).run()
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--params_path", type=str, required=True)
+    main(parser.parse_args())

@@ -6,7 +6,7 @@ the episode stream and the meta-test phase.
 Dropout masks.  The JAX package draws each pass's masks from a key
 schedule (per step ``fold_in(k_train, itr_b)``, split per task, each
 task's key split into the adaptation's and the query pass's).  Here
-:meth:`MetaTrainer._draw_masks` draws them on the device from a
+:meth:`TrainerBase._draw_masks` draws them on the device from a
 ``torch.Generator`` seeded by the run's ``train_seed``, the phase, the
 epoch and the step, so a resumed run draws what an unbroken one would;
 a test replaces that one method to inject the JAX package's masks.
@@ -21,13 +21,9 @@ import torch
 from ..dataloaders.loader_meta import get_dataloader as get_dataloader_meta
 from ..dataloaders.loader_meta import unpack_task_batch
 from ..meta.maml import make_metatest_fn
-from ..models.tacotron2nv import dropout_masks
 from ..ops.metrics import mcd_batch
 from .base import TrainerBase
 from .train_state import make_optimizer
-
-_PHASES = {"train": 0, "test": 1}
-_P = 1_000_003          # a prime: distinct (seed, phase, epoch, step) seeds
 
 
 class MetaTrainer(TrainerBase):
@@ -65,24 +61,6 @@ class MetaTrainer(TrainerBase):
         self.n_inner_test = int(self.params.get("n_inner_test", 1))
         self._metatest_fn = make_metatest_fn(
             self._meta_loss_fn(), self.inner_tx, self.n_inner_test)
-
-    # ------------------------------------------------------------ masks
-    def _draw_masks(self, phase: str, epoch: int, itr_b: int, n_tasks: int,
-                    n_pass: int, batch: dict) -> list:
-        """Every dropout mask of one meta-batch: ``[task][pass]`` dicts as
-        ``models.tacotron2nv.dropout_masks`` draws them for ``batch``'s
-        shapes (leading axis the task).  ``phase`` ``"train"``: each
-        task's inner steps, then its query pass; ``"test"``: the same,
-        then the forward its MCD is read from."""
-        _, B, T_in = batch["inputs"].shape
-        T_mel = batch["melspecs"].shape[-1]
-        seed = int(self.params.get("train_seed", 1234))
-        g = torch.Generator(device=self.device).manual_seed(
-            (((seed * _P + _PHASES[phase]) * _P + epoch) * _P + itr_b)
-            % (1 << 63))
-        return [[dropout_masks(self.cfg, B, T_in, T_mel, g,
-                               device=self.device)
-                 for _ in range(n_pass)] for _ in range(n_tasks)]
 
     # --------------------------------------------------------- episodes
     def _episodes(self, loader):

@@ -11,8 +11,9 @@ module encodes and decodes that subset of msgpack by hand.  Arrays load
 as numpy arrays (bfloat16 ones widened to float32), scalars as numpy
 scalars.  Writes are atomic (``.tmp``, then a rename);
 :class:`AsyncCheckpointer` copies a payload to the host at once and
-writes it on a thread; :func:`restore_like` puts a decoded tree back
-into a template's structure and tensors.
+writes it on a thread (a ``.ckpt``, or a pickle that carries one);
+:func:`restore_like` puts a decoded tree back into a template's structure
+and tensors.
 """
 
 from __future__ import annotations
@@ -394,6 +395,32 @@ class AsyncCheckpointer:
         self._check()
         host = _host_copy(payload)
         self._q.put(lambda: save_checkpoint(path, host))
+
+    def save_pickle(self, path: str, obj: dict, *,
+                    ckpt_payload: dict | None = None,
+                    ckpt_key: str = "ckpt") -> None:
+        """Pickle ``obj`` to ``path`` later, with (``ckpt_payload``) the
+        ``.ckpt`` bytes of that payload under ``obj[ckpt_key]``: one atomic
+        file carrying a checkpoint and its metadata.  ``obj`` is deep-
+        copied and the payload copied to the host now, so that the file
+        holds the state at this call."""
+        import copy
+        import pickle
+
+        self._check()
+        obj = copy.deepcopy(obj)
+        host = _host_copy(ckpt_payload) if ckpt_payload is not None else None
+
+        def write():
+            out = obj
+            if host is not None:
+                out = dict(obj, **{ckpt_key: serialize_payload(host)})
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                pickle.dump(out, f)
+            os.replace(tmp, path)
+
+        self._q.put(write)
 
     def wait(self) -> None:
         """Block until every pending write has landed; raise its error."""

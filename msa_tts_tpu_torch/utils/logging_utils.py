@@ -54,6 +54,14 @@ class MetricsLogger:
             if self._tb is not None:
                 self._tb.add_scalar(tag, value, int(step))
 
+    def log_histograms(self, logs: dict):
+        """``logs``: {tag: (values, step)}, to TensorBoard only."""
+        for tag, (values, step) in logs.items():
+            if self._tb is not None:
+                import numpy as np
+
+                self._tb.add_histogram(tag, np.asarray(values), int(step))
+
     def close(self):
         self._jsonl.close()
         if self._tb is not None:

@@ -27,6 +27,8 @@ attention's state (values of ~1/T_in), and stop steps are compared
 where no gate lies within 2e-2 of the threshold.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -1064,6 +1066,36 @@ def test_meta_step_on_the_card_matches_cpu(device, second_order):
         assert lim is None or read[key] <= lim, (key, read[key], lim)
 
 
+def test_second_order_meta_step_repeats_bit_for_bit(device):
+    """With ``utils.determinism.make_reproducible`` (what the trainers set
+    when they start on the card), a second-order meta-step at shapes this
+    process has not differentiated before gives the bits of the same step
+    repeated.  Before the repair it did not: the autograd engine ran the
+    double backward on its worker thread and ordered it by that thread's
+    node counter, so a process's first step at a shape summed in another
+    order than its later ones."""
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+    from msa_tts_tpu_torch.utils.determinism import make_reproducible
+
+    make_reproducible(device)
+    cfg, model = _meta_model("tiny")
+    K, B, T_in, T_mel = 2, 3, 11, 14
+    ep = (_meta_episode(cfg, K, B, T_in, T_mel, 0),
+          _meta_episode(cfg, K, B, T_in, T_mel, 1))
+    g = torch.Generator().manual_seed(4)
+    masks = [[dropout_masks(cfg, B, T_in, T_mel, g, device="cpu")
+              for _ in range(3)] for _ in range(K)]
+    (a, ma), *rest = [_meta_step(model, cfg, device, True, ep, masks, 2)[1]
+                      for _ in range(3)]
+    for b, mb in rest:
+        assert torch.equal(mb.loss, ma.loss)
+        assert torch.equal(mb.grad_norm, ma.grad_norm)
+        for k, v in a.params.items():
+            assert torch.equal(b.params[k], v), k
+        for k, v in a.model_state.items():
+            assert torch.equal(b.model_state[k], v), k
+
+
 def test_meta_step_at_the_shipped_width(device):
     """One second-order meta-step at the width of examples/maml/params.yml
     (2 tasks x 2 shots, T_in 32, T_mel 64, one inner step): it runs on the
@@ -1091,3 +1123,208 @@ def test_meta_step_at_the_shipped_width(device):
         new.model_state["postnet.convolutions.0.1.running_mean"],
         model.state_dict()["postnet.convolutions.0.1.running_mean"].to(
             device))
+
+
+# ---------------------------------------------------------------------
+# Joint, Reptile and continual training steps on the card
+# ---------------------------------------------------------------------
+# The tiny model's trainers on a synthetic corpus, card against CPU on
+# one float32 step (TF32 off) from the same init, batch and masks, the
+# step SGD of lr 1 (the new weights carry the clipped gradient); and with
+# compute_dtype bfloat16 the same step taken twice from one state on the
+# card, equal bit for bit (TrainerBase makes the card's steps
+# reproducible, utils/determinism.py).  Limits 4x the largest reading of
+# the three trainers (joint / Reptile / EWC) on an NVIDIA H100 80GB HBM3
+# (700 W): new weights 1.3e-7 / 6.5e-8 / 3.6e-7 absolute (the steps moved
+# them by up to 0.21 / 3.9e-2 / 0.58), statistics 4.0e-7 / 1.6e-6 /
+# 7.4e-7 relative to each tensor's largest value, gradient norm 6.2e-8 /
+# 3.0e-7 / 0 relative; the loss read 0 in all three and is held to one
+# float32 ulp.
+TRAIN_CUDA_TOL = {"weights": 1.4e-6, "statistics": 6.3e-6, "loss": 1.2e-7,
+                  "grad_norm": 1.2e-6}
+TINY_TRAIN_AUDIO = dict(n_fft=1024, win_length=1024, hop_length=256,
+                        n_mels=10, sample_rate=22050, f_min=0.0,
+                        f_max=8000.0, griffinlim_iters=4)
+
+
+def _train_params(tmp_path, method, **over):
+    from msa_tts_tpu_torch.dataloaders.synthetic import (
+        make_synthetic_corpus,
+        synthetic_params,
+    )
+
+    root = str(tmp_path / "corpus")
+    if not os.path.exists(root):
+        make_synthetic_corpus(root, n_speakers=3, utterances_per_speaker=5,
+                              min_dur=0.25, max_dur=0.4, spk_emb_dim=8,
+                              seed=4)
+    mp = dict(_tiny_tts("cpu").params["model"],
+              decoder_no_early_stopping=False, mask_padding=True)
+    p = synthetic_params(root, n_speakers=3, batch_size=2,
+                         model_overrides=mp)
+    p.update(method=method, experiment_name="tiny",
+             output_path=str(tmp_path / "out"),
+             audio_params=dict(TINY_TRAIN_AUDIO), use_tensorboard=False,
+             plot_examples=False, speaker_seed=11, buffer_sample_size=2,
+             buffer_batch_size=2, ewc_importance=1000.0, meta_batch_size=2,
+             n_inner_train=2, optim={"optimizer_type": "SGD", "lr": 1.0},
+             optim_outer={"optimizer_type": "SGD", "lr": 1.0})
+    p.update(over)
+    return p
+
+
+def _on(x, device):
+    if isinstance(x, dict):
+        return {k: _on(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_on(v, device) for v in x)
+    return x.to(device) if hasattr(x, "to") else x
+
+
+def _step_inputs(kind, trainer):
+    """One step's inputs on the CPU: ``(batch, masks)``; for Reptile the
+    stacked support and query sets and the tasks' masks."""
+    from msa_tts_tpu_torch.dataloaders.loader_meta import unpack_task_batch
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+
+    g = torch.Generator().manual_seed(5)
+    if kind == "reptile":
+        _, sup, qry = next(trainer.dataloader_metatrain.iter_stacked())
+        sup = unpack_task_batch(sup, trainer.speaker_emb_type, "cpu")
+        qry = unpack_task_batch(qry, trainer.speaker_emb_type, "cpu")
+        K, B, T_in = sup["inputs"].shape
+        masks = [[dropout_masks(trainer.cfg, B, T_in,
+                                sup["melspecs"].shape[-1], g, device="cpu")
+                  for _ in range(trainer.n_inner_train + 1)]
+                 for _ in range(K)]
+        return (sup, qry), masks
+    if kind == "joint":
+        b = next(iter(trainer.dataloader_train))
+    else:
+        spk = trainer.all_speakers[1]
+        b = next(iter(trainer._make_loader(
+            trainer._task_items([spk], "train"), seed=1)))
+    batch = trainer._host_batch(b)
+    B, T_in = batch["inputs"].shape
+    return (batch,), dropout_masks(trainer.cfg, B, T_in,
+                                   batch["melspecs"].shape[-1], g,
+                                   device="cpu")
+
+
+def _trainer(kind, tmp_path, device, **over):
+    from msa_tts_tpu_torch.models.tacotron2nv import dropout_masks
+
+    if kind == "joint":
+        from msa_tts_tpu_torch.trainers.baseline import JointTrainer as base
+    elif kind == "reptile":
+        from msa_tts_tpu_torch.trainers.reptile import Reptile as base
+    else:
+        from msa_tts_tpu_torch.trainers.continual_ewc import EWCTrainer as base
+
+    class cls(base):
+        # the Fisher's masks drawn on the CPU, the same for both devices
+        def _draw_step_masks(self, phase, key, batch):
+            B, T_in = batch["inputs"].shape
+            g = torch.Generator().manual_seed(
+                self._mask_generator(phase, *key).initial_seed())
+            return _on(dropout_masks(self.cfg, B, T_in,
+                                     batch["melspecs"].shape[-1], g,
+                                     device="cpu"), self.device)
+
+    t = cls(**_train_params(tmp_path, kind, device=str(device),
+                            output_path=str(tmp_path / f"out_{device}"),
+                            **over))
+    if kind == "continual":
+        # the Fisher of a buffer of two tasks: the penalised step
+        t.speakers_so_far = []
+        for i, spk in enumerate(t.all_speakers[:2]):
+            t.speakers_so_far.append(spk)
+            t._reset_optimizer(spk)
+            t._task_train_items(spk, i)
+        g = torch.Generator().manual_seed(13)
+        with torch.no_grad():
+            t.train_state = t.train_state._replace(params={
+                k: v + 1e-2 * torch.randn(v.shape, generator=g).to(v.device)
+                for k, v in t.train_state.params.items()})
+    return t
+
+
+def _take(kind, trainer, inputs, masks):
+    dev = trainer.device
+    args, masks = _on(inputs, dev), _on(masks, dev)
+    if kind == "reptile":
+        state, m = trainer._reptile_step(trainer.train_state, *args, masks)
+        return state, {"loss": m.loss, "grad_norm": m.grad_norm}
+    step = trainer._task_step if kind == "continual" else trainer._train_step
+    state, m, _ = step(trainer.train_state, args[0], masks)
+    return state, m
+
+
+@pytest.mark.parametrize("kind", ["joint", "reptile", "continual"])
+def test_train_step_on_the_card_matches_cpu(device, tmp_path, kind):
+    """``-k joint`` / ``-k reptile`` / ``-k continual``: one float32 step
+    (the joint trainer's; a sequential Reptile meta-step; EWC's penalised
+    step) on the card and on the CPU."""
+    card = _trainer(kind, tmp_path, device)
+    cpu = _trainer(kind, tmp_path, "cpu")
+    inputs, masks = _step_inputs(kind, cpu)
+    p0 = cpu.train_state.params
+    (sc, mc), (sr, mr) = (_take(kind, card, inputs, masks),
+                          _take(kind, cpu, inputs, masks))
+    read = {
+        "weights": max(float((sc.params[k].cpu() - v).abs().max())
+                       for k, v in sr.params.items()),
+        "statistics": max(float((sc.model_state[k].cpu() - v).abs().max()
+                                / v.abs().max())
+                          for k, v in sr.model_state.items()
+                          if "running" in k),
+        "loss": abs(float(mc["loss"]) - float(mr["loss"]))
+        / float(mr["loss"]),
+        "grad_norm": (abs(float(mc["grad_norm"]) - float(mr["grad_norm"]))
+                      / float(mr["grad_norm"])),
+    }
+    moved = max(float((v - p0[k]).abs().max()) for k, v in sr.params.items())
+    print(f"{kind} step card vs CPU: {read}; moved up to {moved:.3e}")
+    assert moved > 1e-3
+    for key, lim in TRAIN_CUDA_TOL.items():
+        assert read[key] <= lim, (key, read[key], lim)
+
+
+@pytest.mark.parametrize("kind", ["joint", "reptile", "continual"])
+def test_bf16_train_step_repeats_bit_for_bit(device, tmp_path, kind):
+    """``compute_dtype: bfloat16`` on the card: the same step from the
+    same state twice, and once more in a second trainer, gives the same
+    weights, statistics and loss, bit for bit."""
+    outs = []
+    for i in range(2):
+        t = _trainer(kind, tmp_path / str(i), device,
+                     compute_dtype="bfloat16")
+        inputs, masks = _step_inputs(kind, t)
+        outs += [_take(kind, t, inputs, masks) for _ in range(2 - i)]
+    (a, ma) = outs[0]
+    for b, mb in outs[1:]:
+        assert float(mb["loss"]) == float(ma["loss"])
+        for k, v in a.params.items():
+            assert torch.equal(b.params[k], v), k
+        for k, v in a.model_state.items():
+            assert torch.equal(b.model_state[k], v), k
+
+
+def test_joint_prefetch_on_the_card(device):
+    """``prefetch_to_device`` onto the card: every batch, in order, on the
+    device, equal to the host's; the copy waits on no one else's stream."""
+    import numpy as np
+
+    from msa_tts_tpu_torch.dataloaders.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((64, 80, 400)).astype(np.float32),
+             "i": rng.integers(0, 9, (64, 50)).astype(np.int32)}
+            for _ in range(6)]
+    got = list(prefetch_to_device(iter(host), size=2, device=device))
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        assert g["x"].device.type == "cuda" and g["i"].dtype == torch.int64
+        # read on the compute stream right away: the copy has landed
+        assert torch.equal(g["x"].cpu(), torch.from_numpy(h["x"]))
+        assert torch.equal(g["i"].cpu(), torch.from_numpy(h["i"]).long())

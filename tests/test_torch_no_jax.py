@@ -5,8 +5,9 @@ server among them), the tiny CPU slice runs from text to a wav file
 (once more with ``infer_dtype: bfloat16``), a voice is adapted from two
 clips, saved, loaded and served, one stream and one multiplexed stream
 run to their end, an attached WaveRNN and HiFi-GAN each vocode a
-request, and the MAML trainer takes two second-order steps on a
-synthetic corpus and its checkpoint serves."""
+request, the MAML trainer takes two second-order steps on a synthetic
+corpus and its checkpoint serves, and the joint trainer, Reptile and an
+EWC stream of two speakers run there."""
 
 import os
 import subprocess
@@ -128,6 +129,20 @@ trainer.run()
 assert trainer.step_global == 2
 served = AdaptiveTTS.from_experiment("out/maml/synthetic", device="cpu")
 assert np.isfinite(served.synthesize("hello", spk_emb=emb)).all()
+from msa_tts_tpu_torch.trainers.baseline import JointTrainer
+from msa_tts_tpu_torch.trainers.continual_ewc import EWCTrainer
+from msa_tts_tpu_torch.trainers.reptile import Reptile
+joint = JointTrainer(**dict(params, method="baseline", n_epochs=1))
+joint.run()
+assert joint.step_global > 0 and np.isfinite(joint.best_test_loss)
+rep = Reptile(**dict(params, method="reptile", n_epochs=1,
+                     reptile_mode="batched"))
+rep.run()
+assert rep.step_global == 2
+ewc = EWCTrainer(**dict(params, method="continual_ewc", n_max_epochs=1,
+                        buffer_sample_size=2, ewc_importance=10.0))
+ewc.run()
+assert ewc._ewc is not None and len(ewc.cumutest_dict) == 2
 for blocked in ("jax", "msa_tts_tpu"):
     bad = sorted(m for m in sys.modules
                  if m == blocked or m.startswith(blocked + "."))

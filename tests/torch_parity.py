@@ -275,3 +275,136 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ------------------------------------------- joint and continual training
+
+def jax_joint_keys(train_seed: int, epoch: int):
+    """The JAX joint trainer's keys of ``epoch``: ``split(rng, 4)`` per
+    epoch from ``PRNGKey(train_seed)``, skipped epochs too, into ``(rng,
+    k_train, k_test, k_meta)``; returns ``(k_train, k_test, k_meta)``."""
+    rng = jax.random.PRNGKey(train_seed)
+    for _ in range(epoch):
+        rng, k_train, k_test, k_meta = jax.random.split(rng, 4)
+    return k_train, k_test, k_meta
+
+
+def jax_task_keys(train_seed: int, num_initial: int, spk_itr: int):
+    """The keys a JAX continual stream gives task ``spk_itr``: from
+    ``PRNGKey(train_seed)``, ``rng, k = split(rng)`` for the initial
+    phase (task 0 with ``num_initial`` > 0: returns ``(k, None)``), then
+    ``rng, k1, k2 = split(rng, 3)`` per stream task from ``num_initial``
+    on: ``(k1, k2)``, k1 the task's train and test steps', k2 its
+    cumulative test's."""
+    rng = jax.random.PRNGKey(train_seed)
+    if num_initial > 0:
+        rng, k = jax.random.split(rng)
+        if spk_itr == 0:
+            return k, None
+    for _ in range(num_initial, spk_itr + 1):
+        rng, k1, k2 = jax.random.split(rng, 3)
+    return k1, k2
+
+
+def jax_step_key(train_seed: int, phase: str, key: tuple,
+                 num_initial: int = 0):
+    """The JAX key of the pass the port's trainers name ``(phase, key)``
+    at their mask seam (``TrainerBase._draw_step_masks``): the joint
+    trainer's ``"train"`` / ``"test"`` (epoch, step) → ``fold_in(k_train
+    / k_test, step)``; a continual task's ``"task"`` (task, global step)
+    → ``fold_in(k1, step)``, ``"task_test"`` (task, step) →
+    ``fold_in(k1, step)``, ``"cumulative"`` (task, step) → ``fold_in(k2,
+    step)``; EWC's ``"fisher"`` (task, step) → ``fold_in(PRNGKey(task),
+    step)``; ER-KD's ``"kd"`` (kd_seed,) → ``PRNGKey(kd_seed)``."""
+    R = jax.random
+    if phase in ("train", "test"):
+        k_train, k_test, _ = jax_joint_keys(train_seed, key[0])
+        return R.fold_in(k_train if phase == "train" else k_test, key[1])
+    if phase in ("task", "task_test", "cumulative"):
+        k1, k2 = jax_task_keys(train_seed, num_initial, key[0])
+        return R.fold_in(k2 if phase == "cumulative" else k1, key[1])
+    if phase == "fisher":
+        return R.fold_in(R.PRNGKey(key[0]), key[1])
+    if phase == "kd":
+        return R.PRNGKey(key[0])
+    raise ValueError(phase)
+
+
+def torch_masks(tree):
+    """A tree of numpy masks as CPU tensors."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: torch_masks(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [torch_masks(v) for v in tree]
+    return torch.as_tensor(np.asarray(tree))
+
+
+def from_jax_masks(cls, jcfg, train_seed: int, num_initial: int = 0):
+    """A subclass of the port trainer ``cls`` whose mask seams draw the
+    JAX package's masks: ``_draw_step_masks`` by :func:`jax_step_key`;
+    ``_draw_masks`` (meta-batches) as the JAX MAML / Reptile trainers
+    (``"train"`` / ``"test"``, :func:`jax_trainer_masks`) or the joint
+    trainer's meta-test (``"metatest"``: ``split(fold_in(k_meta, itr_b),
+    K)``, each task's inner steps and query pass) draw them."""
+
+    class FromJax(cls):
+        def _draw_step_masks(self, phase, key, batch):
+            B, T_in = batch["inputs"].shape
+            return torch_masks(jax_forward_masks(
+                jax_step_key(train_seed, phase, key, num_initial), jcfg, B,
+                T_in, batch["melspecs"].shape[-1]))
+
+        def _draw_masks(self, phase, epoch, itr_b, n_tasks, n_pass, batch):
+            _, B, T_in = batch["inputs"].shape
+            T_mel = batch["melspecs"].shape[-1]
+            if phase != "metatest":
+                return torch_masks(jax_trainer_masks(
+                    train_seed, jcfg, phase, epoch, itr_b, n_tasks, n_pass,
+                    B, T_in, T_mel))
+            k_meta = jax_joint_keys(train_seed, epoch)[2]
+            keys = jax.random.split(jax.random.fold_in(k_meta, itr_b),
+                                    n_tasks)
+            return torch_masks([jax_metatest_masks(k, jcfg, n_pass - 1, B,
+                                                   T_in, T_mel)
+                                for k in keys])
+
+    FromJax.__name__ = cls.__name__
+    return FromJax
+
+
+def install_jax_init(port_trainer, jax_trainer):
+    """Start ``port_trainer`` from ``jax_trainer``'s initial weights and
+    batch-norm state (read before the JAX trainer runs: it donates its
+    train state), with a fresh optimizer state; returns the state dict."""
+    from msa_tts_tpu_torch.utils.convert import state_dict_from_jax
+
+    t = port_trainer
+    sd = state_dict_from_jax(jax.device_get(jax_trainer.train_state.params),
+                             jax.device_get(
+                                 jax_trainer.train_state.model_state),
+                             t.cfg)
+    p = {k: sd[k] for k in t.param_names}
+    tx = getattr(t, "outer_tx", None) or t.tx
+    t.train_state = t.train_state._replace(
+        params=p, model_state={k: sd[k] for k in t.model_state},
+        opt_state=tx.init(p))
+    return sd
+
+
+def tiny_train_params(root: str, out: str, method: str, n_speakers: int = 2,
+                      **over) -> dict:
+    """The tiny model of :data:`TINY_MODEL` (mask_padding on) on
+    :func:`tiny_corpus` for the joint, Reptile and continual trainers:
+    batches of 2, Adam of the synthetic params, no plots or TensorBoard,
+    every step logged, then ``over``."""
+    from msa_tts_tpu_torch.dataloaders.synthetic import synthetic_params
+
+    p = synthetic_params(root, n_speakers=n_speakers, batch_size=2,
+                         model_overrides=model_dict(mask_padding=True))
+    p.update(method=method, experiment_name="tiny", output_path=out,
+             audio_params=dict(TINY_AUDIO), use_tensorboard=False,
+             plot_examples=False, tb_log_interval=1, train_seed=3)
+    p.update(over)
+    return p
