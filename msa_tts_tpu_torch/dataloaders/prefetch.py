@@ -8,8 +8,8 @@ items ready.  The consumer, on the training thread, starts the copy of
 the next item onto the device (``non_blocking`` on a side stream, an
 event recorded after it) before it yields the current one, whose event
 the compute stream waits on: the copy of step t + 1 runs under step t,
-and no tensor is read before its copy lands.  On the CPU the items are
-yielded as host tensors.
+and no tensor is read before its copy lands.  With ``device="cpu"`` the
+items are yielded as host tensors.
 
 Items are trees of dicts, lists and tuples whose leaves are numpy arrays
 or tensors (integer arrays become int64 tensors); other leaves (speaker
@@ -24,6 +24,8 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from ..utils.backend import load_device
 
 _SENTINEL = object()
 
@@ -54,12 +56,18 @@ def host_tensors(tree, pin: bool = False):
     return tree_map(t, tree)
 
 
-def prefetch_to_device(iterable: Iterable, size: int = 2, device="cpu",
+def prefetch_to_device(iterable: Iterable, size: int = 2, device="cuda",
                        threaded: bool = True) -> Iterator:
     """Yield the items of ``iterable`` as tensors on ``device``, with up to
     ``size`` of them built ahead by a producer thread (``threaded=False``:
-    built on the consumer's thread, one ahead)."""
-    device = torch.device(device)
+    built on the consumer's thread, one ahead).  ``device`` is the card
+    unless ``device="cpu"`` is asked for; without a CUDA device the
+    default raises here, at the call (``utils.backend.load_device``)."""
+    return _prefetch(iterable, size, load_device(device), threaded)
+
+
+def _prefetch(iterable: Iterable, size: int, device: torch.device,
+              threaded: bool) -> Iterator:
     cuda = device.type == "cuda"
     side = torch.cuda.Stream(device) if cuda else None
 

@@ -753,10 +753,13 @@ def test_wavernn_generate_batch_through_the_kernel(device):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-5)],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H", [(16, 1024), (3, 64), (20, 256)])
+@pytest.mark.parametrize("H", [64, 256, 1024])
+@pytest.mark.parametrize("B", [1, 3, 16, 17, 20, 33])
 def test_lstm_cell_kernel_matches_plain(device, dtype, atol, B, H):
     """One step, so the bf16 variant (same rounded h and weights on both
-    sides, f32 sums in another order) holds the f32 tolerance."""
+    sides, f32 sums in another order) holds the f32 tolerance.  B covers
+    one row, a part of an m16 tile, one tile, and rows past it (bf16:
+    2-3 tiles in one pass; f32: a second pass over the weights)."""
     from msa_tts_tpu_torch.experimental import cuda_lstm_cell as C
 
     g = torch.Generator().manual_seed(B)
@@ -770,6 +773,55 @@ def test_lstm_cell_kernel_matches_plain(device, dtype, atol, B, H):
     hr, cr = C.lstm_cell_reference(xp, h, c, w)
     assert float((hk - hr).abs().max()) <= atol
     assert float((ck - cr).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_lstm_cell_launch_repeats_bit_for_bit(device, dtype):
+    """The cluster's and the warps' partial sums are added in a fixed
+    order: one launch repeated on the same inputs gives the same bits."""
+    from msa_tts_tpu_torch.experimental import cuda_lstm_cell as C
+
+    B, H = 16, 1024
+    g = torch.Generator().manual_seed(7)
+    xp, h, c = (torch.randn(B, n, generator=g).to(device)
+                for n in (4 * H, H, H))
+    w = (torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(device).to(dtype)
+    first = C.cuda_lstm_cell(xp, h, c, w)
+    for _ in range(3):
+        again = C.cuda_lstm_cell(xp, h, c, w)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# bf16 weights, a 400-step scan against the plain bf16 scan at B = 16,
+# H = 1024: a last-bit difference of an f32 sum can flip a bf16 rounding
+# of h, which feeds back; 4 x the reading of 5.1e-4 (NVIDIA H100 80GB
+# HBM3, 700 W).
+LSTM_BF16_SCAN_ATOL = 2e-3
+
+
+def test_lstm_scan_bf16_matches_plain(device, monkeypatch):
+    """The kernel's bf16 scan (chained launches) against the plain bf16
+    scan, and one packing of the weight for the whole scan."""
+    from msa_tts_tpu_torch.experimental import cuda_lstm_cell as C
+
+    T, B, H = 400, 16, 1024
+    g = torch.Generator().manual_seed(0)
+    xs = torch.randn(T, B, 4 * H, generator=g).to(device)
+    w = ((torch.randn(H, 4 * H, generator=g) / H ** 0.5).to(device)
+         .to(torch.bfloat16))
+    h0, c0 = (torch.randn(B, H, generator=g).to(device) for _ in range(2))
+    packs = []
+    pack = C.pack_weights
+    monkeypatch.setattr(C, "pack_weights",
+                        lambda t: packs.append(t) or pack(t))
+    before = C.CELL_LAUNCHES
+    hs, (h, c) = C.lstm_scan(xs, h0, c0, w)
+    assert C.CELL_LAUNCHES == before + T and len(packs) == 1
+    C.lstm_scan(xs, h0, c0, w)
+    assert len(packs) == 1                   # kept for the same weight
+    ref, (hr, cr) = C.lstm_scan(xs, h0, c0, w, backend="torch")
+    assert float((hs - ref).abs().max()) <= LSTM_BF16_SCAN_ATOL
+    assert float((c - cr).abs().max()) <= LSTM_BF16_SCAN_ATOL
 
 
 def test_lstm_scan_and_refusals(device):

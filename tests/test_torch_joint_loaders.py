@@ -176,10 +176,23 @@ def test_prefetch_order_and_values(threaded):
         yield from _host_batches(2)
         raise RuntimeError("producer failed")
 
-    it = prefetch_to_device(broken(), size=2, threaded=threaded)
+    it = prefetch_to_device(broken(), size=2, device="cpu",
+                            threaded=threaded)
     assert [b["name"] for b in (next(it), next(it))] == ["b0", "b1"]
     with pytest.raises(RuntimeError, match="producer failed"):
         next(it)
-    it = prefetch_to_device(_host_batches(50), size=2, threaded=threaded)
+    it = prefetch_to_device(_host_batches(50), size=2, device="cpu",
+                            threaded=threaded)
     assert next(it)["name"] == "b0"
     it.close()
+
+
+def test_prefetch_defaults_to_the_card(monkeypatch):
+    """``prefetch_to_device`` loads onto the card unless ``device="cpu"``
+    is asked for: without a CUDA device the default raises at the call,
+    naming the way to the CPU, instead of yielding host tensors."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        prefetch_to_device(_host_batches(2), size=2)
+    got = list(prefetch_to_device(_host_batches(2), size=2, device="cpu"))
+    assert [b["inputs"].device.type for b in got] == ["cpu", "cpu"]
