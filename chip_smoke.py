@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA
 GPU.
 
-    python3 chip_smoke.py [--only 12,13]
+    python3 chip_smoke.py [--only 12,13,14]
 
 (``--only``: phase 1, then only the training phases named.)
 
@@ -76,7 +76,18 @@ Phases (any failure exits non-zero):
      for bit to its unbroken run; one float32 joint and one EWC step on
      the card against the CPU; and the joint checkpoint and the last EWC
      checkpoint served through the whole-loop kernel (float32 and
-     bfloat16) and the segment kernel against the plain decode.
+     bfloat16) and the segment kernel against the plain decode;
+ 14. build the host feature library (``native/feats.cpp``, g++) and hold
+     its features to the numpy path; train WaveRNN at the served width
+     (MOL, rnn/fc 512, 10 res blocks, hop 256; batches of 16 windows of
+     1,280 samples, 100 steps) and HiFi-GAN v1 (batches of 16 segments of
+     8,192 samples, 60 steps) through ``trainers.{wavernn,hifigan}_train.
+     main`` on phase 12's corpus: step times, samples per second, peak
+     device memory, the logged losses falling; one step of each on the
+     card against the CPU from the trained checkpoint, and repeated bit
+     for bit; the sample-loop kernel on the trained WaveRNN (44 fold rows
+     of a corpus mel, f32 and bf16) against the plain loop; and each
+     trained vocoder serving a request.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -84,7 +95,8 @@ the line before it lists each kernel with its launches on its main
 path (phase 3 for the whole loop, phase 5 for the segments, phase 9 for
 the sample loop, phase 10's scan for the cell; the decoder kernels'
 ``adapted_voice_launches`` are phase 11's, ``trained_checkpoint_launches``
-phase 12's, ``joint_`` and ``ewc_checkpoint_launches`` phase 13's), its
+phase 12's, ``joint_`` and ``ewc_checkpoint_launches`` phase 13's; the
+sample loop's ``trained_checkpoint_launches`` phase 14's), its
 error against the
 plain version, both times, and the least time the card could take for
 the same work (``bound_ms``: the larger of bytes over 3.35 TB/s and
@@ -99,6 +111,7 @@ the L2).
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2574,6 +2587,671 @@ def serve(tts, device, n_single: int = 2, batch: bool = True) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+# The vocoder trainers at the served widths on phase 12's synthetic corpus.
+# WaveRNN: the WaveRNNConfig defaults (MOL, rnn/fc 512, compute and res_out
+# 128, 10 res blocks, upsample (4, 8, 8) for hop 256), seq_len 1280, batches
+# of 16, Adam lr 1e-4; HiFi-GAN v1 (HIFIGAN_V1), segments of 8192, batches
+# of 16, the recipe's AdamWs (lr 2e-4, b 0.8 / 0.99).
+VOC_REDUCED = {
+    "dataset_train": "phase 12's synthetic corpus: 4 speakers x 12 clips of "
+                     "0.4-1.2 s, seed 0 (LJSpeech / VCTK clips are ~2-10 s; "
+                     "none in the repository)",
+    "wavernn n_steps": "100 (the reference's trainers run ~1e6)",
+    "hifigan n_steps": "60 (the recipe runs ~2.5e6)",
+    "output_path": "a temporary directory",
+    "use_tensorboard": "false",
+    "card against CPU": "the same batch on both: WaveRNN 16 rows (the "
+                        "served batch), HiFi-GAN 2 segments; float32, TF32 "
+                        "off; from the trained checkpoint",
+}
+VOC_WAVERNN_STEPS = 100
+VOC_HIFIGAN_STEPS = 60
+VOC_HIFIGAN_CPU_BATCH = 2
+# "ap2" at the served hop (HiFi-GAN v1's 8·8·2·2 = 256)
+VOC_AP2 = {"n_fft": 1024, "hop_size": 256, "win_size": 1024, "n_mels": 80,
+           "sample_rate": 22050, "fmin": 0.0, "fmax": 8000.0,
+           "center": False}
+# the host library against the numpy path: tests/test_native_feats.py's
+FEATS_MEL_ATOL = 1e-5
+FEATS_DATASET_ATOL = 2e-4
+# Card against CPU, one float32 step from the trained checkpoint's weights
+# and a fresh Adam on the same batch: the loss (each of HiFi-GAN's three)
+# relative, and Adam's moments after the step (mu: the gradient; the
+# square root of nu: its magnitude) as the relative L2 norm of the
+# difference over all tensors (mu_l2, nu_l2; G and D apart for HiFi-GAN)
+# and as max|d| relative to each tensor's largest value (mu_max, nu_max).
+# A ReLU or leaky ReLU whose input lies within rounding of 0 takes the
+# other slope on the other device, and a weight gradient summed over a
+# few hundred positions then moves by a visible share of its largest
+# value, while the L2 norm barely moves.  So the step is taken once more
+# on the card with the CPU's slopes forced at every kink (_Slopes): its
+# per-tensor bound is held (*_forced), the flips counted; the card's own
+# step is held by the L2 norm (and, for WaveRNN, per tensor).  Limits: 4x
+# the readings of an earlier run (NVIDIA H100 80GB HBM3, 700 W): WaveRNN
+# loss 2.9e-7, mu max 4.9e-4, mu and sqrt(nu) L2 3.0e-5; HiFi-GAN losses
+# 1.9e-7, G's mu and sqrt(nu) L2 1.4e-5, D's 7.6e-6.  The forced step,
+# per tensor: 4x the readings of the first run that forced the slopes
+# (same card; 1e-4 was predicted before it): WaveRNN 4.9e-5 (3 of 21 M
+# inputs flipped; unforced 4.9e-4), HiFi-GAN's G 1.08e-4 (unforced
+# 2.5e-3) and D 5.7e-6 (unforced 5.5e-4; 11 of 94 M inputs flipped).
+VOC_LIMITS = {
+    "wavernn": {"loss_rel": 1.2e-6, "mu_max": 2e-3, "nu_max": 2e-3,
+                "mu_l2": 1.2e-4, "nu_l2": 1.2e-4,
+                "mu_max_forced": 2e-4, "nu_max_forced": 2e-4},
+    "hifigan": {"loss_rel": 7.5e-7, "mu_l2G": 5.7e-5, "nu_l2G": 5.7e-5,
+                "mu_l2D": 3.1e-5, "nu_l2D": 3.1e-5,
+                "mu_maxG_forced": 4.4e-4, "nu_maxG_forced": 4.4e-4,
+                "mu_maxD_forced": 2.3e-5, "nu_maxD_forced": 2.3e-5},
+}
+
+
+def _voc_params(kind: str, corpus: str, out: str, **over) -> dict:
+    """The params.yml of phase 14's run of the ``kind`` vocoder trainer."""
+    from msa_tts_tpu_torch.dataloaders.synthetic import synthetic_params
+    from msa_tts_tpu_torch.vocoders.wavernn import WaveRNNConfig
+
+    p = synthetic_params(corpus, n_speakers=4, batch_size=16)
+    p["dataset_train"]["speakers_list"] = list(MAML_SPEAKERS)
+    p.update(method=kind, experiment_name="phase14", output_path=out,
+             use_tensorboard=False, tb_log_interval=1, print_interval=20,
+             ckpt_save_step_interval=10 ** 6, train_seed=0, model_seed=0,
+             batch_size=16)
+    if kind == "wavernn":
+        cfg = WaveRNNConfig()
+        p.update(audio_params=dict(SHIPPED_AUDIO), voc_mode=cfg.mode,
+                 rnn_dims=cfg.rnn_dims, fc_dims=cfg.fc_dims,
+                 compute_dims=cfg.compute_dims,
+                 res_out_dims=cfg.res_out_dims, res_blocks=cfg.res_blocks,
+                 pad=cfg.pad, upsample_factors=list(cfg.upsample_factors),
+                 seq_len=1280, lr=1e-4, n_steps=VOC_WAVERNN_STEPS)
+    else:
+        p.update(audio_processor="ap2", audio_params=dict(VOC_AP2),
+                 hifigan=dict(HIFIGAN_V1), segment_size=8192, lr=2e-4,
+                 n_steps=VOC_HIFIGAN_STEPS)
+    p.update(over)
+    return p
+
+
+def _run_vocoder_trainer(kind: str, params: dict, workdir: str):
+    """``trainers.<kind>_train.main`` on ``params`` written to
+    ``workdir/params.yml``, each step timed (synchronised) with the device
+    memory it peaked at; returns ``(trainer, [records])``."""
+    import argparse
+    import importlib
+    import os
+
+    import torch
+
+    from msa_tts_tpu_torch.config import save_params
+
+    os.makedirs(workdir, exist_ok=True)
+    save_params(params, os.path.join(workdir, "params.yml"))
+    mod = importlib.import_module(f"msa_tts_tpu_torch.trainers.{kind}_train")
+    name = {"wavernn": "WaveRNNTrainer", "hifigan": "HiFiGANTrainer"}[kind]
+    base = getattr(mod, name)
+    recs, ran = [], []
+
+    class Timed(base):
+        def _step(self, *a):
+            dev = self.device
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            out = super()._step(*a)
+            torch.cuda.synchronize(dev)
+            recs.append({"s": time.perf_counter() - t0,
+                         "peak_above_bytes":
+                             torch.cuda.max_memory_allocated(dev) - held,
+                         "samples": int(a[-1].numel())})
+            return out
+
+        def run(self):
+            ran.append(self)
+            return super().run()
+
+    setattr(mod, name, Timed)
+    try:
+        mod.main(argparse.Namespace(params_path=workdir))
+    finally:
+        setattr(mod, name, base)
+    return ran[0], recs
+
+
+def _moment_errs(ours: list, ref: list) -> dict:
+    """Adam's moments after a step on two devices (``ours[0]``: the first
+    Adam state): for mu (the gradient) and the square root of nu (its
+    magnitude), the relative L2 norm of the difference over all tensors
+    (``mu_l2``, ``nu_l2``) and the largest max|d| relative to a tensor's
+    largest |value| (``mu_max``, ``nu_max``), with the three tensors
+    furthest off by the latter (``worst``)."""
+    out, rows = {}, []
+    for name, f in (("mu", lambda t: t), ("nu", lambda t: t.sqrt())):
+        num = den = 0.0
+        for k, v in ref[0][name].items():
+            r, a = f(v.cpu()), f(ours[0][name][k].cpu())
+            num += float(((a - r) ** 2).sum())
+            den += float((r ** 2).sum())
+            scale = max(float(r.abs().max()), 1e-30)
+            rows.append((float((a - r).abs().max()) / scale, name, k, scale))
+        out[f"{name}_l2"] = (num / max(den, 1e-300)) ** 0.5
+        out[f"{name}_max"] = max(r[0] for r in rows if r[1] == name)
+    out["worst"] = sorted(rows, reverse=True)[:3]
+    return out
+
+
+def _same(a, b) -> bool:
+    """Two trees of tensors equal bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+class _Slopes:
+    """``F.relu`` and ``F.leaky_relu`` swapped, within ``record()`` or
+    ``replay()``, for versions that note which inputs are > 0 or that
+    apply the noted slopes in place of their own, call by call:
+    ``where(mask, x, slope * x)`` is the function's value and gradient
+    wherever the signs agree.  A step on the card replaying the CPU's
+    notes takes the CPU's slope at every kink; ``flips`` counts the
+    inputs whose own sign was the other one, of ``inputs``."""
+
+    def __init__(self):
+        self.masks, self.i, self.inputs = [], 0, 0
+        self._flips = 0
+
+    @property
+    def flips(self) -> int:
+        return int(self._flips)
+
+    def _swapped(self, act):
+        import contextlib
+
+        import torch.nn.functional as F
+
+        @contextlib.contextmanager
+        def cm():
+            relu, leaky = F.relu, F.leaky_relu
+            F.relu = lambda x, inplace=False: act(x, 0.0, relu(x))
+            F.leaky_relu = (lambda x, negative_slope=0.01, inplace=False:
+                            act(x, negative_slope,
+                                leaky(x, negative_slope)))
+            try:
+                yield self
+            finally:
+                F.relu, F.leaky_relu = relu, leaky
+        return cm()
+
+    def record(self):
+        def act(x, slope, y):
+            self.masks.append(x.detach() > 0)
+            return y
+        return self._swapped(act)
+
+    def replay(self):
+        import torch
+
+        def act(x, slope, y):
+            m = self.masks[self.i].to(x.device)
+            self.i += 1
+            self.inputs += m.numel()
+            self._flips = self._flips + (m != (x.detach() > 0)).sum()
+            return torch.where(m, x, x * slope)
+        self.i = 0
+        return self._swapped(act)
+
+
+def _voc_card_vs_cpu(kind: str, params: dict, ckpt: str, tmp: str) -> dict:
+    """One float32 step of the ``kind`` trainer on the card and on the CPU
+    from the trained checkpoint's weights and a fresh Adam on the same
+    batch, the card's step taken twice from the same state (equal bit
+    for bit), and once more with the CPU's ReLU slopes (``_Slopes``)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    mod = importlib.import_module(f"msa_tts_tpu_torch.trainers.{kind}_train")
+    cls = getattr(mod, {"wavernn": "WaveRNNTrainer",
+                        "hifigan": "HiFiGANTrainer"}[kind])
+    trainers = {}
+    for dev in ("cuda", "cpu"):
+        t = cls(**dict(params, output_path=f"{tmp}/{kind}_{dev}",
+                       device=dev))
+        t.restore(ckpt)
+        # a fresh Adam, so that its moments after the step hold this
+        # step's gradients alone
+        if kind == "wavernn":
+            t.opt_state = t.tx.init(t.model_params)
+        else:
+            t.opt_g = t.tx_g.init(t.gen_params)
+            t.opt_d = t.tx_d.init(t.disc_params)
+        trainers[dev] = t
+    n = 16 if kind == "wavernn" else VOC_HIFIGAN_CPU_BATCH
+    batch = trainers["cpu"]._sample_batch(np.random.default_rng(7), n)
+    slopes = _Slopes()
+
+    def step(dev):
+        t = trainers[dev]
+        state = ((t.model_params, t.opt_state) if kind == "wavernn"
+                 else (t.gen_params, t.disc_params, t.opt_g, t.opt_d))
+        return t._step(*state, *(x.to(t.device) for x in batch))
+
+    out, secs = {}, {}
+    t0 = time.perf_counter()
+    with slopes.record():
+        out["cpu"] = step("cpu")
+    secs["cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cuda"] = step("cuda")
+    torch.cuda.synchronize()
+    repeat = _same(out["cuda"], step("cuda"))
+    secs["cuda"] = time.perf_counter() - t0
+    with slopes.replay():
+        forced = step("cuda")
+    if slopes.i != len(slopes.masks):
+        raise AssertionError(f"{kind}: {slopes.i} activations on the card, "
+                             f"{len(slopes.masks)} on the CPU")
+    c, r = out["cuda"], out["cpu"]
+    if kind == "wavernn":
+        losses = {"nll": (c[2], r[2])}
+        moments = {"": _moment_errs(c[1], r[1]),
+                   "_forced": _moment_errs(forced[1], r[1])}
+    else:
+        losses = {k: (c[4][k], r[4][k]) for k in r[4]}
+        moments = {"G": _moment_errs(c[2], r[2]),
+                   "D": _moment_errs(c[3], r[3]),
+                   "G_forced": _moment_errs(forced[2], r[2]),
+                   "D_forced": _moment_errs(forced[3], r[3])}
+    res = {"kind": kind, "rows": n, "card_s": secs["cuda"],
+           "cpu_s": secs["cpu"], "repeat_equal": repeat,
+           "losses": {k: float(v[1]) for k, v in losses.items()},
+           "loss_rel": max(abs(float(a) - float(b)) / abs(float(b))
+                           for a, b in losses.values()),
+           "slope_flips": slopes.flips, "slope_inputs": slopes.inputs}
+    for opt, m in moments.items():
+        res.update({f"{key}{opt}": m[key] for key in m if key != "worst"})
+    lim = VOC_LIMITS[kind]
+    print(f"  {kind} step card vs CPU ({n} rows, the trained checkpoint's "
+          f"weights, a fresh Adam; card {res['card_s']:.2f} s for two steps,"
+          f" CPU {res['cpu_s']:.1f} s): losses {res['losses']}, max rel "
+          f"{res['loss_rel']:.2e} (limit {lim['loss_rel']}); the card's "
+          f"step repeated equal bit for bit: {repeat}")
+    print(f"    the CPU's slopes forced on a further card step: "
+          f"{res['slope_flips']} of {res['slope_inputs']} ReLU / leaky-ReLU "
+          "inputs took the other sign on the card")
+    for opt, m in moments.items():
+        opt = opt.replace("_forced", ", slopes forced").lstrip(", ")
+        print(f"    Adam{' of ' + opt if opt else ''}: mu L2 rel "
+              f"{m['mu_l2']:.2e}, sqrt(nu) L2 rel {m['nu_l2']:.2e}; of a "
+              f"tensor's largest: mu {m['mu_max']:.2e}, sqrt(nu) "
+              f"{m['nu_max']:.2e}; furthest off: " + "; ".join(
+                  f"{name} {k} {e:.2e} of {sc:.2e}"
+                  for e, name, k, sc in m["worst"]))
+    bad = [f"{key} {res[key]} > {limit}" for key, limit in lim.items()
+           if not res[key] <= limit]
+    if bad:
+        raise AssertionError(f"{kind} card vs CPU: " + ", ".join(bad))
+    if not repeat:
+        raise AssertionError(f"{kind}: the repeated step differs")
+    return res
+
+
+def _logged_values(trainer, tag: str) -> list:
+    """The values a trainer logged under ``tag``, in step order."""
+    with open(trainer.logger.jsonl_path) as f:
+        rows = [json.loads(line) for line in f]
+    return [r["value"] for r in sorted(rows, key=lambda r: r["step"])
+            if r["tag"] == tag]
+
+
+def _voc_summary(kind: str, recs: list, logged: list, params: dict) -> dict:
+    import statistics
+
+    import torch
+
+    warm = [r["s"] for r in recs[1:]]
+    res = {"steps": len(recs), "step_s_first": recs[0]["s"],
+           "step_s_warm_median": statistics.median(warm),
+           "step_s_warm_range": [min(warm), max(warm)],
+           "samples_per_s": recs[0]["samples"] / statistics.median(warm),
+           "peak_above_bytes": max(r["peak_above_bytes"] for r in recs),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    k = max(len(logged) // 10, 1)
+    res["loss_first"] = sum(logged[:k]) / k
+    res["loss_last"] = sum(logged[-k:]) / k
+    print(f"  {kind}: {len(recs)} steps of {recs[0]['samples']} samples "
+          f"(batch {params['batch_size']}); step wall s first "
+          f"{recs[0]['s']:.3f}, warm median {res['step_s_warm_median']:.4f} "
+          f"[{min(warm):.4f}-{max(warm):.4f}], {res['samples_per_s']:.0f} "
+          f"samples/s; peak device memory of a step "
+          f"{res['peak_above_bytes'] / 2**30:.2f} GiB above what was held; "
+          f"logged loss, mean of the first {k} {res['loss_first']:.4f}, of "
+          f"the last {k} {res['loss_last']:.4f}; {_gpu_line()}")
+    if not all(map(math.isfinite, logged)) or not (
+            res["loss_last"] < res["loss_first"]):
+        raise AssertionError(f"{kind}: the logged loss did not fall")
+    return res
+
+
+def _serving_tts(device):
+    """The shipped Tacotron at full width with seeded random weights and
+    the decoder kernel, every decode its 500 steps (the gate bias at
+    -1e4)."""
+    import torch
+
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        config_from_params,
+    )
+    from msa_tts_tpu_torch.serving import N_SYMBOLS, AdaptiveTTS
+
+    mp = dict(SHIPPED_MODEL, decoder_no_early_stopping=True,
+              n_mel_channels=SHIPPED_AUDIO["n_mels"], n_symbols=N_SYMBOLS)
+    model = Tacotron2NV(config_from_params(mp),
+                        generator=torch.Generator().manual_seed(0))
+    tts = AdaptiveTTS({"model": mp, "audio_params": dict(SHIPPED_AUDIO),
+                       "decode_backend": "cuda"}, model, device=device)
+    with torch.no_grad():       # random weights fire the gate at once
+        tts.model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
+    return tts
+
+
+# K3 on trained weights.  The bf16 sample loop rounds every product's
+# input to bf16, so two loops that sum in other orders round some input
+# the other way now and then (2^-8 of its size).  On random weights that
+# moved the samples by less than GEN_FLIP (phase 8); on the weights phase
+# 14 trains it moves them by about GEN_FLIP, and at a near tie it changes
+# the mixture's choice, after which the loop follows its own samples.
+# In the first run that read it (NVIDIA H100 80GB HBM3, 700 W) phase 8's
+# judgement (the share of samples beyond GEN_FLIP <= GEN_BF16_SHARE)
+# failed: the kernel against the plain loop 1.21e-1, the plain loop on
+# the card against the same loop on the CPU 1.20e-1, 43 of 44 rows
+# parting a median 26 and 30 steps in, after which nothing can be
+# compared.  So the kernel is also run on noise whose mixture choice the
+# noise alone decides (GEN_FORCE added to the gumbel draw's own winner,
+# far beyond any difference of the mixture logits), where the loops
+# cannot part at a tie, and in bf16 held there step by step over all
+# 3,850 steps within GEN_BF16_ATOL, phase 8's per-step bf16 limit: a
+# second run read max|d| 4.6e-3 there (and still a share of 1.19e-1
+# beyond GEN_FLIP).  Phase 8's judgement is printed on both noises, beside
+# the plain bf16 loop on the CPU against the plain loop on the card.
+GEN_FORCE = 1e3
+
+
+def _departure(a, b) -> dict:
+    """Samples of ``a`` and ``b`` (rows, T) further apart than GEN_FLIP:
+    their share, the rows that ever are, the median step of a row's
+    first; and max|d| over the run."""
+    import statistics
+
+    d = (a - b).abs()
+    over = d > GEN_FLIP
+    rows = over.any(dim=1)
+    firsts = [int(over[r].float().argmax()) for r in range(over.shape[0])
+              if rows[r]]
+    return {"share": float(over.float().mean()), "rows": int(rows.sum()),
+            "first_median": statistics.median(firsts) if firsts else None,
+            "max_abs": float(d.max())}
+
+
+def _trained_wavernn_vs_plain(model, cfg, mels, device) -> dict:
+    """K3 on the trained weights against the plain loop: a 544-frame mel
+    of the corpus folds to 44 rows of 3,850 samples (target 2,750, overlap
+    550), the same noise through twins with ``gen_backend`` cuda and
+    torch, in f32 and bf16, on the sampled noise and on the noise with
+    the mixture choice forced (above).  f32 is judged as in phase 8 on
+    both; bf16 is held within GEN_BF16_ATOL on the forced noise, and
+    printed beside the plain bf16 loop on the CPU."""
+    import copy
+
+    import torch
+
+    from msa_tts_tpu_torch.vocoders.wavernn import WaveRNN, generation_noise
+
+    target, overlap = 2_750, 550
+    noise = generation_noise(cfg, torch.Generator().manual_seed(21),
+                             target + 2 * overlap, GEN_B, device=device)
+    n1 = noise[0]
+    noises = {"sampled": noise, "forced": (
+        n1 + GEN_FORCE * torch.nn.functional.one_hot(
+            n1.argmax(-1), n1.shape[-1]).to(n1.dtype), noise[1])}
+    label = f"trained WaveRNN, {GEN_B} rows"
+    res, out = {}, {}
+    for gen_dtype, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+        kern_v, plain_v = (WaveRNN(model, cfg, gen_dtype=gen_dtype,
+                                   gen_backend=b, device=device)
+                           for b in ("cuda", "torch"))
+        padded, _ = kern_v._pad_batch([mels])
+        for name, nz in noises.items():
+            (kern, nf), (plain, _) = (v._run_folded(padded, target,
+                                                    overlap, [nz])
+                                      for v in (kern_v, plain_v))
+            if kern.shape[1] != GEN_B:
+                raise AssertionError(f"{kern.shape[1]} fold rows, want "
+                                     f"{GEN_B}")
+            out[tag, name] = [x.flatten(0, 1).cpu() for x in (kern, plain)]
+    for name in noises:
+        res[f"max_abs_err_f32_{name}"] = _judge_gen(
+            *out["f32", name], cfg.mode, "f32",
+            f"{label}, f32, {name} noise, kernel vs plain loop")
+    # bf16: the plain bf16 loop on the CPU (the same weights, inputs and
+    # noise, other summation orders) beside the kernel
+    cpu_v = WaveRNN(copy.deepcopy(model).cpu(), cfg, gen_dtype="bfloat16",
+                    gen_backend="torch", device="cpu")
+    padded, _ = cpu_v._pad_batch([mels.cpu()])
+    dep, t0 = {}, time.perf_counter()
+    for name, nz in noises.items():
+        plain_cpu, _ = cpu_v._run_folded(padded, target, overlap,
+                                         [tuple(n.cpu() for n in nz)])
+        kern, plain = out["bf16", name]
+        if not torch.isfinite(kern).all() or kern.abs().max() > 1.0:
+            raise AssertionError(f"{label}, bf16: samples not finite or "
+                                 "outside [-1, 1]")
+        dep[name] = {"kernel_vs_plain": _departure(kern, plain),
+                     "plain_vs_plain_cpu": _departure(
+                         plain, plain_cpu.flatten(0, 1))}
+        for pair, v in dep[name].items():
+            print(f"  {label}, bf16, {name} noise, "
+                  f"{pair.replace('_', ' ')}: max|d| {v['max_abs']:.3e}, "
+                  f"share of samples beyond {GEN_FLIP} {v['share']:.3e} "
+                  f"(phase 8's judgement, share <= {GEN_BF16_SHARE}, not "
+                  f"held: {'passes' if v['share'] <= GEN_BF16_SHARE else 'fails'}"
+                  f"), rows ever beyond {v['rows']}/{GEN_B}, median first "
+                  f"step {v['first_median']}")
+    print(f"  (the CPU's plain bf16 loops took "
+          f"{time.perf_counter() - t0:.1f} s)")
+    res["bf16_departures"] = dep
+    res["max_abs_err_bf16_forced"] = dep["forced"]["kernel_vs_plain"][
+        "max_abs"]
+    if not res["max_abs_err_bf16_forced"] <= GEN_BF16_ATOL:
+        raise AssertionError(f"{label}, bf16, forced noise: max|d| "
+                             f"{res['max_abs_err_bf16_forced']} > "
+                             f"{GEN_BF16_ATOL}")
+    return res
+
+
+def vocoder_phase(device) -> dict:
+    """Phase 14: the host feature library built and held to the numpy
+    path; the WaveRNN and HiFi-GAN trainers at the served widths through
+    their entry points (``main``) on a synthetic corpus: step times,
+    samples per second, peak device memory, the logged losses falling;
+    one step of each on the card against the CPU and repeated bit for
+    bit; K3 on the trained WaveRNN against the plain loop in f32 and
+    bf16; and each trained vocoder serving a request (K3's launches
+    there counted, the count set to 0 just before)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch import native as NF
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+    from msa_tts_tpu_torch.ops import audio as A
+    from msa_tts_tpu_torch.utils.checkpoint import load_checkpoint
+    from msa_tts_tpu_torch.utils.convert import (
+        tree_to_state_dict,
+        wavernn_state_dict_from_jax,
+    )
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders.hifigan import Generator, HiFiGAN
+    from msa_tts_tpu_torch.vocoders.wavernn import (
+        WaveRNN,
+        WaveRNNModel,
+        config_from_params,
+    )
+
+    res = {}
+    torch.zeros(1, device=device)       # the allocator, for its statistics
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_voc_")
+    try:
+        corpus = f"{tmp}/corpus"
+        make_synthetic_corpus(corpus, n_speakers=4,
+                              utterances_per_speaker=12, seed=0,
+                              spk_emb_dim=SHIPPED_MODEL[
+                                  "speaker_embedding_dim"])
+        print("  reduced: " + json.dumps(VOC_REDUCED))
+
+        # ---- the host feature library
+        t0 = time.perf_counter()
+        if not NF.native_available():
+            raise AssertionError("the host feature library did not build")
+        res["feats_build_s"] = NF.build_seconds
+        print(f"  feature library {NF.library_path().name}: built in "
+              f"{NF.build_seconds:.1f} s (loaded in "
+              f"{time.perf_counter() - t0:.1f} s)")
+        # tests/test_native_feats.py's mel check: seeded noise of 0.4, 1.0
+        # and 2.3 s through both frontends (the corpus is held below, as
+        # that file's dataset check holds it)
+        rng = np.random.default_rng(0)
+        wavs = [rng.standard_normal(int(22050 * d)).astype(np.float32) * 0.3
+                for d in (0.4, 1.0, 2.3)]
+        lib = {"ap": NF.extract_logmels_batch(wavs, "ap", SHIPPED_AUDIO),
+               "ap2": NF.extract_logmels_batch(wavs, "ap2", VOC_AP2)}
+        ref = {"ap": [A.melspec_ap(w, SHIPPED_AUDIO) for w in wavs],
+               "ap2": [A.melspec_ap2(w[None], VOC_AP2)[0] for w in wavs]}
+        err = max(float(np.abs(m - r).max()) for k in lib
+                  for m, r in zip(lib[k][0], ref[k]))
+        res["feats_mel_max_abs"] = err
+        print(f"  seeded noise, both frontends: library vs numpy max|d| "
+              f"{err:.2e} (limit {FEATS_MEL_ATOL})")
+        if not err <= FEATS_MEL_ATOL:
+            raise AssertionError(f"library features off by {err}")
+
+        # ---- WaveRNN
+        calls = NF.CALLS
+        wp = _voc_params("wavernn", corpus, f"{tmp}/out")
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        wt, recs = _run_vocoder_trainer("wavernn", wp, f"{tmp}/wavernn")
+        res["wavernn_run_s"] = time.perf_counter() - t0
+        if NF.CALLS == calls:
+            raise AssertionError("the trainer's dataset did not use the "
+                                 "feature library")
+        from msa_tts_tpu_torch.dataloaders.dataset import TTSDataset
+        from msa_tts_tpu_torch.dataloaders.metafile import (
+            parse_metafile,
+            split_speakers,
+        )
+
+        splits, _ = split_speakers(parse_metafile(
+            f"{corpus}/metadata.csv"), list(MAML_SPEAKERS), seed=0)
+        t0 = time.perf_counter()
+        np_ds = TTSDataset(splits, "train", dataset_path=corpus,
+                           audio_params=SHIPPED_AUDIO,
+                           use_native_feats=False)
+        t_np = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        TTSDataset(splits, "train", dataset_path=corpus,
+                   audio_params=SHIPPED_AUDIO)
+        t_lib = time.perf_counter() - t0
+        err = max(float(np.abs(a.mel - b.mel).max())
+                  for a, b in zip(wt.dataset.items, np_ds.items))
+        res["feats_dataset_max_abs"] = err
+        res["feats_dataset_s"] = {"library": t_lib, "numpy": t_np}
+        print(f"  the trainer's dataset (library) vs numpy: "
+              f"{len(np_ds)} items, max|d| {err:.2e} (limit "
+              f"{FEATS_DATASET_ATOL}); a split's dataset built in "
+              f"{t_lib:.3f} s with the library, {t_np:.3f} s with numpy")
+        if not err <= FEATS_DATASET_ATOL:
+            raise AssertionError(f"dataset features off by {err}")
+        logged = _logged_values(wt, "train/nll")
+        res["wavernn"] = _voc_summary("wavernn", recs, logged, wp)
+        ckpt = f"{wt.path_manager.checkpoints_path}/wavernn_" \
+               f"{VOC_WAVERNN_STEPS}.ckpt"
+        res["wavernn_card_vs_cpu"] = _voc_card_vs_cpu("wavernn", wp, ckpt,
+                                                      tmp)
+
+        # ---- K3 on the trained weights
+        raw = load_checkpoint(ckpt)
+        cfg = config_from_params(**wp)
+        model = WaveRNNModel(cfg)
+        model.load_state_dict(wavernn_state_dict_from_jax(
+            raw["params"], raw["model_state"], cfg), strict=True)
+        frames = np.concatenate([it.mel for it in wt.dataset.items], 1)
+        mels = torch.from_numpy(frames[:, :544].copy()).to(device)
+        res.update(_trained_wavernn_vs_plain(model, cfg, mels, device))
+
+        # ---- HiFi-GAN
+        hp = _voc_params("hifigan", corpus, f"{tmp}/out")
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        ht, recs = _run_vocoder_trainer("hifigan", hp, f"{tmp}/hifigan")
+        res["hifigan_run_s"] = time.perf_counter() - t0
+        logged = _logged_values(ht, "train/loss_mel")
+        res["hifigan"] = _voc_summary("hifigan", recs, logged, hp)
+        hckpt = f"{ht.path_manager.checkpoints_path}/hifigan_" \
+                f"{VOC_HIFIGAN_STEPS}.ckpt"
+        res["hifigan_card_vs_cpu"] = _voc_card_vs_cpu("hifigan", hp, hckpt,
+                                                      tmp)
+
+        # ---- the trained vocoders served: K3's launches counted
+        tts = _serving_tts(device)
+        tts.attach_vocoder("wavernn", WaveRNN(model, cfg, gen_backend="cuda",
+                                              device=device))
+        gen = Generator(HIFIGAN_V1, VOC_AP2["n_mels"])
+        gen.load_state_dict(tree_to_state_dict(
+            load_checkpoint(hckpt)["generator"]), strict=True)
+        tts.attach_vocoder("hifigan", HiFiGAN.from_params(gen, HIFIGAN_V1))
+        emb = np.random.default_rng(0).standard_normal(
+            tts.cfg.speaker_embedding_dim).astype(np.float32)
+        n_frames = tts.cfg.max_decoder_steps * tts.cfg.n_frames_per_step
+        hop = SHIPPED_AUDIO["hop_length"]
+        torch.cuda.synchronize()
+        G.GEN_LAUNCHES = 0
+        served = {name: tts.synthesize(TEXTS[0], spk_emb=emb, seed=0,
+                                       vocoder=name)
+                  for name in ("wavernn", "hifigan")}
+        torch.cuda.synchronize()
+        res["launches"] = G.GEN_LAUNCHES
+        for name, w in served.items():
+            want = (n_frames - (name == "wavernn")) * hop
+            print(f"  the trained {name} served one request: {len(w)} "
+                  f"samples (want {want}), max |sample| "
+                  f"{float(np.abs(w).max()):.3f}")
+            if (w.shape != (want,) or not np.isfinite(w).all()
+                    or np.abs(w).max() > 1.0 or not np.abs(w).max() > 0):
+                raise AssertionError(f"trained {name}: bad waveform")
+        print(f"  sample-loop launches on the served path: {res['launches']}")
+        if res["launches"] != 1:
+            raise AssertionError(f"{res['launches']} sample-loop launches "
+                                 "for one WaveRNN request")
+        if not os.path.exists(ckpt):
+            raise AssertionError(ckpt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2581,9 +3259,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--only", default=None,
-                    help="comma-separated training phases (12, 13) to run "
-                         "after phase 1 instead of all phases; the kernels "
-                         "line is then not printed")
+                    help="comma-separated training phases (12, 13, 14) to "
+                         "run after phase 1 instead of all phases; the "
+                         "kernels line is then not printed")
     only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2632,7 +3310,8 @@ def main(argv=None) -> int:
         for phase in only.split(","):
             print(f"phase {phase} alone")
             t0 = time.perf_counter()
-            res = {"12": maml_phase, "13": train_phase}[phase](device)
+            res = {"12": maml_phase, "13": train_phase,
+                   "14": vocoder_phase}[phase](device)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
             print(gpu)
             print(json.dumps({phase: res}))
@@ -2728,6 +3407,15 @@ def main(argv=None) -> int:
     print(f"phase 13: {time.perf_counter() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"train": tp}))
+    print("phase 14: the host feature library, WaveRNN and HiFi-GAN v1 "
+          "trained at the served widths through their entry points, card "
+          "vs CPU, the sample-loop kernel on the trained WaveRNN, and both "
+          "trained vocoders served")
+    t0 = time.perf_counter()
+    vp = vocoder_phase(device)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    print(gpu)
+    print(json.dumps({"vocoders": vp}))
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in
@@ -2778,6 +3466,15 @@ def main(argv=None) -> int:
         "library_ms": None,
         "f32": gk["f32"],
         "barrier_us": gk["barrier_us"],
+        # phase 14: one request vocoded by the trained WaveRNN, and the
+        # kernel on its weights against the plain loop (44 rows; the
+        # sampled noise, and the noise with the mixture choice forced)
+        "trained_checkpoint_launches": vp["launches"],
+        "trained_checkpoint_max_abs_err": vp["max_abs_err_f32_sampled"],
+        "trained_checkpoint_max_abs_err_forced": vp["max_abs_err_f32_forced"],
+        "trained_checkpoint_max_abs_err_bf16_forced":
+            vp["max_abs_err_bf16_forced"],
+        "trained_checkpoint_bf16_departures": vp["bf16_departures"],
     }, {
         # one launch is one step: B 16, H 1024, f32 (bf16 under "bf16");
         # ms and library_ms are device times per step inside a 400-step

@@ -2,11 +2,12 @@
 port's own copy of ``msa_tts_tpu/dataloaders/dataset.py``).
 
 Every utterance's log-mel and phoneme ids are computed once, when the
-dataset is built, with the port's own audio ops (``ops/audio.py``,
-equal to the JAX package's numpy path), so that batching is padding
-and stacking only.  The JAX package can also compute the features with
-its host C++ library (``native/feats.cpp``); that library is not
-ported."""
+dataset is built, so that batching is padding and stacking only.  The
+features come from the host C++ library (``native/``: trim, STFT, mel
+and log of the whole split in one threaded call, bit for bit the JAX
+package's) unless ``use_native_feats`` is false or no compiler is
+found; then from the numpy path of ``ops/audio.py``, equal to it to
+float32 rounding."""
 
 from __future__ import annotations
 
@@ -36,6 +37,13 @@ class Item:
     # ER-KD's replay slot: when set, this (soft) mel replaces the ground
     # truth in batching (the reference's dataloader_default_buffer.py)
     soft_mel: np.ndarray | None = None
+    # the wav file, for consumers of the waveform (the vocoder trainers)
+    audio_path: str | None = None
+    # the silence-trim slice (start, end) into the loaded waveform that
+    # gave ``mel``; None when untrimmed.  A consumer pairing mel frames
+    # with samples applies it, or frame 0 and sample 0 are apart by the
+    # leading silence.
+    trim: tuple | None = None
 
     @property
     def mel_for_training(self) -> np.ndarray:
@@ -65,7 +73,9 @@ class TTSDataset:
                  trim_margin_silence: bool = False,
                  ref_level_db: float = 26, audio_processor: str = "ap",
                  audio_params: dict, g2p: Grapheme2Phoneme | None = None,
-                 spk_emb_dict: dict | None = None):
+                 spk_emb_dict: dict | None = None,
+                 use_native_feats: bool = True,
+                 feats_threads: int | None = None):
         self.mode = mode
         self.audio_processor = audio_processor
         self.audio_params = audio_params
@@ -77,24 +87,41 @@ class TTSDataset:
 
         sr = audio_params["sample_rate"]
         self.items: list[Item] = []
+        wavs: list[np.ndarray] = []
         for speaker, split in splits.items():
             utts: list[Utterance] = getattr(split, mode)
             for itr, u in enumerate(utts):
                 seq, _ = g2p.convert(u.phonemes, convert_mode="phone_to_idx")
                 path = resolve_audio_path(dataset_path, audio_folder,
                                           speaker, u.filename, len(splits))
-                wav = A.load_wav(path, target_sample_rate=sr)
-                if trim_margin_silence:
-                    start, end = A.trim_margin_silence_slice(
-                        wav, ref_level_db=ref_level_db)
-                    wav = wav[start:end]
+                wavs.append(A.load_wav(path, target_sample_rate=sr))
                 self.items.append(Item(
-                    phonemes=np.asarray(seq, dtype=np.int32),
-                    mel=compute_logmel(wav, audio_processor, audio_params),
+                    phonemes=np.asarray(seq, dtype=np.int32), mel=None,
                     spk_emb=spk_emb_dict[speaker], speaker=speaker,
                     speaker_id=self.speaker_to_id[speaker],
                     item_id=f"{speaker}_{itr}", duration=u.duration,
+                    audio_path=path,
                 ))
+        native_out = None
+        if use_native_feats:
+            from ..native import extract_logmels_batch
+
+            native_out = extract_logmels_batch(
+                wavs, audio_processor, audio_params,
+                trim_margin_silence=trim_margin_silence,
+                ref_level_db=ref_level_db, n_threads=feats_threads)
+        if native_out is not None:
+            for item, mel, sl in zip(self.items, *native_out):
+                item.mel = mel
+                if trim_margin_silence:
+                    item.trim = (int(sl[0]), int(sl[1]))
+        else:
+            for item, wav in zip(self.items, wavs):
+                if trim_margin_silence:
+                    item.trim = A.trim_margin_silence_slice(
+                        wav, ref_level_db=ref_level_db)
+                    wav = wav[item.trim[0]:item.trim[1]]
+                item.mel = compute_logmel(wav, audio_processor, audio_params)
         self._by_speaker: dict[str, list[Item]] = {}
         for it in self.items:
             self._by_speaker.setdefault(it.speaker, []).append(it)

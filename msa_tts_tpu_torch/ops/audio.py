@@ -1,7 +1,9 @@
 """Audio DSP (counterpart of ``msa_tts_tpu/ops/audio.py``): STFT/ISTFT,
 the mel filterbanks and the HTK one's pseudo-inverse, Griffin-Lim, the
 "ap" and "ap2" log-mel frontends and silence trimming (host numpy, for
-adaptation clips), and wav input and output.
+datasets and adaptation clips), MFCCs and a differentiable "ap2" log-mel
+on the device (the HiFi-GAN trainer's mel loss), and wav input and
+output (resampling through the host library of ``native/``).
 
 The transforms follow the JAX package's formulation (framing + rfft;
 overlap-add with squared-window normalisation) rather than
@@ -287,6 +289,66 @@ def melspec_ap2(wav: np.ndarray, audio_params: dict) -> np.ndarray:
     return dynamic_range_compression(mel)
 
 
+def mfcc(wav, audio_params: dict):
+    """MFCCs ``(..., n_mfcc, n_frames)`` of a waveform tensor on its
+    device: the "ap" power mel (:func:`stft`, HTK filterbank), ``log(mel
+    + 1e-6)``, then an orthonormal DCT-II over the mel axis."""
+    p = audio_params
+    spec = stft(wav, p["n_fft"], p["win_length"], p["hop_length"],
+                center=True, power=2.0)
+    fb = torch.from_numpy(mel_filterbank(
+        p["n_fft"] // 2 + 1, p["f_min"], p["f_max"], p["n_mels"],
+        p["sample_rate"])).to(wav.device)
+    log_mel = torch.log((spec.transpose(-1, -2) @ fb).transpose(-1, -2)
+                        + 1e-6)
+    n_mels, n_mfcc = p["n_mels"], p["n_mfcc"]
+    n, k = np.arange(n_mels), np.arange(n_mfcc)
+    dct = np.cos(math.pi / n_mels * (n[None, :] + 0.5) * k[:, None])
+    dct *= math.sqrt(2.0 / n_mels)
+    dct[0] *= 1.0 / math.sqrt(2.0)
+    dct = torch.from_numpy(dct.astype(np.float32)).to(wav.device)
+    return torch.einsum("km,...mt->...kt", dct, log_mel)
+
+
+# --------------------------------------------------------------------------
+# The "ap2" log-mel on the device, differentiable (the HiFi-GAN trainer's
+# mel loss of generated audio)
+# --------------------------------------------------------------------------
+
+def reflect_pad(x, left: int, right: int):
+    """Reflect padding of the last axis (``np.pad(mode="reflect")``), from
+    slices and ``flip``: its backward is a gather-free sum of slices,
+    where ``F.pad(mode="reflect")``'s CUDA backward accumulates with
+    atomics and so does not repeat bit for bit."""
+    parts = [x]
+    if left:
+        parts.insert(0, x[..., 1: left + 1].flip(-1))
+    if right:
+        parts.append(x[..., -right - 1: -1].flip(-1))
+    return torch.cat(parts, dim=-1)
+
+
+def melspec_ap2_torch(wav, audio_params: dict):
+    """:func:`melspec_ap2` of a waveform tensor ``(..., T)`` on its
+    device, differentiable: reflect pad by ``(n_fft - hop) / 2``, the
+    STFT without centring (``center: true`` pads once more, as the numpy
+    path does), ``sqrt(re² + im² + 1e-9)`` (the 1e-9 keeps the gradient
+    finite at a zero bin), the Slaney filterbank, ``log(max(., 1e-5))``."""
+    p = audio_params
+    n_fft, hop, win = p["n_fft"], p["hop_size"], p["win_size"]
+    pad = (n_fft - hop) // 2
+    wav = reflect_pad(wav, pad, pad)
+    if p.get("center", False):
+        wav = reflect_pad(wav, n_fft // 2, n_fft // 2)
+    spec = stft(wav, n_fft, win, hop, center=False, power=None)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    fb = torch.from_numpy(mel_filterbank(
+        n_fft // 2 + 1, p["fmin"], p["fmax"], p["n_mels"],
+        p["sample_rate"], mel_scale="slaney", norm="slaney")).to(wav.device)
+    mel = (mag.transpose(-1, -2) @ fb).transpose(-1, -2)
+    return torch.log(torch.clamp_min(mel, 1e-5))
+
+
 def trim_margin_silence_slice(wav: np.ndarray, ref_level_db: float = 26,
                               frame_length: int = 1024,
                               hop_length: int = 256) -> tuple[int, int]:
@@ -325,9 +387,9 @@ def trim_margin_silence(wav: np.ndarray, ref_level_db: float = 26,
 
 def load_wav(path: str, target_sample_rate: int | None = None) -> np.ndarray:
     """Load a wav file's first channel, normalised to peak 1.0, resampled
-    (scipy polyphase) when its rate differs from ``target_sample_rate``."""
-    import math
-
+    when its rate differs from ``target_sample_rate``: by the host
+    library's polyphase engine (``native.resample``), or by
+    ``scipy.signal.resample_poly`` (the same filter) without it."""
     from scipy.io import wavfile
 
     sr, data = wavfile.read(path)
@@ -338,12 +400,17 @@ def load_wav(path: str, target_sample_rate: int | None = None) -> np.ndarray:
     if peak > 0:
         data = data / peak
     if target_sample_rate is not None and sr != target_sample_rate:
-        from scipy.signal import resample_poly
+        from ..native import resample
 
-        g = math.gcd(int(target_sample_rate), int(sr))
-        data = resample_poly(
-            data, int(target_sample_rate) // g, int(sr) // g
-        ).astype(np.float32)
+        out = resample(data, int(sr), int(target_sample_rate))
+        if out is None:
+            from scipy.signal import resample_poly
+
+            g = math.gcd(int(target_sample_rate), int(sr))
+            out = resample_poly(
+                data, int(target_sample_rate) // g, int(sr) // g
+            ).astype(np.float32)
+        data = out
     return data
 
 

@@ -202,6 +202,15 @@ def make_optimizer(optim_cfg: dict) -> Transform:
     return chain(*steps, scale(-lr))
 
 
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> Transform:
+    """``optax.adamw``: Adam's scaling, the decay added after it (kept in
+    the chain at a decay of 0, so that the state has optax's three
+    entries), then the step of ``-lr``."""
+    return chain(scale_by_adam(b1, b2, eps),
+                 add_decayed_weights(weight_decay), scale(-lr))
+
+
 def clip_by_global_norm(grads: dict, max_norm: float):
     """Global-norm clipping: returns ``(clipped, the norm before)``; the
     scale is ``min(1, max_norm / max(norm, 1e-6))``."""

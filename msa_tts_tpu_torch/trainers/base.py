@@ -56,6 +56,8 @@ from ..utils.checkpoint import (
     AsyncCheckpointer,
     load_checkpoint,
     load_partial_params,
+    opt_from_tree,
+    opt_to_tree,
     restore_like,
     save_checkpoint,
     wait_all_checkpoints,
@@ -348,31 +350,15 @@ class TrainerBase:
     def _opt_to_tree(self, state):
         """The optimizer state as a checkpoint writes it: per-parameter
         dictionaries as the JAX params tree, empty states as ``{}``."""
-        if state is None:
-            return {}
-        if isinstance(state, dict):
-            if state.keys() == set(self.param_names):
-                return self._params_tree(state)
-            return {k: self._opt_to_tree(v) for k, v in state.items()}
-        if isinstance(state, (list, tuple)):
-            return [self._opt_to_tree(v) for v in state]
-        return state
+        return opt_to_tree(state, set(self.param_names), self._params_tree)
 
     def _opt_from_tree(self, template, raw, state_tree):
         """The inverse of :meth:`_opt_to_tree`, in ``template``'s
         structure, types and device (``state_tree``: the checkpoint's
         ``model_state``, which the key mapping reads alongside)."""
-        if isinstance(template, dict):
-            if template.keys() == set(self.param_names):
-                return restore_like(template, state_dict_from_jax(
-                    raw, state_tree, self.cfg))
-            return {k: self._opt_from_tree(v, raw[k], state_tree)
-                    for k, v in template.items()}
-        if isinstance(template, (list, tuple)):
-            return type(template)(
-                self._opt_from_tree(v, raw[str(i)], state_tree)
-                for i, v in enumerate(template))
-        return restore_like(template, raw)
+        return opt_from_tree(
+            template, raw, set(self.param_names),
+            lambda tree: state_dict_from_jax(tree, state_tree, self.cfg))
 
     def _ckpt_payload(self) -> dict:
         ts = self.train_state

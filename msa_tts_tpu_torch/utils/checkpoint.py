@@ -13,7 +13,8 @@ scalars.  Writes are atomic (``.tmp``, then a rename);
 :class:`AsyncCheckpointer` copies a payload to the host at once and
 writes it on a thread (a ``.ckpt``, or a pickle that carries one);
 :func:`restore_like` puts a decoded tree back into a template's structure
-and tensors.
+and tensors; :func:`opt_to_tree` / :func:`opt_from_tree` carry an
+optimizer state (``optim.py``) to and from the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -325,6 +326,37 @@ def restore_like(template, restored):
     if isinstance(template, np.ndarray):
         return np.asarray(restored, dtype=template.dtype)
     return type(template)(restored)
+
+
+def opt_to_tree(state, names: set, to_tree):
+    """An optimizer state (``optim.py``) as the JAX package's checkpoint
+    holds it: per-parameter dictionaries (keyed by ``names``) through
+    ``to_tree``, empty states as ``{}``."""
+    if state is None:
+        return {}
+    if isinstance(state, dict):
+        if state.keys() == names:
+            return to_tree(state)
+        return {k: opt_to_tree(v, names, to_tree) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [opt_to_tree(v, names, to_tree) for v in state]
+    return state
+
+
+def opt_from_tree(template, raw, names: set, from_tree):
+    """The inverse of :func:`opt_to_tree` in ``template``'s structure,
+    types and device (``from_tree``: a checkpoint's per-parameter tree →
+    ``{name: tensor}``)."""
+    if isinstance(template, dict):
+        if template.keys() == names:
+            sd = from_tree(raw)
+            return restore_like(template, {k: sd[k] for k in template})
+        return {k: opt_from_tree(v, raw[k], names, from_tree)
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(opt_from_tree(v, raw[str(i)], names, from_tree)
+                              for i, v in enumerate(template))
+    return restore_like(template, raw)
 
 
 def load_partial_params(params: dict, ckpt_params: dict, *,

@@ -4,7 +4,13 @@ Counterpart of ``msa_tts_tpu/utils/torch_import.py`` (its
 ``state_dict_to_pytrees`` and ``pytrees_to_state_dict``): the same key
 mapping between nested dicts of numpy arrays (a JAX ``(params, state)``
 pair after ``jax.device_get``, or a restored checkpoint) and the torch
-tensors that ``Tacotron2NV.load_state_dict(..., strict=True)`` takes.
+tensors that ``Tacotron2NV.load_state_dict(..., strict=True)`` takes;
+and both ways for the vocoders' trees: WaveRNN's ``(params, state)``,
+and by :func:`tree_to_state_dict` / :func:`state_dict_to_tree` the
+HiFi-GAN generator's and its discriminators' (whose modules are named as
+the JAX trees nest, so their keys are the trees' paths).
+In every input tree a list may also be a restored checkpoint's
+``{"0": ..., "1": ...}`` map.
 """
 
 from __future__ import annotations
@@ -132,6 +138,50 @@ def jax_from_state_dict(sd: dict, cfg: ModelConfig):
 
 # ------------------------------------------------------------- vocoders
 
+def _seq(node) -> list:
+    """A list of a tree, or of a restored checkpoint's ``{"0": ...}``
+    map."""
+    if isinstance(node, dict):
+        return [node[str(i)] for i in range(len(node))]
+    return list(node)
+
+
+def tree_to_state_dict(tree, prefix: str = "") -> dict:
+    """A nested tree of arrays as ``{dotted path: float32 tensor}``
+    (list entries by index): the ``state_dict`` of a module named as the
+    tree nests."""
+    if isinstance(tree, (list, tuple)):
+        tree = dict(enumerate(tree))
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: _t(tree)}
+    out = {}
+    for k, v in tree.items():
+        out.update(tree_to_state_dict(v, f"{prefix}{k}."))
+    return out
+
+
+def state_dict_to_tree(sd: dict):
+    """The inverse of :func:`tree_to_state_dict`: nested dicts, with
+    lists where every key of a level is an index, of float32 numpy
+    arrays."""
+    root: dict = {}
+    for key, v in sd.items():
+        node = root
+        *path, last = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v.detach().to("cpu", torch.float32).numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
 def _bn(sd: dict, base: str, p: dict, s: dict):
     sd[f"{base}.weight"] = _t(p["weight"])
     sd[f"{base}.bias"] = _t(p["bias"])
@@ -153,7 +203,8 @@ def wavernn_state_dict_from_jax(params_np: dict, state_np: dict,
     rs = state_np["upsample"]["resnet"]
     sd[f"{rn}.conv_in.weight"] = _t(rp["conv_in"]["weight"])
     _bn(sd, f"{rn}.batch_norm", rp["batch_norm"], rs["batch_norm"])
-    for i, (layer, st) in enumerate(zip(rp["layers"], rs["layers"])):
+    for i, (layer, st) in enumerate(zip(_seq(rp["layers"]),
+                                        _seq(rs["layers"]))):
         base = f"{rn}.layers.{i}"
         sd[f"{base}.conv1.weight"] = _t(layer["conv1"]["weight"])
         sd[f"{base}.conv2.weight"] = _t(layer["conv2"]["weight"])
@@ -165,37 +216,75 @@ def wavernn_state_dict_from_jax(params_np: dict, state_np: dict,
     sd[f"{rn}.conv_out.bias"] = _t(rp["conv_out"]["bias"])
     # the module list interleaves [stretch, conv]: convs at odd indices,
     # stored as (1, 1, 1, k)
-    for i, conv in enumerate(params_np["upsample"]["up_convs"]):
+    for i, conv in enumerate(_seq(params_np["upsample"]["up_convs"])):
         sd[f"upsample.up_layers.{2 * i + 1}.weight"] = _t(
             np.asarray(conv["weight"])[:, :, None, :])
     for name in ("I", "fc1", "fc2", "fc3"):
         sd[f"{name}.weight"] = _t(params_np[name]["weight"])
         sd[f"{name}.bias"] = _t(params_np[name]["bias"])
     for name in ("rnn1", "rnn2"):
-        for k in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+        for k in _LSTM:
             sd[f"{name}.{k}_l0"] = _t(params_np[name][k])
     return sd
 
 
+def wavernn_jax_from_state_dict(sd: dict, cfg):
+    """The inverse of :func:`wavernn_state_dict_from_jax`: the JAX
+    package's WaveRNN ``(params, state)`` trees, as its ``init_wavernn``
+    lays them out, of float32 numpy arrays.  ``sd`` may hold the
+    parameters alone (gradients, Adam's moments): the state is then
+    None."""
+    def a(key):
+        return sd[key].detach().to("cpu", torch.float32).numpy()
+
+    def bn(base):
+        return ({"weight": a(f"{base}.weight"), "bias": a(f"{base}.bias")},
+                {"running_mean": a(f"{base}.running_mean"),
+                 "running_var": a(f"{base}.running_var")}
+                if f"{base}.running_mean" in sd else None)
+
+    rn = "upsample.resnet"
+    bn_p, bn_s = bn(f"{rn}.batch_norm")
+    layers, layers_s = [], []
+    for i in range(cfg.res_blocks):
+        base = f"{rn}.layers.{i}"
+        (p1, s1), (p2, s2) = bn(f"{base}.batch_norm1"), bn(
+            f"{base}.batch_norm2")
+        layers.append({"conv1": {"weight": a(f"{base}.conv1.weight")},
+                       "conv2": {"weight": a(f"{base}.conv2.weight")},
+                       "batch_norm1": p1, "batch_norm2": p2})
+        layers_s.append({"batch_norm1": s1, "batch_norm2": s2})
+    resnet = {"conv_in": {"weight": a(f"{rn}.conv_in.weight")},
+              "batch_norm": bn_p, "layers": layers,
+              "conv_out": {"weight": a(f"{rn}.conv_out.weight"),
+                           "bias": a(f"{rn}.conv_out.bias")}}
+    n_up = len(cfg.upsample_factors) if cfg.use_upsample_net else 0
+    params = {"upsample": {"resnet": resnet, "up_convs": [
+        {"weight": a(f"upsample.up_layers.{2 * i + 1}.weight")[:, :, 0, :]}
+        for i in range(n_up)]}}
+    for name in ("I", "fc1", "fc2", "fc3"):
+        params[name] = {"weight": a(f"{name}.weight"),
+                        "bias": a(f"{name}.bias")}
+    for name in ("rnn1", "rnn2"):
+        params[name] = {k: a(f"{name}.{k}_l0") for k in _LSTM}
+    state = (None if bn_s is None else
+             {"upsample": {"resnet": {"batch_norm": bn_s,
+                                      "layers": layers_s}}})
+    return params, state
+
+
 def hifigan_state_dict_from_jax(params_np: dict, h: dict) -> dict:
     """The HiFi-GAN generator ``state_dict`` (plain, already fused
-    weights) of a JAX generator pytree given as nested dicts/lists of
+    weights) of a JAX generator tree given as nested dicts/lists of
     numpy arrays: the inverse of the JAX package's
     ``generator_params_from_state_dict``.
     ``vocoders.hifigan.Generator(h, n_mels)`` loads it with
-    ``strict=True``."""
-    sd: dict = {}
+    ``strict=True`` (``h``, the config, names the same modules: its
+    modules nest as the tree does)."""
+    return tree_to_state_dict(params_np)
 
-    def conv(base, p):
-        sd[f"{base}.weight"] = _t(p["weight"])
-        sd[f"{base}.bias"] = _t(p["bias"])
 
-    conv("conv_pre", params_np["conv_pre"])
-    for i, p in enumerate(params_np["ups"]):
-        conv(f"ups.{i}", p)
-    for i, block in enumerate(params_np["resblocks"]):
-        for group, convs in block.items():       # convs1/convs2 or convs
-            for j, p in enumerate(convs):
-                conv(f"resblocks.{i}.{group}.{j}", p)
-    conv("conv_post", params_np["conv_post"])
-    return sd
+def hifigan_jax_from_state_dict(sd: dict) -> dict:
+    """The JAX package's generator tree of a :class:`Generator`
+    ``state_dict`` (or of any dictionary under its parameter names)."""
+    return state_dict_to_tree(sd)

@@ -7,7 +7,8 @@ checkpoint stores weight-normed convolutions (``weight_g``, ``weight_v``);
 the importer fuses them (g·v/‖v‖) at load time, so :class:`Generator`
 holds plain convolutions under the checkpoint's module names and
 inference runs them as they are (cuDNN on a GPU).  The discriminators
-and GAN losses belong to the vocoder trainers and are not here yet.
+and GAN losses are in ``hifigan_discriminators.py``; the trainer
+(``trainers/hifigan_train.py``) trains the plain convolutions.
 
 Config is the standard HiFi-GAN JSON (``resblock``, ``upsample_rates``,
 ``upsample_kernel_sizes``, ``upsample_initial_channel``,
@@ -77,7 +78,7 @@ class Generator(nn.Module):
     def __init__(self, h: dict, n_mels: int = 80,
                  generator: torch.Generator | None = None):
         super().__init__()
-        h = AttrDict(h)
+        h = self.h = AttrDict(h)
         ch = h.upsample_initial_channel
         self.conv_pre = nn.Conv1d(n_mels, ch, 7, padding=3)
         self.ups = nn.ModuleList()
@@ -101,6 +102,10 @@ class Generator(nn.Module):
                         p.copy_(0.01 * torch.randn(
                             p.shape, generator=generator,
                             device=generator.device))
+
+    def forward(self, mel):
+        """(B, n_mels, T) log-mel → waveform (B, T·hop)."""
+        return generator_apply(self, self.h, mel)
 
 
 # --------------------------------------------------------------------------

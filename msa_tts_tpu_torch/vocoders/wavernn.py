@@ -13,8 +13,17 @@ The sampling noise is pre-drawn (from an explicit ``torch.Generator``,
 or injected as tensors), so both loops compute the same function of the
 same inputs.
 
-The two training losses and the samplers that draw their own noise are
-not in this module yet: they belong to the vocoder trainers.
+Training (``trainers/wavernn_train.py``): :func:`wavernn_forward` runs
+the GRUs as ``nn.GRU`` (cuDNN on a GPU) under
+``torch.func.functional_call`` (``WaveRNNModel.forward``), and
+:func:`discretized_mix_logistic_loss` / :func:`gaussian_loss` score its
+logits.  The batch norms of the conditioning network normalise with
+their running statistics in training too (fixed preprocessing, as in the
+JAX package); :func:`melresnet_apply` with ``train=True`` gives the
+batch-statistics pass and the statistics it would leave.  The samplers
+that draw their own noise (:func:`sample_from_discretized_mix_logistic`,
+:func:`sample_from_gaussian`) take a ``torch.Generator`` or the draws
+themselves.
 """
 
 from __future__ import annotations
@@ -29,8 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.nn import batchnorm1d, uniform_
-from ..ops.rnn import gru, init_gru_
+from ..ops.nn import batchnorm1d, batchnorm1d_train, uniform_
+from ..ops.rnn import init_gru_
 from ..utils.backend import load_device, resolve_kernel_backend
 
 LOG_SCALE_MIN = float(np.log(1e-14))
@@ -97,11 +106,6 @@ class ResBlock(nn.Module):
         self.batch_norm1 = nn.BatchNorm1d(dims)
         self.batch_norm2 = nn.BatchNorm1d(dims)
 
-    def forward(self, x):
-        y = F.relu(batchnorm1d(self.batch_norm1, self.conv1(x)))
-        y = batchnorm1d(self.batch_norm2, self.conv2(y))
-        return y + x
-
 
 class MelResNet(nn.Module):
     """(B, n_mels, T) → (B, res_out, T − 2·pad); the batch norms
@@ -118,14 +122,43 @@ class MelResNet(nn.Module):
         self.conv_out = nn.Conv1d(c, cfg.res_out_dims, 1)
 
     def forward(self, x):
-        x = F.relu(batchnorm1d(self.batch_norm, self.conv_in(x)))
-        for layer in self.layers:
-            x = layer(x)
-        return self.conv_out(x)
+        return melresnet_apply(self, x)
 
 
-def melresnet_apply(resnet: MelResNet, x):
-    return resnet(x)
+def melresnet_apply(resnet: MelResNet, x, *, train: bool = False):
+    """The conditioning network.  ``train=False``: the batch norms use
+    their running statistics, and the output is returned.  ``train=True``:
+    they normalise with the batch's statistics, and ``(output, new
+    statistics)`` is returned, the statistics as ``{buffer name:
+    tensor}`` under the resnet's ``state_dict`` names (``batch_norm.
+    running_mean``, ``layers.0.batch_norm1.running_var``, ...), moved
+    toward the batch's as torch's momentum 0.1 moves them; the module's
+    buffers are read, never written."""
+    new = {}
+
+    def bn(name, mod, y):
+        if not train:
+            return batchnorm1d(mod, y)
+        y, (mean, var) = batchnorm1d_train(mod, y)
+        new[f"{name}.running_mean"], new[f"{name}.running_var"] = mean, var
+        return y
+
+    x = F.relu(bn("batch_norm", resnet.batch_norm, resnet.conv_in(x)))
+    for i, layer in enumerate(resnet.layers):
+        y = F.relu(bn(f"layers.{i}.batch_norm1", layer.batch_norm1,
+                      layer.conv1(x)))
+        x = bn(f"layers.{i}.batch_norm2", layer.batch_norm2,
+               layer.conv2(y)) + x
+    out = resnet.conv_out(x)
+    return (out, new) if train else out
+
+
+def stretch_time(x, scale: int):
+    """Nearest-neighbour stretch of the last axis by ``scale`` (each
+    value repeated): an expand and a reshape, whose backward is a sum
+    over the copies (``repeat_interleave``'s goes through an index)."""
+    return x.unsqueeze(-1).expand(*x.shape, scale).reshape(
+        *x.shape[:-1], x.shape[-1] * scale)
 
 
 class Stretch2d(nn.Module):
@@ -137,7 +170,7 @@ class Stretch2d(nn.Module):
         self.scale = int(scale)
 
     def forward(self, x):
-        return x.repeat_interleave(self.scale, dim=-1)
+        return stretch_time(x, self.scale)
 
 
 class UpsampleNetwork(nn.Module):
@@ -195,8 +228,7 @@ def upsample_apply(up: UpsampleNetwork, cfg: WaveRNNConfig, mels):
 
     total_scale = int(np.prod(cfg.upsample_factors))
     if cfg.use_aux_net:
-        aux = up.resnet(mels).repeat_interleave(total_scale, dim=-1)
-        aux = aux.transpose(1, 2)
+        aux = stretch_time(up.resnet(mels), total_scale).transpose(1, 2)
     m = mels
     B, C, _ = m.shape
     for i, s in enumerate(cfg.upsample_factors):
@@ -246,9 +278,16 @@ class WaveRNNModel(nn.Module):
         init_gru_(self.rnn2, generator)
 
 
+    def forward(self, x, mels):
+        """Teacher-forced logits with the GRUs as ``nn.GRU``: the
+        training forward, for ``torch.func.functional_call``."""
+        return wavernn_forward(self, self.cfg, x, mels)
+
+
 def wavernn_forward(model: WaveRNNModel, cfg: WaveRNNConfig, x, mels):
     """Teacher-forced pass.  x: (B, T) previous samples; mels:
-    (B, n_mels, T_mel) → logits (B, T, n_classes)."""
+    (B, n_mels, T_mel) → logits (B, T, n_classes).  Each GRU is one
+    ``nn.GRU`` call (cuDNN on a GPU)."""
     mels_up, aux = upsample_apply(model.upsample, cfg, mels)
     d = cfg.aux_dims
     if cfg.use_aux_net:
@@ -257,14 +296,105 @@ def wavernn_forward(model: WaveRNNModel, cfg: WaveRNNConfig, x, mels):
     else:
         inp = torch.cat([x[:, :, None], mels_up], dim=2)
     h = model.I(inp)
-    h = gru(model.rnn1, h) + h
+    h = model.rnn1(h)[0] + h
     h2_in = torch.cat([h, a2], dim=2) if cfg.use_aux_net else h
-    h = gru(model.rnn2, h2_in) + h
+    h = model.rnn2(h2_in)[0] + h
     h = torch.cat([h, a3], dim=2) if cfg.use_aux_net else h
     h = F.relu(model.fc1(h))
     h = torch.cat([h, a4], dim=2) if cfg.use_aux_net else h
     h = F.relu(model.fc2(h))
     return model.fc3(h)
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-logistics and Gaussian outputs: losses and samplers
+# --------------------------------------------------------------------------
+
+def _floor(x, value: float):
+    """``max(x, value)`` against a tensor: at a tie the gradient splits
+    0.5 / 0.5 as ``jnp.maximum``'s does (``clamp_min`` passes all of it)."""
+    return torch.maximum(x, torch.full_like(x, value))
+
+
+def discretized_mix_logistic_loss(y_hat, y, num_classes: int = 65536,
+                                  log_scale_min: float = LOG_SCALE_MIN):
+    """Mean negative log-likelihood of ``y`` (B, T, 1) in [−1, 1] under
+    the discretized logistic mixture ``y_hat`` (B, T, 3·K): the CDF's
+    tails at the ±1 edges, the log of the bin's mass where it exceeds
+    1e-5, else the log density at the bin centre."""
+    K = y_hat.shape[-1] // 3
+    logit_probs = y_hat[..., :K]
+    means = y_hat[..., K: 2 * K]
+    log_scales = _floor(y_hat[..., 2 * K:], log_scale_min)
+    centered = y - means
+    inv_stdv = torch.exp(-log_scales)
+    plus_in = inv_stdv * (centered + 1.0 / (num_classes - 1))
+    min_in = inv_stdv * (centered - 1.0 / (num_classes - 1))
+    cdf_delta = torch.sigmoid(plus_in) - torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - F.softplus(plus_in)
+    log_one_minus_cdf_min = -F.softplus(min_in)
+    mid_in = inv_stdv * centered
+    log_pdf_mid = mid_in - log_scales - 2.0 * F.softplus(mid_in)
+    inner = torch.where(cdf_delta > 1e-5,
+                        torch.log(_floor(cdf_delta, 1e-12)),
+                        log_pdf_mid - float(np.log((num_classes - 1) / 2)))
+    log_probs = torch.where(
+        y < -0.999, log_cdf_plus,
+        torch.where(y > 0.999, log_one_minus_cdf_min, inner))
+    log_probs = log_probs + F.log_softmax(logit_probs, dim=-1)
+    return -torch.logsumexp(log_probs, dim=-1).mean()
+
+
+def gaussian_loss(y_hat, y, log_std_min: float = LOG_STD_MIN):
+    """The Gaussian output's loss as the JAX package writes it (the mean
+    of ``-0.5 · (−log 2π − 2·log σ − (y − μ)² / σ²)``)."""
+    mean = y_hat[..., :1]
+    log_std = _floor(y_hat[..., 1:], log_std_min)
+    log_probs = -0.5 * (-math.log(2.0 * math.pi) - 2.0 * log_std
+                        - (y - mean) ** 2 * torch.exp(-2.0 * log_std))
+    return log_probs.mean()
+
+
+def _uniform(shape, generator, device):
+    """U(1e-5, 1 − 1e-5), the range both samplers draw from."""
+    lo, hi = 1e-5, 1.0 - 1e-5
+    return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                       device=device)
+
+
+def sample_from_discretized_mix_logistic(logits, generator=None, *, u1=None,
+                                         u2=None,
+                                         log_scale_min: float = LOG_SCALE_MIN):
+    """logits (B, 3·K) → samples (B,) in [−1, 1]: the component by the
+    Gumbel-max of ``u1`` (B, K), the sample by the logistic of ``u2``
+    (B,), both uniform in (1e-5, 1 − 1e-5), drawn from ``generator``
+    where not given."""
+    K = logits.shape[-1] // 3
+    if u1 is None:
+        u1 = _uniform(logits[:, :K].shape, generator, logits.device)
+    if u2 is None:
+        u2 = _uniform(logits.shape[:1], generator, logits.device)
+    sel = torch.argmax(logits[:, :K] - torch.log(-torch.log(u1)), dim=-1,
+                       keepdim=True)
+    mean = logits[:, K: 2 * K].gather(1, sel)[:, 0]
+    log_scale = _floor(logits[:, 2 * K:], log_scale_min).gather(1, sel)[:, 0]
+    x = mean + torch.exp(log_scale) * (torch.log(u2) - torch.log1p(-u2))
+    return torch.clamp(x, -1.0, 1.0)
+
+
+def sample_from_gaussian(y_hat, generator=None, *, eps=None,
+                         log_std_min: float = LOG_STD_MIN,
+                         scale_factor: float = 1.0):
+    """y_hat (..., 2) → samples clipped to ±``scale_factor``: mean plus
+    σ times ``eps``, a standard normal drawn from ``generator`` where not
+    given."""
+    mean = y_hat[..., 0]
+    log_std = _floor(y_hat[..., 1], log_std_min)
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator,
+                          device=mean.device)
+    return torch.clamp(mean + torch.exp(log_std) * eps, -scale_factor,
+                       scale_factor)
 
 
 # --------------------------------------------------------------------------

@@ -1380,3 +1380,171 @@ def test_joint_prefetch_on_the_card(device):
         # read on the compute stream right away: the copy has landed
         assert torch.equal(g["x"].cpu(), torch.from_numpy(h["x"]))
         assert torch.equal(g["i"].cpu(), torch.from_numpy(h["i"]).long())
+
+
+# ---------------------------------------------------------------------
+# The vocoder trainers on the card (trainers/{wavernn,hifigan}_train.py)
+# ---------------------------------------------------------------------
+# One float32 step (TF32 off) on the card and on the CPU from the same
+# initial weights (drawn on the CPU; the HiFi-GAN generator's scaled by 20:
+# the recipe's N(0, 0.01) leaves the tiny generator's output at 1e-5 and
+# its gradients at 1e-11 to 1e-7, where Adam's first step turns rounding
+# into steps of lr) and batch: the loss (each of HiFi-GAN's three) within
+# 1e-5 relative; Adam's moments after it (mu: the gradient; the square
+# root of nu: its magnitude) as the relative L2 norm of the difference
+# over an optimizer's tensors, within 4x the readings of a first run
+# (NVIDIA H100 80GB HBM3, 700 W): WaveRNN 8.6e-7, HiFi-GAN's generator
+# 1.2e-5 and discriminators 1.8e-4; WaveRNN also per tensor, within 1e-4
+# of each tensor's largest |value| (read 6.0e-6).  HiFi-GAN's per-tensor
+# bound is not held: a leaky ReLU whose input lies within rounding of 0
+# takes the other slope on the other device, and the period-11
+# discriminator's last layer sums a channel's weight gradient over 66
+# positions here, so one such flip moves that tensor by a visible share
+# (chip_smoke.py phase 14 forces the CPU's slopes on the card's step at
+# full width, counts the flips and holds that step per tensor).  The same
+# step twice on the card: bit for bit.
+VOC_CUDA_TOL = {"loss": 1e-5, "wavernn_max": 1e-4,
+                "l2": {"wavernn": [3.5e-6], "hifigan": [4.8e-5, 7.1e-4]}}
+VOC_GEN_CFG = dict(rnn_dims=64, fc_dims=64, res_out_dims=32,
+                   compute_dims=32, res_blocks=2, pad=2,
+                   upsample_factors=(4, 8, 8))
+
+
+def _voc_trainer(kind, tmp_path, device, **over):
+    import numpy as np
+
+    from msa_tts_tpu_torch.dataloaders.synthetic import (
+        make_synthetic_corpus,
+        synthetic_params,
+    )
+    from msa_tts_tpu_torch.trainers.hifigan_train import HiFiGANTrainer
+    from msa_tts_tpu_torch.trainers.wavernn_train import WaveRNNTrainer
+
+    root = str(tmp_path / "corpus")
+    if not os.path.exists(root):
+        make_synthetic_corpus(root, n_speakers=2, utterances_per_speaker=4,
+                              min_dur=0.4, max_dur=0.6, seed=1)
+    p = synthetic_params(root, n_speakers=2, batch_size=2)
+    p.update(experiment_name="tiny", use_tensorboard=False,
+             output_path=str(tmp_path / f"out_{device}"), device=str(device),
+             tb_log_interval=1, print_interval=100,
+             ckpt_save_step_interval=1000, batch_size=2)
+    if kind == "wavernn":
+        p.update(method="wavernn", seq_len=512, lr=1e-3,
+                 audio_params=dict(p["audio_params"], n_mels=20),
+                 **VOC_GEN_CFG)
+        cls = WaveRNNTrainer
+    else:
+        p.update(method="hifigan", audio_processor="ap2", segment_size=2048,
+                 audio_params={"n_fft": 1024, "hop_size": 256,
+                               "win_size": 1024, "n_mels": 20,
+                               "sample_rate": 22050, "fmin": 0.0,
+                               "fmax": 8000.0},
+                 hifigan=dict(resblock="1", upsample_rates=[8, 8, 4],
+                              upsample_kernel_sizes=[16, 16, 8],
+                              upsample_initial_channel=32,
+                              resblock_kernel_sizes=[3, 5],
+                              resblock_dilation_sizes=[[1, 3], [1, 2]]))
+        cls = HiFiGANTrainer
+    p.update(over)
+    t = cls(**p)
+    if kind == "hifigan":
+        t.gen_params = {k: 20.0 * v for k, v in t.gen_params.items()}
+    batch = t._sample_batch(np.random.default_rng(3), 2)
+    return t, [x.to(t.device) for x in batch]
+
+
+def _voc_step(kind, t, batch):
+    if kind == "wavernn":
+        params, opt, loss = t._step(t.model_params, t.opt_state, *batch)
+        return {"nll": loss}, [opt], params
+    gp, dp, og, od, m = t._step(t.gen_params, t.disc_params, t.opt_g,
+                                t.opt_d, *batch)
+    return m, [og, od], {**gp, **dp}
+
+
+@pytest.mark.parametrize("kind", ["wavernn", "hifigan"])
+def test_vocoder_train_step_on_the_card_matches_cpu(device, tmp_path, kind):
+    """``-k vocoder``: one float32 step of each vocoder trainer on the card
+    against the CPU."""
+    (card, cb), (cpu, hb) = (_voc_trainer(kind, tmp_path, device),
+                             _voc_trainer(kind, tmp_path, "cpu"))
+    for a, b in zip(cb, hb):
+        assert torch.equal(a.cpu(), b)
+    (mc, oc, _), (mr, orf, _) = (_voc_step(kind, card, cb),
+                                 _voc_step(kind, cpu, hb))
+    for k, v in mr.items():
+        rel = abs(float(mc[k]) - float(v)) / abs(float(v))
+        assert rel <= VOC_CUDA_TOL["loss"], (k, rel)
+    for a, b, lim in zip(oc, orf, VOC_CUDA_TOL["l2"][kind]):
+        for name, f in (("mu", lambda x: x), ("nu", torch.sqrt)):
+            ref = {k: f(v) for k, v in b[0][name].items()}
+            ours = {k: f(a[0][name][k].cpu()) for k in ref}
+            l2 = (sum(float(((ours[k] - v) ** 2).sum()) for k, v in ref.items())
+                  / sum(float((v ** 2).sum()) for v in ref.values())) ** 0.5
+            top = max(float((ours[k] - v).abs().max())
+                      / max(float(v.abs().max()), 1e-30)
+                      for k, v in ref.items())
+            print(f"{kind} step card vs CPU, {name}: L2 rel {l2:.3e}, of a "
+                  f"tensor's largest {top:.3e}")
+            assert l2 <= lim, (name, l2, lim)
+            if kind == "wavernn":
+                assert top <= VOC_CUDA_TOL["wavernn_max"], (name, top)
+
+
+@pytest.mark.parametrize("kind", ["wavernn", "hifigan"])
+def test_vocoder_train_step_repeats_bit_for_bit(device, tmp_path, kind):
+    """The same step from the same state twice on the card: the losses,
+    the new weights and the optimizer states, bit for bit."""
+    t, batch = _voc_trainer(kind, tmp_path, device)
+    (ma, oa, pa), (mb, ob, pb) = (_voc_step(kind, t, batch)
+                                  for _ in range(2))
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+    for k, v in pa.items():
+        assert torch.equal(v, pb[k]), k
+    for a, b in zip(oa, ob):
+        for name in ("mu", "nu"):
+            for k, v in a[0][name].items():
+                assert torch.equal(v, b[0][name][k]), (name, k)
+
+
+def test_gen_kernel_on_a_trained_wavernn(device, tmp_path):
+    """K3 on weights the WaveRNN trainer trained on the card (4 steps):
+    the fold rows of a corpus mel through twins with ``gen_backend`` cuda
+    and torch, the same noise: f32 within 1e-5 over 37 steps, bf16 at
+    most 5e-3 of the samples beyond 1e-3 (a bf16 rounding may flip the
+    mixture's choice)."""
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders.wavernn import (
+        WaveRNN,
+        WaveRNNModel,
+        _fold_counts,
+        generation_noise,
+    )
+
+    t, _ = _voc_trainer("wavernn", tmp_path, device, n_steps=4)
+    t.run()
+    model = WaveRNNModel(t.cfg)
+    model.load_state_dict({**t.model_params, **t.model_state}, strict=True)
+    mel = torch.from_numpy(t.dataset.items[0].mel[:, :20].copy())
+    target, overlap = 300, 50
+    for gen_dtype in ("float32", "bfloat16"):
+        kern_v, plain_v = (WaveRNN(model, t.cfg, gen_dtype=gen_dtype,
+                                   gen_backend=b, device=device)
+                           for b in ("cuda", "torch"))
+        padded, T = kern_v._pad_batch([mel.to(device)])
+        _, n_pad = _fold_counts(T * t.cfg.hop_length, target, overlap)
+        noise = generation_noise(t.cfg, torch.Generator().manual_seed(2),
+                                 target + 2 * overlap, n_pad, device=device)
+        before = G.GEN_LAUNCHES
+        kern, _ = kern_v._run_folded(padded, target, overlap, [noise])
+        assert G.GEN_LAUNCHES == before + 1
+        plain, _ = plain_v._run_folded(padded, target, overlap, [noise])
+        assert G.GEN_LAUNCHES == before + 1
+        d = (kern - plain).abs()
+        assert torch.isfinite(kern).all() and kern.shape[1] == n_pad >= 4
+        if gen_dtype == "float32":
+            assert float(d[..., :37].max()) <= 1e-5
+        else:
+            assert float((d > 1e-3).float().mean()) <= 5e-3

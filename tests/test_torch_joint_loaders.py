@@ -47,11 +47,13 @@ def _params(corpus, tmp, **ds):
 
 @pytest.fixture(scope="module")
 def jax_numpy_feats():
-    """The JAX side on its numpy features, which the port's equal."""
+    """Both packages on their numpy features (equal byte for byte)."""
     import msa_tts_tpu.native as native
+    import msa_tts_tpu_torch.native as port_native
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "extract_logmels_batch", lambda *a, **k: None)
+        for mod in (native, port_native):
+            mp.setattr(mod, "extract_logmels_batch", lambda *a, **k: None)
         yield
 
 

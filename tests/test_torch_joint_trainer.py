@@ -60,10 +60,13 @@ def corpus(tmp_path_factory):
 
 @pytest.fixture
 def jax_numpy_feats(monkeypatch):
+    """Both packages on their numpy features (equal byte for byte)."""
     import msa_tts_tpu.native as native
+    import msa_tts_tpu_torch.native as port_native
 
-    monkeypatch.setattr(native, "extract_logmels_batch",
-                        lambda *a, **k: None)
+    for mod in (native, port_native):
+        monkeypatch.setattr(mod, "extract_logmels_batch",
+                            lambda *a, **k: None)
 
 
 def _rel(a, b):

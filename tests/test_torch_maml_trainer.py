@@ -105,11 +105,13 @@ def _ckpt_sd(trainer, name="checkpoint_0.ckpt"):
 
 
 def _run_pair(corpus, tmp_path, monkeypatch, **over):
-    # the JAX side on its numpy features, which the port's equal
+    # both packages on their numpy features (equal byte for byte)
     import msa_tts_tpu.native as native
+    import msa_tts_tpu_torch.native as port_native
 
-    monkeypatch.setattr(native, "extract_logmels_batch",
-                        lambda *a, **k: None)
+    for mod in (native, port_native):
+        monkeypatch.setattr(mod, "extract_logmels_batch",
+                            lambda *a, **k: None)
     jt = JaxMAML(**tiny_maml_params(corpus, str(tmp_path / "jax"), **over))
     pt = port_trainer(jt, tiny_maml_params(corpus, str(tmp_path / "port"),
                                          **over))

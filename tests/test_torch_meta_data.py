@@ -5,11 +5,12 @@ synthetic corpus: the corpus files (``make_synthetic_corpus``),
 and ``MetaDataLoader``'s stacked episodes over two epochs, before and
 after ``skip_epoch``.
 
-Everything is held byte for byte, except the log-mels against the JAX
-package's host C++ feature library (``native/feats.cpp``, which the port
-does not have): 3e-5 absolute there, on log10-mels of up to 4.6 (read
-8.1e-6: the library sums in other orders; where it does not build, the
-JAX package falls back to its numpy path and the two are equal)."""
+Everything is held byte for byte: the log-mels of each package's numpy
+path, and of each package's host C++ feature library (``native/
+feats.cpp``, the same source in both).  The two paths are held to each
+other at 3e-5 absolute, on log10-mels of up to 4.6 (read 8.1e-6: the
+library sums in other orders; where it does not build, both packages
+fall back to their numpy paths and the two are equal)."""
 
 import os
 import pickle
@@ -112,11 +113,19 @@ def _datasets(meta, pkg_m, pkg_d, trim, **kw):
 def test_dataset_matches_jax(corpora, trim):
     """Phonemes, speakers and their ids exactly; the log-mels (of the
     silence-trimmed clips in the second case) equal to the JAX package's
-    numpy path, and within NATIVE_ATOL of its C++ library."""
+    numpy path, the port's library features (its default) equal to the
+JAX package's, and the two paths within NATIVE_ATOL of each other."""
     jmeta, tmeta = corpora
-    ports = _datasets(tmeta, TM, TD, trim)
+    ports = _datasets(tmeta, TM, TD, trim, use_native_feats=False)
     refs = _datasets(jmeta, JM, JD, trim, use_native_feats=False)
     natives = _datasets(jmeta, JM, JD, trim)
+    port_natives = _datasets(tmeta, TM, TD, trim)
+    for pn, native in zip(port_natives, natives):
+        for a, c in zip(pn.items, native.items):
+            assert a.mel.tobytes() == c.mel.tobytes(), c.item_id
+            assert a.trim == c.trim
+            assert (os.path.relpath(a.audio_path, os.path.dirname(tmeta))
+                    == os.path.relpath(c.audio_path, os.path.dirname(jmeta)))
     for port, ref, native in zip(ports, refs, natives):
         assert port.speaker_to_id == ref.speaker_to_id
         assert len(port) == len(ref) > 0
@@ -135,7 +144,7 @@ def test_dataset_matches_jax(corpora, trim):
 
 def _loaders(corpora, **kw):
     jmeta, tmeta = corpora
-    js, jq = _datasets(jmeta, JM, JD, False, use_native_feats=False)
+    js, jq = _datasets(jmeta, JM, JD, False)
     ts, tq = _datasets(tmeta, TM, TD, False)
     args = dict(shots=3, meta_batch_size=2, reduction_factor=2, seed=4, **kw)
     return JL.MetaDataLoader(js, jq, **args), TL.MetaDataLoader(ts, tq,

@@ -6,8 +6,9 @@ server among them), the tiny CPU slice runs from text to a wav file
 clips, saved, loaded and served, one stream and one multiplexed stream
 run to their end, an attached WaveRNN and HiFi-GAN each vocode a
 request, the MAML trainer takes two second-order steps on a synthetic
-corpus and its checkpoint serves, and the joint trainer, Reptile and an
-EWC stream of two speakers run there."""
+corpus and its checkpoint serves, the joint trainer, Reptile and an
+EWC stream of two speakers run there, and the WaveRNN and HiFi-GAN
+trainers each take two steps and write their checkpoints."""
 
 import os
 import subprocess
@@ -143,6 +144,22 @@ ewc = EWCTrainer(**dict(params, method="continual_ewc", n_max_epochs=1,
                         buffer_sample_size=2, ewc_importance=10.0))
 ewc.run()
 assert ewc._ewc is not None and len(ewc.cumutest_dict) == 2
+from msa_tts_tpu_torch.trainers.hifigan_train import HiFiGANTrainer
+from msa_tts_tpu_torch.trainers.wavernn_train import WaveRNNTrainer
+voc = dict(params, method="wavernn", n_steps=2, batch_size=2, seq_len=512,
+           rnn_dims=16, fc_dims=16, compute_dims=8, res_out_dims=8,
+           res_blocks=1, pad=2, upsample_factors=(4, 8, 8), lr=1e-3)
+wt = WaveRNNTrainer(**voc)
+assert np.isfinite(wt.run()) and wt.step_global == 2
+hg = HiFiGANTrainer(**dict(
+    voc, method="hifigan", audio_processor="ap2", hifigan=h,
+    segment_size=1024, batch_size=1,
+    audio_params={"n_fft": 512, "hop_size": 128, "win_size": 512,
+                  "n_mels": 10, "sample_rate": 22050, "fmin": 0.0,
+                  "fmax": 8000.0}))
+assert all(np.isfinite(v) for v in hg.run().values()) and hg.step_global == 2
+import glob
+assert len(glob.glob("out/*/synthetic/checkpoints/*_2.ckpt")) == 2
 for blocked in ("jax", "msa_tts_tpu"):
     bad = sorted(m for m in sys.modules
                  if m == blocked or m.startswith(blocked + "."))
