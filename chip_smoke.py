@@ -1898,6 +1898,9 @@ def maml_phase(device) -> dict:
         # ---- the trained checkpoint served: every launch from here on
         res.update(serve_checkpoint(run_dir, "0", device, "trained "
                                     "checkpoint"))
+        KEPT["maml_ckpt"] = shutil.copy(
+            f"{run_dir}/checkpoints/checkpoint_0.ckpt",
+            f"{_kept_dir()}/maml_checkpoint_0.ckpt")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return res
@@ -2384,6 +2387,12 @@ def train_phase(device) -> dict:
                                  "checkpoint_last_task.ckpt"))
         res["ewc_served"] = serve_checkpoint(ewc_dir, "last_task", device,
                                              f"EWC checkpoint {last}")
+        KEPT["stream"] = f"{_kept_dir()}/ewc"
+        os.makedirs(f"{KEPT['stream']}/checkpoints")
+        shutil.copy(f"{ewc_dir}/params.yml", KEPT["stream"])
+        for i, spk in enumerate(ewc.all_speakers):
+            shutil.copy(f"{ewc_dir}/checkpoints/best_{i}_{spk}.ckpt",
+                        f"{KEPT['stream']}/checkpoints")
 
         # ---- card against CPU: one float32 joint step, one EWC step
         for kind, params in (("joint", jp), ("ewc", ep)):
@@ -2984,6 +2993,17 @@ def _serving_tts(device):
 # beyond GEN_FLIP).  Phase 8's judgement is printed on both noises, beside
 # the plain bf16 loop on the CPU against the plain loop on the card.
 GEN_FORCE = 1e3
+# Phase 8's share judgement cannot hold bf16 on trained weights: the JAX
+# package's own bf16 sample loop departs from its f32 loop by a share of
+# 0.50 of the samples beyond GEN_FLIP on a WaveRNN the port trained for
+# 100 steps at the served width (tools/settle_gen_bf16.py, on the CPU;
+# the port's plain bf16 loop from the JAX package's bf16 loop 0.14, the
+# card's kernel from the card's plain loop 0.12).  So bf16 is held in
+# distribution: the MCD between the log-mels of the kernel's bf16 and f32
+# vocodings of the same noise must stay below GEN_BF16_MCD_SHARE times the
+# MCD between two f32 vocodings of different noise (read on the CPU, the
+# JAX package's loops: 0.58 against 21.7, a share of 0.027).
+GEN_BF16_MCD_SHARE = 0.1
 
 
 def _departure(a, b) -> dict:
@@ -3008,8 +3028,10 @@ def _trained_wavernn_vs_plain(model, cfg, mels, device) -> dict:
     550), the same noise through twins with ``gen_backend`` cuda and
     torch, in f32 and bf16, on the sampled noise and on the noise with
     the mixture choice forced (above).  f32 is judged as in phase 8 on
-    both; bf16 is held within GEN_BF16_ATOL on the forced noise, and
-    printed beside the plain bf16 loop on the CPU."""
+    both; bf16 is held within GEN_BF16_ATOL on the forced noise and by
+    the MCD of its vocoding against the f32 one (GEN_BF16_MCD_SHARE),
+    and phase 8's share judgement printed beside the plain bf16 loop on
+    the CPU."""
     import copy
 
     import torch
@@ -3038,6 +3060,14 @@ def _trained_wavernn_vs_plain(model, cfg, mels, device) -> dict:
                 raise AssertionError(f"{kern.shape[1]} fold rows, want "
                                      f"{GEN_B}")
             out[tag, name] = [x.flatten(0, 1).cpu() for x in (kern, plain)]
+        if tag == "f32":
+            # the same vocoding on noise of another seed: how far two
+            # draws of the sampler are apart (the bf16 check's scale)
+            other = generation_noise(cfg, torch.Generator().manual_seed(22),
+                                     target + 2 * overlap, GEN_B,
+                                     device=device)
+            out["f32", "other"] = [kern_v._run_folded(
+                padded, target, overlap, [other])[0].flatten(0, 1).cpu()]
     for name in noises:
         res[f"max_abs_err_f32_{name}"] = _judge_gen(
             *out["f32", name], cfg.mode, "f32",
@@ -3075,7 +3105,50 @@ def _trained_wavernn_vs_plain(model, cfg, mels, device) -> dict:
         raise AssertionError(f"{label}, bf16, forced noise: max|d| "
                              f"{res['max_abs_err_bf16_forced']} > "
                              f"{GEN_BF16_ATOL}")
+    # bf16 held in distribution: the kernel's bf16 vocoding against its
+    # f32 vocoding of the same noise, by the MCD of their log-mels, a
+    # small share of the MCD between two f32 vocodings of other noise
+    waves = {k: _gen_wave(out[k][0], nf, target, overlap, mels.shape[-1],
+                          cfg.hop_length)
+             for k in (("bf16", "sampled"), ("f32", "sampled"),
+                       ("f32", "other"))}
+    mcd = {"bf16_vs_f32": _wave_mcd(waves["bf16", "sampled"],
+                                    waves["f32", "sampled"]),
+           "f32_vs_f32_other_noise": _wave_mcd(waves["f32", "sampled"],
+                                               waves["f32", "other"])}
+    res["bf16_mcd"] = mcd
+    lim = GEN_BF16_MCD_SHARE * mcd["f32_vs_f32_other_noise"]
+    print(f"  {label}, bf16 vs f32 (kernel, sampled noise): MCD "
+          f"{mcd['bf16_vs_f32']:.4f} (limit {GEN_BF16_MCD_SHARE} x the MCD "
+          f"of two f32 vocodings of other noise, "
+          f"{mcd['f32_vs_f32_other_noise']:.4f}: {lim:.4f})")
+    if not mcd["bf16_vs_f32"] <= lim:
+        raise AssertionError(f"{label}: bf16 vocoding MCD "
+                             f"{mcd['bf16_vs_f32']} > {lim}")
     return res
+
+
+def _gen_wave(samples, n_folds: int, target: int, overlap: int,
+              n_frames: int, hop: int):
+    """Folded samples (rows, L) → the utterance's waveform (numpy)."""
+    import numpy as np
+
+    from msa_tts_tpu_torch.vocoders.wavernn import xfade_and_unfold
+
+    return xfade_and_unfold(samples[:n_folds].numpy().astype(np.float64),
+                            target, overlap)[:(n_frames - 1) * hop]
+
+
+def _wave_mcd(a, b) -> float:
+    """``ops/metrics.mcd_batch`` between the log-mels of two waveforms."""
+    import numpy as np
+
+    from msa_tts_tpu_torch.ops.audio import melspec_ap
+    from msa_tts_tpu_torch.ops.metrics import mcd_batch
+
+    ma = melspec_ap(a.astype(np.float32), SHIPPED_AUDIO).T[None]
+    mb = melspec_ap(b.astype(np.float32), SHIPPED_AUDIO).T[None]
+    return mcd_batch(ma, mb, np.asarray([ma.shape[1]]))
 
 
 def vocoder_phase(device) -> dict:
@@ -3214,6 +3287,10 @@ def vocoder_phase(device) -> dict:
         res["hifigan_card_vs_cpu"] = _voc_card_vs_cpu("hifigan", hp, hckpt,
                                                       tmp)
 
+        KEPT["wavernn_params"] = wp
+        KEPT["wavernn_sd"] = {k: v.detach().cpu().clone()
+                              for k, v in model.state_dict().items()}
+
         # ---- the trained vocoders served: K3's launches counted
         tts = _serving_tts(device)
         tts.attach_vocoder("wavernn", WaveRNN(model, cfg, gen_backend="cuda",
@@ -3221,6 +3298,8 @@ def vocoder_phase(device) -> dict:
         gen = Generator(HIFIGAN_V1, VOC_AP2["n_mels"])
         gen.load_state_dict(tree_to_state_dict(
             load_checkpoint(hckpt)["generator"]), strict=True)
+        KEPT["hifigan_sd"] = {k: v.detach().cpu().clone()
+                              for k, v in gen.state_dict().items()}
         tts.attach_vocoder("hifigan", HiFiGAN.from_params(gen, HIFIGAN_V1))
         emb = np.random.default_rng(0).standard_normal(
             tts.cfg.speaker_embedding_dim).astype(np.float32)
@@ -3252,16 +3331,411 @@ def vocoder_phase(device) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 15
+# The inference CLIs at the shipped width.  Phases 12-14 keep what they
+# trained in KEPT (the MAML checkpoint, the EWC stream's checkpoints, the
+# WaveRNN and HiFi-GAN generator weights); phase 15 serves those, or, when
+# a phase did not run (``--only 15``), seeded weights of the same shapes.
+# Each Tacotron checkpoint is served with its gate bias at -1e4 (a few
+# training steps do not teach the gate), so every decode runs its 500
+# steps and the stop steps of kernel and plain decode are compared over
+# the whole run.
+KEPT: dict = {}
+CLI_REDUCED = {
+    "dataset_metatest": "phase 12's synthetic corpus (4 speakers x 12 "
+                        "clips of 0.4-1.2 s, seed 0), 2 of its speakers",
+    "decoder gate bias": "-1e4 in the served checkpoints (every decode "
+                         "runs its 500 steps)",
+    "checkpoints": "phase 12's MAML checkpoint, phase 13's EWC stream of 3 "
+                   "speakers, phase 14's WaveRNN and HiFi-GAN v1 (seeded "
+                   "weights of the same shapes when a phase did not run)",
+    "plot_inference": "false (no matplotlib on the GPU host)",
+}
+
+
+def _kept_dir() -> str:
+    """The directory that holds KEPT's files until the script ends."""
+    import tempfile
+
+    if "dir" not in KEPT:
+        KEPT["dir"] = tempfile.mkdtemp(prefix="chip_smoke_kept_")
+    return KEPT["dir"]
+
+
+def _write_tacotron_ckpt(sd: dict, cfg, path: str) -> None:
+    """``sd`` (a Tacotron state_dict) as a ``.ckpt`` with the gate bias at
+    -1e4."""
+    from msa_tts_tpu_torch.utils.checkpoint import save_checkpoint
+    from msa_tts_tpu_torch.utils.convert import jax_from_state_dict
+
+    sd = dict(sd)
+    key = "decoder.gate_layer.linear_layer.bias"
+    sd[key] = sd[key].detach().clone().fill_(-1e4)
+    params, state = jax_from_state_dict(sd, cfg)
+    save_checkpoint(path, {"params": params, "model_state": state})
+
+
+def _cli_model_sd(cfg, path: str | None, seed: int) -> dict:
+    """The state_dict of the checkpoint at ``path``, or seeded weights."""
+    import torch
+
+    from msa_tts_tpu_torch.models.tacotron2nv import Tacotron2NV
+    from msa_tts_tpu_torch.utils.checkpoint import load_model_checkpoint
+
+    if path:
+        return load_model_checkpoint(path, cfg)[0]
+    return Tacotron2NV(cfg, generator=torch.Generator().manual_seed(
+        seed)).state_dict()
+
+
+def _cli_vocoders(corpus: str, out: str) -> dict:
+    """The vocoder files the CLIs load: WaveRNN's params.yml and
+    ``state_dict`` (served width), HiFi-GAN v1's config and generator."""
+    import os
+
+    import torch
+
+    from msa_tts_tpu_torch.config import save_params
+    from msa_tts_tpu_torch.vocoders.hifigan import Generator
+    from msa_tts_tpu_torch.vocoders.wavernn import (
+        WaveRNNModel,
+        config_from_params,
+    )
+
+    os.makedirs(out, exist_ok=True)
+    wp = dict(KEPT.get("wavernn_params")
+              or _voc_params("wavernn", corpus, out))
+    wsd = KEPT.get("wavernn_sd")
+    if wsd is None:
+        wsd = WaveRNNModel(config_from_params(**wp),
+                           torch.Generator().manual_seed(0)).state_dict()
+    torch.save(wsd, f"{out}/wavernn.pt")
+    save_params(dict(wp, checkpoint_path=f"{out}/wavernn.pt",
+                     target=2_750, overlap=550, gen_backend="cuda"),
+                f"{out}/wavernn.yml")
+    hsd = KEPT.get("hifigan_sd")
+    if hsd is None:
+        hsd = Generator(HIFIGAN_V1, SHIPPED_AUDIO["n_mels"],
+                        torch.Generator().manual_seed(2)).state_dict()
+    torch.save({"generator": hsd}, f"{out}/hifigan.pt")
+    with open(f"{out}/hifigan.json", "w") as f:
+        json.dump(HIFIGAN_V1, f)
+    return {"wavernn": {"vocoder_params_path": f"{out}/wavernn.yml"},
+            "hifigan": {"vocoder_params_path": f"{out}/hifigan.json",
+                        "vocoder_ckpt_path": f"{out}/hifigan.pt"},
+            "griffinlim": {}}
+
+
+def _checked_save_wav(mod, seen: list, bounded: bool):
+    """Swap ``mod.save_wav`` for one that checks each waveform before
+    writing it: finite, not silent, and with ``bounded`` (WaveRNN,
+    HiFi-GAN) inside [-1, 1] (Griffin-Lim's is not bounded: ``save_wav``
+    scales a waveform that would clip); returns the original."""
+    import numpy as np
+
+    orig = mod.save_wav
+
+    def save_wav(path, wav, sr):
+        w = np.asarray(wav)
+        peak = float(np.abs(w).max())
+        if (not np.isfinite(w).all() or not peak > 0
+                or (bounded and peak > 1.0)):
+            raise AssertionError(f"{path}: samples not finite, silent or "
+                                 f"outside [-1, 1] (max|x| {peak})")
+        seen.append((path, w.shape, peak))
+        return orig(path, wav, sr)
+
+    mod.save_wav = save_wav
+    return orig
+
+
+def _plain_vs_cli(cfg, sd: dict, inputs, in_len, spk, masks, device,
+                  mel_cli, len_cli, label: str) -> float:
+    """The plain decode (``decode_backend: torch``) of the weights ``sd``
+    on the same inputs and prenet masks, held against the CLI's mels
+    (each row cut at its length) at phase 3's limit, lengths equal."""
+    import torch
+
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        tacotron2nv_infer,
+    )
+
+    model = Tacotron2NV(cfg)
+    model.load_state_dict(sd, strict=True)
+    model = model.to(device).eval()
+    with torch.no_grad():
+        mel, mel_len, _ = tacotron2nv_infer(
+            model, cfg, inputs, in_len, spk, masks, decode_backend="torch")
+    mel_len = mel_len.cpu().numpy()
+    r = cfg.n_frames_per_step
+    err = 0.0
+    for i in range(len(mel_len)):
+        steps = max(int(mel_len[i]), 1)
+        ref = mel[i, :, :steps * r].float().cpu().numpy()
+        got = mel_cli[i]
+        if steps != max(int(len_cli[i]), 1) or got.shape != ref.shape:
+            raise AssertionError(f"{label}, row {i}: stop step "
+                                 f"{int(len_cli[i])} against the plain "
+                                 f"decode's {steps}")
+        err = max(err, float(abs(got - ref).max()))
+    print(f"  {label}: kernel vs plain decode, {len(mel_len)} rows, stop "
+          f"steps {sorted(set(int(x) for x in mel_len))} equal, mel max|d| "
+          f"{err:.3e} (limit {SERVE_ATOL})")
+    if not err <= SERVE_ATOL:
+        raise AssertionError(f"{label}: the CLI's mel differs from the "
+                             "plain decode")
+    return err
+
+
+def _run_infer(run_dir: str, cmd: dict, device):
+    """``infer.main`` on ``run_dir`` with ``cmd``; returns the Inference,
+    each speaker's ``(adapted state_dict, mel, length)`` and the launches
+    of both kernels (the counts set to 0 just before)."""
+    import torch
+
+    from msa_tts_tpu_torch import infer as TI
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+
+    seen, wavs = [], []
+
+    class Kept(TI.Inference):
+        def generate_melspec(self, adapted, ms, speaker):
+            mel, attn = super().generate_melspec(adapted, ms, speaker)
+            seen.append((speaker, {k: v.detach().clone()
+                                   for k, v in {**adapted, **ms}.items()},
+                         mel, attn.shape[0]))
+            return mel, attn
+
+    orig, TI.Inference = TI.Inference, Kept
+    orig_save = _checked_save_wav(TI, wavs, cmd["vocoder"] != "griffinlim")
+    try:
+        torch.cuda.synchronize(device)
+        CD.LAUNCHES = G.GEN_LAUNCHES = 0
+        inf = TI.main(dict(cmd, params_path=run_dir))
+        torch.cuda.synchronize(device)
+        launches = {"decoder_loop": CD.LAUNCHES,
+                    "wavernn_loop": G.GEN_LAUNCHES}
+    finally:
+        TI.Inference, TI.save_wav = orig, orig_save
+    if len(wavs) != len(seen):
+        raise AssertionError("infer: a speaker's wav was not written")
+    print(f"  {cmd['vocoder']}: {len(wavs)} wavs, max|sample| "
+          + ", ".join(f"{w[2]:.3f}" for w in wavs))
+    return inf, seen, launches
+
+
+def cli_phase(device) -> dict:
+    """Phase 15: the inference CLIs at the shipped width through their
+    entry points.  ``infer.main``: 2 speakers of phase 12's corpus
+    adapted (n_inner_test 5) from the MAML checkpoint and one sentence
+    synthesized through the decoder kernel, vocoded once with each
+    vocoder (Griffin-Lim, WaveRNN at the served width through the
+    sample-loop kernel, HiFi-GAN v1); each speaker's mel held against the
+    plain decode of its adapted weights and masks.
+    ``infer_cumulative.main``: the EWC stream's ``best_{i}_{speaker}``
+    checkpoints, 4 sentences a batch through the decoder kernel at B = 4
+    and WaveRNN's ``generate_batch`` through the sample-loop kernel;
+    every wav checked, the first batch held against the plain decode.
+    Both kernels' launches counted on each CLI's path, and each
+    speaker's wall seconds of adaptation, decoding and vocoding
+    printed."""
+    import os
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+
+    from msa_tts_tpu_torch import infer_cumulative as TIC
+    from msa_tts_tpu_torch.config import load_params, save_params
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+    from msa_tts_tpu_torch.models.tacotron2nv import config_from_params
+    from msa_tts_tpu_torch.serving import N_SYMBOLS
+
+    res = {"infer": {}, "launches": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        corpus = f"{tmp}/corpus"
+        make_synthetic_corpus(corpus, n_speakers=4,
+                              utterances_per_speaker=12, seed=0,
+                              spk_emb_dim=SHIPPED_MODEL[
+                                  "speaker_embedding_dim"])
+        print("  reduced: " + json.dumps(CLI_REDUCED))
+        voc = _cli_vocoders(corpus, f"{tmp}/vocoders")
+
+        # ---- infer.main: the MAML experiment
+        p = maml_params(corpus, f"{tmp}/out", experiment_name="cli",
+                        plot_inference=False)
+        run_dir = f"{tmp}/out/maml/cli"
+        os.makedirs(f"{run_dir}/checkpoints")
+        save_params(p, f"{run_dir}/params.yml")
+        cfg = config_from_params(dict(
+            p["model"], n_mel_channels=p["audio_params"]["n_mels"],
+            n_symbols=N_SYMBOLS, num_speakers=1))
+        src = KEPT.get("maml_ckpt")
+        print(f"  infer: checkpoint {'of phase 12' if src else 'seeded'}")
+        _write_tacotron_ckpt(_cli_model_sd(cfg, src, 0), cfg,
+                             f"{run_dir}/checkpoints/checkpoint_0.ckpt")
+        cmd = {"checkpoint_id": 0, "speaker": "spk00,spk01",
+               "n_inner_test": 5, "input_text": TEXTS[0],
+               "spk_emb_path": f"{corpus}/spk_emb.pkl",
+               "decode_backend": "cuda", "infer_seed": 3}
+        total = {"decoder_loop": 0, "wavernn_loop": 0}
+        for name in ("griffinlim", "wavernn", "hifigan"):
+            t0 = time.perf_counter()
+            inf, seen, n = _run_infer(run_dir, dict(cmd, vocoder=name,
+                                                    **voc[name]), device)
+            wall = time.perf_counter() - t0
+            for k in total:
+                total[k] += n[k]
+            res["infer"][name] = {"wall_s": wall, "launches": n,
+                                  "timings": inf.timings}
+            print(f"  infer.main, vocoder {name}: {wall:.1f} s, decoder "
+                  f"kernel {n['decoder_loop']} launches, sample-loop kernel"
+                  f" {n['wavernn_loop']}; per speaker, s: " + "; ".join(
+                      f"{t['speaker']} adapt {t['adapt_s']:.3f} decode "
+                      f"{t['decode_s']:.3f} vocode {t['vocode_s']:.3f}"
+                      for t in inf.timings) + f"; {_gpu_line()}")
+            if (n["decoder_loop"] != 2
+                    or n["wavernn_loop"] != (2 if name == "wavernn" else 0)
+                    or len(seen) != 2):
+                raise AssertionError(f"infer ({name}): launches {n}")
+            if name == "griffinlim":
+                # not counted: each speaker against the plain decode
+                seq, _ = inf.g2p.convert(inp=TEXTS[0],
+                                         convert_mode="text_to_phone_to_idx")
+                res["infer"]["mel_max_abs_err"] = max(
+                    _plain_vs_cli(
+                        inf.cfg, sd,
+                        torch.tensor([seq], device=device),
+                        torch.tensor([len(seq)], device=device),
+                        torch.as_tensor(inf._speaker_vec(spk)[None],
+                                        device=device),
+                        inf._prenet_masks(1), device, [mel], [n_steps],
+                        f"infer, {spk}")
+                    for spk, sd, mel, n_steps in seen)
+        res["launches"]["infer"] = total
+
+        # ---- infer_cumulative.main: the EWC stream
+        stream = KEPT.get("stream")
+        if stream:
+            sp = load_params(f"{stream}/params.yml")
+            ckpts = {f: f"{stream}/checkpoints/{f}"
+                     for f in os.listdir(f"{stream}/checkpoints")
+                     if f.startswith("best_")}
+        else:
+            sp = example_params("continual_ewc", corpus, f"{tmp}/x",
+                                MAML_SPEAKERS[:2])
+            order = list(sp["dataset_train"]["speakers_list"])
+            random.Random(sp.get("speaker_seed", 0)).shuffle(order)
+            ckpts = {f"best_{i}_{s}.ckpt": None for i, s in enumerate(order)}
+        print(f"  infer_cumulative: {len(ckpts)} checkpoints "
+              f"{'of phase 13' if stream else 'seeded'}")
+        sp.update(output_path=f"{tmp}/stream", experiment_name="cli")
+        sdir = f"{tmp}/stream/{sp['method']}/cli"
+        os.makedirs(f"{sdir}/checkpoints")
+        save_params(sp, f"{sdir}/params.yml")
+        scfg = config_from_params(dict(
+            sp["model"], n_mel_channels=sp["audio_params"]["n_mels"],
+            n_symbols=N_SYMBOLS, num_speakers=1))
+        for i, (name, path) in enumerate(sorted(ckpts.items())):
+            _write_tacotron_ckpt(_cli_model_sd(scfg, path, 10 + i), scfg,
+                                 f"{sdir}/checkpoints/{name}")
+        with open(f"{tmp}/sents.txt", "w") as f:
+            f.write("\n".join(TEXTS) + "\n")
+        batches, wavs = [], []
+
+        class Kept(TIC.InferCumulative):
+            def _infer_batch(self, inputs, in_lens, spk):
+                mel, mel_len = super()._infer_batch(inputs, in_lens, spk)
+                if not batches:
+                    batches.append((inputs, in_lens, spk, mel, mel_len,
+                                    {k: v.detach().clone() for k, v in
+                                     self.model.state_dict().items()},
+                                    self._prenet_masks(len(inputs))))
+                else:
+                    batches.append(None)
+                return mel, mel_len
+
+        orig, TIC.InferCumulative = TIC.InferCumulative, Kept
+        orig_save = _checked_save_wav(TIC, wavs, True)
+        from msa_tts_tpu_torch.models import cuda_decoder as CD
+        from msa_tts_tpu_torch.vocoders import cuda_gen as G
+
+        try:
+            torch.cuda.synchronize(device)
+            CD.LAUNCHES = G.GEN_LAUNCHES = 0
+            t0 = time.perf_counter()
+            ic = TIC.main({"params_path": sdir,
+                           "input_text_file": f"{tmp}/sents.txt",
+                           "spk_emb_path": f"{corpus}/spk_emb.pkl",
+                           "vocoder": "wavernn", "decode_backend": "cuda",
+                           "checkpoint_id": "all",
+                           **voc["wavernn"]})
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            n = {"decoder_loop": CD.LAUNCHES,
+                 "wavernn_loop": G.GEN_LAUNCHES}
+        finally:
+            TIC.InferCumulative, TIC.save_wav = orig, orig_save
+        res["launches"]["infer_cumulative"] = n
+        n_b = len(batches)
+        res["infer_cumulative"] = {"wall_s": wall, "batches": n_b,
+                                   "timings": ic.timings}
+        print(f"  infer_cumulative.main: {wall:.1f} s, {n_b} batches of "
+              f"{len(TEXTS)} sentences, {len(wavs)} wavs (max|sample| "
+              f"{max(w[2] for w in wavs):.3f}); decoder kernel "
+              f"{n['decoder_loop']} launches, sample-loop kernel "
+              f"{n['wavernn_loop']}; per (checkpoint, speaker), s: "
+              + "; ".join(f"{t['step']}/{t['speaker']} decode "
+                          f"{t['decode_s']:.3f} vocode {t['vocode_s']:.3f}"
+                          for t in ic.timings) + f"; {_gpu_line()}")
+        n_targets = sum(range(1, len(ckpts) + 1))
+        if (n_b != n_targets or n["decoder_loop"] != n_b
+                or n["wavernn_loop"] != n_b
+                or len(wavs) != n_b * len(TEXTS)):
+            raise AssertionError(f"infer_cumulative: {n_b} batches, "
+                                 f"launches {n}, {len(wavs)} wavs")
+        inputs, in_lens, spk, mel, mel_len, sd, masks = batches[0]
+        if inputs.shape[1] % 16:
+            raise AssertionError("infer_cumulative: T_in not a multiple "
+                                 "of 16")
+        r = scfg.n_frames_per_step
+        res["infer_cumulative"]["mel_max_abs_err"] = _plain_vs_cli(
+            scfg, sd, torch.as_tensor(inputs, dtype=torch.int64,
+                                      device=device),
+            torch.as_tensor(in_lens, dtype=torch.int64, device=device),
+            torch.as_tensor(spk.copy(), device=device), masks, device,
+            [mel[i, :, :max(int(mel_len[i]), 1) * r].float().cpu().numpy()
+             for i in range(len(mel_len))], mel_len,
+            f"infer_cumulative, first batch (B = {len(inputs)})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
+    import shutil
+
+    try:
+        return _run(argv)
+    finally:
+        if "dir" in KEPT:
+            shutil.rmtree(KEPT.pop("dir"), ignore_errors=True)
+
+
+def _run(argv=None) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--only", default=None,
-                    help="comma-separated training phases (12, 13, 14) to "
-                         "run after phase 1 instead of all phases; the "
-                         "kernels line is then not printed")
+                    help="comma-separated phases (12, 13, 14, 15) to run "
+                         "after phase 1 instead of all phases; the kernels "
+                         "line is then not printed")
     only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3311,7 +3785,7 @@ def main(argv=None) -> int:
             print(f"phase {phase} alone")
             t0 = time.perf_counter()
             res = {"12": maml_phase, "13": train_phase,
-                   "14": vocoder_phase}[phase](device)
+                   "14": vocoder_phase, "15": cli_phase}[phase](device)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
             print(gpu)
             print(json.dumps({phase: res}))
@@ -3416,6 +3890,16 @@ def main(argv=None) -> int:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"vocoders": vp}))
+    print("phase 15: the inference CLIs (infer, infer_cumulative) at the "
+          "shipped width through their entry points, on the checkpoints "
+          "of phases 12-14, through the decoder and sample-loop kernels")
+    t0 = time.perf_counter()
+    cp = cli_phase(device)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    print(gpu)
+    print(json.dumps({"cli": cp}))
+    cli_launches = {k: sum(n[k] for n in cp["launches"].values())
+                    for k in ("decoder_loop", "wavernn_loop")}
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in
@@ -3447,7 +3931,8 @@ def main(argv=None) -> int:
              adapted_voice_launches=ad["launches"],
              trained_checkpoint_launches=mm["launches"],
              joint_checkpoint_launches=tp["joint_served"]["launches"],
-             ewc_checkpoint_launches=tp["ewc_served"]["launches"]),
+             ewc_checkpoint_launches=tp["ewc_served"]["launches"],
+             cli_launches=cli_launches["decoder_loop"]),
         dict(dec_entry("decoder_segment", 553, sk, seg_launches),
              adapted_voice_launches=ad["seg_launches"],
              trained_checkpoint_launches=mm["seg_launches"],
@@ -3475,6 +3960,8 @@ def main(argv=None) -> int:
         "trained_checkpoint_max_abs_err_bf16_forced":
             vp["max_abs_err_bf16_forced"],
         "trained_checkpoint_bf16_departures": vp["bf16_departures"],
+        # phase 15: the inference CLIs' WaveRNN vocodings
+        "cli_launches": cli_launches["wavernn_loop"],
     }, {
         # one launch is one step: B 16, H 1024, f32 (bf16 under "bf16");
         # ms and library_ms are device times per step inside a 400-step

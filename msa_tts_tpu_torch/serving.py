@@ -75,7 +75,11 @@ from .models.tacotron2nv import (
 from .ops.audio import griffinlim_logmelspec, load_wav, trim_margin_silence
 from .optim import make_optimizer
 from .utils.backend import load_device, resolve_kernel_backend
-from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.checkpoint import (
+    load_checkpoint,
+    load_model_checkpoint,
+    save_checkpoint,
+)
 from .utils.convert import jax_from_state_dict, state_dict_from_jax
 from .utils.g2p import N_SYMBOLS, Grapheme2Phoneme
 
@@ -90,6 +94,31 @@ class Voice:
     state_dict: dict
     spk_emb: np.ndarray
     support_loss: float = float("nan")
+
+
+def teacher_forced_loss_fn(cfg, crit: dict):
+    """The teacher-forced training loss ``loss_fn(params, model_state,
+    batch, masks) -> (loss, new_model_state)`` that adaptation steps on:
+    the model as a weightless meta-device copy run through
+    ``torch.func.functional_call``, and ``tacotron2_loss`` with the
+    ``criterion`` section's ``reduction`` (default none) and
+    ``pos_weight`` (default 1)."""
+    with torch.device("meta"):
+        template = Tacotron2NV(cfg)
+
+    def loss_fn(p, ms, b, masks):
+        outs, new_ms = torch.func.functional_call(
+            template, {**p, **ms},
+            (b["inputs"], b["input_lengths"], b["melspecs"],
+             b["melspec_lengths"], b["speaker_vecs"], masks))
+        loss = tacotron2_loss(
+            outs, (b["melspecs"], b["stop_labels"]), b["melspec_lengths"],
+            n_frames_per_step=cfg.n_frames_per_step,
+            reduction=crit.get("reduction", "none"),
+            pos_weight=float(crit.get("pos_weight", 1.0)))
+        return loss, {**ms, **new_ms}
+
+    return loss_fn
 
 
 def _hop(ap: dict) -> int:
@@ -174,18 +203,9 @@ class AdaptiveTTS:
         mp["num_speakers"] = 1
         params["model"] = mp
         model = Tacotron2NV(config_from_params(mp))
-        ckpt = os.path.join(
-            experiment_path, "checkpoints", f"checkpoint_{checkpoint_id}"
-        )
-        if os.path.exists(ckpt + ".ckpt"):
-            raw = load_checkpoint(ckpt + ".ckpt")
-            sd = state_dict_from_jax(raw["params"], raw["model_state"],
-                                     model.cfg)
-        elif os.path.exists(ckpt + ".pt"):
-            sd = torch.load(ckpt + ".pt", map_location="cpu",
-                            weights_only=True)
-        else:
-            raise FileNotFoundError(ckpt + ".{ckpt,pt}")
+        sd, _ = load_model_checkpoint(os.path.join(
+            experiment_path, "checkpoints", f"checkpoint_{checkpoint_id}"),
+            model.cfg)
         model.load_state_dict(sd, strict=True)
         return cls(params, model, device=device)
 
@@ -255,27 +275,11 @@ class AdaptiveTTS:
         else:
             masks = [_on_device(m, dev) for m in masks]
 
-        # a weightless copy of the model's structure for functional_call:
-        # the serving model is never reparametrised, so requests that run
-        # meanwhile see their own weights
-        with torch.device("meta"):
-            template = Tacotron2NV(self.cfg)
-        crit = self.params.get("criterion",
-                               {"reduction": "none", "pos_weight": 1.0})
-
-        def loss_fn(p, ms, b, m):
-            outs, new_ms = torch.func.functional_call(
-                template, {**p, **ms},
-                (b["inputs"], b["input_lengths"], b["melspecs"],
-                 b["melspec_lengths"], b["speaker_vecs"], m))
-            loss = tacotron2_loss(
-                outs, (b["melspecs"], b["stop_labels"]),
-                b["melspec_lengths"],
-                n_frames_per_step=self.cfg.n_frames_per_step,
-                reduction=crit.get("reduction", "none"),
-                pos_weight=float(crit.get("pos_weight", 1.0)))
-            return loss, {**ms, **new_ms}
-
+        # the serving model is never reparametrised (the loss runs a
+        # weightless copy), so requests that run meanwhile see their own
+        # weights
+        loss_fn = teacher_forced_loss_fn(
+            self.cfg, self.params.get("criterion", {}))
         params = {k: self._master[k] for k in self._param_names}
         state = {k: v for k, v in self._master.items() if k not in params}
         with torch.enable_grad():           # also under a caller's no_grad

@@ -18,13 +18,12 @@ import argparse
 import contextlib
 import os
 
-import torch
-
 from ..dataloaders.loader_default import get_dataloader
 from ..dataloaders.loader_meta import get_dataloader as get_dataloader_meta
 from ..dataloaders.loader_meta import unpack_task_batch
 from ..dataloaders.prefetch import prefetch_to_device, tree_map
 from ..meta.maml import make_metatest_fn
+from ..utils.profiling import trace
 from .base import TrainerBase
 from .train_state import make_optimizer
 
@@ -111,18 +110,12 @@ class JointTrainer(TrainerBase):
     def _train(self, epoch: int) -> bool:
         """One epoch; False when preempted before its end.  With
         ``profile_dir``, epoch ``profile_epoch`` runs under
-        ``torch.profiler`` and its trace is written there."""
+        ``utils.profiling.trace`` (``torch.profiler``) and its trace is
+        written there."""
         print(f"===== Training epoch {epoch}")
         profile_dir = self.params.get("profile_dir")
         if profile_dir and epoch == int(self.params.get("profile_epoch", 1)):
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            os.makedirs(profile_dir, exist_ok=True)
-            ctx = torch.profiler.profile(
-                activities=acts,
-                on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                    profile_dir))
+            ctx = trace(profile_dir, self.device)
         else:
             ctx = contextlib.nullcontext()
         with ctx:

@@ -288,6 +288,33 @@ def load_checkpoint(path: str) -> dict:
         return deserialize_payload(f.read())
 
 
+def load_model_checkpoint(path: str, cfg) -> tuple[dict, str]:
+    """A Tacotron-2 checkpoint as the model's reference-layout
+    ``state_dict`` (CPU tensors, for ``load_state_dict(strict=True)``)
+    and the file it came from.
+
+    ``path`` names the file, or its stem: then ``<path>.ckpt`` (a
+    trainer's msgpack checkpoint of either package: its ``params`` and
+    ``model_state``) is read if it exists, else ``<path>.pt`` (a
+    reference ``state_dict``).  Raises ``FileNotFoundError`` when
+    neither exists."""
+    import torch
+
+    from .convert import state_dict_from_jax
+
+    paths = ([path] if path.endswith((".ckpt", ".pt"))
+             else [path + ".ckpt", path + ".pt"])
+    for p in paths:
+        if not os.path.exists(p):
+            continue
+        if p.endswith(".ckpt"):
+            raw = load_checkpoint(p)
+            return state_dict_from_jax(raw["params"], raw["model_state"],
+                                       cfg), p
+        return torch.load(p, map_location="cpu", weights_only=True), p
+    raise FileNotFoundError(" or ".join(paths))
+
+
 def _host_copy(tree):
     """A snapshot of a payload tree on the host: every tensor copied to a
     numpy array now, so that later in-place updates of the tensors do

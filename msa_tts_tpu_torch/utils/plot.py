@@ -1,7 +1,8 @@
-"""Diagnostic plots (the port's own copy of the part of
-``msa_tts_tpu/utils/plot.py`` the trainers use): the attention +
-predicted-mel + ground-truth-mel panel they save at a meta-test
-(reference: msa_tts/utils/plot.py:26-47)."""
+"""Diagnostic plots (the port's own copy of ``msa_tts_tpu/utils/plot.py``):
+attention heatmaps and spectrograms (the inference CLI's), and the
+attention + predicted-mel + ground-truth-mel panel the trainers save at a
+meta-test (reference: msa_tts/utils/plot.py:26-47).  Each figure is
+written as ``<path>.png`` on matplotlib's Agg backend."""
 
 from __future__ import annotations
 
@@ -24,6 +25,28 @@ def pyplot():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def _heatmap(x: np.ndarray, path: str, xlabel: str, ylabel: str):
+    plt = pyplot()
+    fig, ax = plt.subplots(figsize=(8, 4))
+    im = ax.imshow(np.asarray(x), aspect="auto", origin="lower",
+                   interpolation="none")
+    ax.set_xlabel(xlabel)
+    ax.set_ylabel(ylabel)
+    fig.colorbar(im, ax=ax)
+    fig.savefig(path if path.endswith(".png") else path + ".png", dpi=100)
+    plt.close(fig)
+
+
+def plot_attention(attn: np.ndarray, path: str):
+    """(decoder steps, encoder steps) alignments as a heatmap."""
+    _heatmap(np.asarray(attn).T, path, "decoder step", "encoder step")
+
+
+def plot_spectrogram(mel: np.ndarray, path: str):
+    """(n_mels, frames) mel as a heatmap."""
+    _heatmap(mel, path, "frame", "mel bin")
 
 
 def plot_spec_attn_example(

@@ -60,9 +60,12 @@ from torch_parity import (
     install_jax_init,
     jax_step_key,
     one_torch_thread,  # noqa: F401  (an autouse fixture)
+    port_guard,  # noqa: F401  (taken by pytestmark)
     tiny_corpus,
     tiny_train_params,
 )
+
+pytestmark = pytest.mark.usefixtures("port_guard")
 
 EWC_TOL = {"float32": dict(fisher=1.3e-6, w=7.2e-7, loss=8.4e-7, norm=4.1e-7),
            "bfloat16": dict(fisher=0.12, w=0.1, loss=4.8e-3, norm=5.7e-2)}

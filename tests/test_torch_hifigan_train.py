@@ -34,7 +34,9 @@ from msa_tts_tpu_torch.utils.convert import (
     state_dict_to_tree,
     tree_to_state_dict,
 )
-from torch_parity import HIFIGAN_H, one_torch_thread, tiny_corpus  # noqa
+from torch_parity import HIFIGAN_H, one_torch_thread, port_guard, tiny_corpus  # noqa
+
+pytestmark = pytest.mark.usefixtures("port_guard")
 
 RTOL = 1e-5
 AP2 = {"n_fft": 512, "hop_size": 128, "win_size": 512, "n_mels": 10,

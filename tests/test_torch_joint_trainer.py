@@ -44,9 +44,12 @@ from torch_parity import (
     install_jax_init,
     jax_step_key,
     one_torch_thread,  # noqa: F401  (an autouse fixture)
+    port_guard,  # noqa: F401  (taken by pytestmark)
     tiny_corpus,
     tiny_train_params,
 )
+
+pytestmark = pytest.mark.usefixtures("port_guard")
 
 TOL = {"float32": dict(w=3.6e-7, log=2.1e-6, norm=7.2e-7, stat=1.4e-6),
        "bfloat16": dict(w=1.3e-2, log=1e-2, norm=7.6e-3, stat=5.3e-2)}

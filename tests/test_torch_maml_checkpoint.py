@@ -37,9 +37,12 @@ from msa_tts_tpu_torch.utils.preemption import PreemptionGuard
 from torch_parity import (
     jax_serve_masks,
     one_torch_thread,  # noqa: F401  (an autouse fixture)
+    port_guard,  # noqa: F401  (taken by pytestmark)
     tiny_corpus,
     tiny_maml_params,
 )
+
+pytestmark = pytest.mark.usefixtures("port_guard")
 
 SERVE_ATOL = 5e-6
 ADAM = {"optimizer_type": "Adam", "lr": "1e-3"}

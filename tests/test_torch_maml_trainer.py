@@ -43,9 +43,12 @@ from msa_tts_tpu_torch.utils.convert import state_dict_from_jax
 from torch_parity import (
     jax_trainer_masks,
     one_torch_thread,  # noqa: F401  (an autouse fixture)
+    port_guard,  # noqa: F401  (taken by pytestmark)
     tiny_corpus,
     tiny_maml_params,
 )
+
+pytestmark = pytest.mark.usefixtures("port_guard")
 
 W_ATOL, STAT_RTOL, LOG_RTOL = 2.3e-7, 5.9e-6, 2.1e-6
 BF16_W_ATOL, BF16_STAT_RTOL = 2.1e-3, 9e-2

@@ -7,8 +7,10 @@ clips, saved, loaded and served, one stream and one multiplexed stream
 run to their end, an attached WaveRNN and HiFi-GAN each vocode a
 request, the MAML trainer takes two second-order steps on a synthetic
 corpus and its checkpoint serves, the joint trainer, Reptile and an
-EWC stream of two speakers run there, and the WaveRNN and HiFi-GAN
-trainers each take two steps and write their checkpoints."""
+EWC stream of two speakers run there, the WaveRNN and HiFi-GAN
+trainers each take two steps and write their checkpoints, the inference
+CLI adapts to a speaker from the MAML checkpoint and writes its wav, and
+the landscape, speaker-classifier and profiling utilities run."""
 
 import os
 import subprocess
@@ -160,6 +162,31 @@ hg = HiFiGANTrainer(**dict(
 assert all(np.isfinite(v) for v in hg.run().values()) and hg.step_global == 2
 import glob
 assert len(glob.glob("out/*/synthetic/checkpoints/*_2.ckpt")) == 2
+new = {"infer", "infer_cumulative", "analysis.landscapes", "utils.spk_cls",
+       "utils.profiling", "utils.limit_threads", "data_processing.common",
+       "data_processing.convert_gt", "data_processing.prepare_comvoice",
+       "data_processing.prepare_css10", "data_processing.prepare_ljspeech",
+       "data_processing.prepare_vctk"}
+assert {"msa_tts_tpu_torch." + n for n in new} <= set(names)
+from msa_tts_tpu_torch import infer
+from msa_tts_tpu_torch.analysis import landscapes
+from msa_tts_tpu_torch.utils import profiling, spk_cls
+inf = infer.main({"params_path": "out/maml/synthetic", "checkpoint_id": 0,
+                  "speaker": "spk01", "input_text": "hello",
+                  "spk_emb_path": "corpus/spk_emb.pkl", "device": "cpu"})
+assert [t["speaker"] for t in inf.timings] == ["spk01"]
+assert glob.glob("out/maml/synthetic/inference/spk01_hello_ckpt0.wav")
+surf = landscapes.random_plane(lambda p: (p["w"] ** 2).sum(),
+                               {"w": torch.ones(3)}, distance=1.0, steps=3)
+assert surf.shape == (3, 3) and surf[1, 1] == 3.0
+x = np.eye(4, dtype=np.float32).repeat(3, 0)
+_, accs = spk_cls.train_classifier(x, np.arange(4).repeat(3), 4,
+                                   hidden_size=8, n_epochs=2, device="cpu")
+assert len(accs) == 2
+with profiling.trace("trace", device="cpu"):
+    with profiling.annotate("add"):
+        torch.ones(2).add_(1)
+assert glob.glob("trace/*")
 for blocked in ("jax", "msa_tts_tpu"):
     bad = sorted(m for m in sys.modules
                  if m == blocked or m.startswith(blocked + "."))

@@ -44,9 +44,12 @@ from torch_parity import (
     from_jax_masks,
     install_jax_init,
     one_torch_thread,  # noqa: F401  (an autouse fixture)
+    port_guard,  # noqa: F401  (taken by pytestmark)
     tiny_corpus,
     tiny_train_params,
 )
+
+pytestmark = pytest.mark.usefixtures("port_guard")
 
 TOL = {"float32": (4.8e-7, 7.0e-6, 1.2e-6, 3.7e-7),
        "bfloat16": (2.9e-3, 0.18, 5.7e-3, 2.6e-3)}

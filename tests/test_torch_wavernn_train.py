@@ -41,7 +41,9 @@ from msa_tts_tpu_torch.utils.convert import (
     wavernn_state_dict_from_jax,
 )
 from msa_tts_tpu_torch.vocoders import wavernn as TW
-from torch_parity import TINY_AUDIO, one_torch_thread, tiny_corpus  # noqa
+from torch_parity import TINY_AUDIO, one_torch_thread, port_guard, tiny_corpus  # noqa
+
+pytestmark = pytest.mark.usefixtures("port_guard")
 
 RTOL = 1e-5
 WAV_ATOL = 1e-4

@@ -4,6 +4,8 @@ port's modules through ``state_dict_from_jax``."""
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import numpy as np
 import pytest
@@ -275,6 +277,38 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def fresh_port_guard():
+    """Around a test that builds a port trainer: the port's process-wide
+    preemption guard cleared before, and after it the guard's signal
+    handlers uninstalled and ``PreemptionGuard._shared`` reset to None.
+    Every port trainer installs that guard on SIGTERM and it stays set
+    once a notice arrives (as in production); left installed, another
+    package's guard in the same test process chains its own SIGTERMs
+    into it, which sets the flag that stops the next port trainer at
+    its first step, and a second such notice escalates and kills the
+    process."""
+    from msa_tts_tpu_torch.utils.preemption import PreemptionGuard
+
+    if PreemptionGuard._shared is not None:
+        PreemptionGuard._shared.clear()
+    try:
+        yield
+    finally:
+        with PreemptionGuard._shared_lock:
+            if PreemptionGuard._shared is not None:
+                PreemptionGuard._shared.uninstall()
+            PreemptionGuard._shared = None
+
+
+@pytest.fixture
+def port_guard():
+    """:func:`fresh_port_guard` around one test; trainer test files take
+    it with ``pytestmark = pytest.mark.usefixtures("port_guard")``."""
+    with fresh_port_guard():
+        yield
 
 
 # ------------------------------------------- joint and continual training
