@@ -59,8 +59,8 @@ Phases (any failure exits non-zero):
      with only the data and run-length entries changed, MAML_REDUCED;
      second order, bfloat16 compute, 4 tasks x 8 shots) for 3 epochs on a
      synthetic corpus: meta-step times, mel frames per second, peak device
-     memory, the meta-test's losses and MCD; 2 epochs resumed to 3
-     against the unbroken run; one float32 meta-step, second and first
+     memory, the meta-test's losses and MCD; the run's files after 2
+     epochs resumed to 3 against it; one float32 meta-step, second and first
      order, on the card against the CPU; and the trained checkpoint
      (``from_experiment``) served through the whole-loop kernel (float32
      and bfloat16) and the segment kernel against the plain decode;
@@ -87,7 +87,20 @@ Phases (any failure exits non-zero):
      card against the CPU from the trained checkpoint, and repeated bit
      for bit; the sample-loop kernel on the trained WaveRNN (44 fold rows
      of a corpus mel, f32 and bf16) against the plain loop; and each
-     trained vocoder serving a request.
+     trained vocoder serving a request;
+ 15. run the inference CLIs (``infer``, ``infer_cumulative``) at the
+     shipped width through their entry points on the checkpoints of
+     phases 12-14, through the decoder and sample-loop kernels;
+ 16. serve a batch over a mesh of two shards of the one card
+     (``serving.decode_sharded``, B = 4 and B = 3 with a filler row,
+     float32 and bfloat16): two K1 launches a call, each row against the
+     single-device K1 decode; ``AdaptiveTTS`` with more ``dp`` than cards
+     raises; train over two gloo ranks that share the card
+     (``parallel/launch.py``): MAML ``{task: 2}``, joint and WaveRNN
+     ``{dp: 2}`` against world 1, the shipped MAML and joint steps timed
+     at both, a world-2 MAML checkpoint resumed at world 2 (bit for bit)
+     and at world 1; and ``torchrun --nproc_per_node 1`` of the MAML
+     entry point on NCCL.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -96,7 +109,8 @@ path (phase 3 for the whole loop, phase 5 for the segments, phase 9 for
 the sample loop, phase 10's scan for the cell; the decoder kernels'
 ``adapted_voice_launches`` are phase 11's, ``trained_checkpoint_launches``
 phase 12's, ``joint_`` and ``ewc_checkpoint_launches`` phase 13's; the
-sample loop's ``trained_checkpoint_launches`` phase 14's), its
+sample loop's ``trained_checkpoint_launches`` phase 14's; the whole
+loop's ``dp_serving_launches`` phase 16's), its
 error against the
 plain version, both times, and the least time the card could take for
 the same work (``bound_ms``: the larger of bytes over 3.35 TB/s and
@@ -1595,13 +1609,15 @@ def maml_params(corpus: str, out: str, **over) -> dict:
     return p
 
 
-def _run_maml(params: dict, workdir: str) -> list:
+def _run_maml(params: dict, workdir: str, keep: tuple = ()) -> list:
     """``trainers.maml.main`` on ``params`` written to
     ``workdir/params.yml``; returns one record per meta-step: wall s,
     peak device bytes above what was held before it, and the valid mel
-    frames of its support and query sets."""
+    frames of its support and query sets.  ``keep``: ``(epoch, dir)``,
+    where a copy of the run's files goes once that epoch's are written."""
     import argparse
     import os
+    import shutil
 
     import torch
 
@@ -1635,6 +1651,14 @@ def _run_maml(params: dict, workdir: str) -> list:
                 return out
 
             self._maml_step = timed
+
+        def _save_epoch_state(self, epoch, extra=None):
+            super()._save_epoch_state(epoch, extra)
+            if keep and epoch == keep[0]:
+                if self._async_ckpt is not None:     # drain the writer
+                    self._async_ckpt.close()
+                    self._async_ckpt = None
+                shutil.copytree(self.path_manager.output_path, keep[1])
 
     orig, TM.MAML = TM.MAML, Timed
     try:
@@ -1753,8 +1777,8 @@ def maml_phase(device) -> dict:
     port's entry point (``trainers.maml.main``, second order, bfloat16
     compute, 4 tasks x 8 shots) for 3 epochs on a synthetic corpus: each
     meta-step's wall time, mel frames per second and peak device memory,
-    the meta-test's losses and MCD, every logged value finite; a run of 2
-    epochs resumed to 3 against the unbroken run; one float32 meta-step,
+    the meta-test's losses and MCD, every logged value finite; the run's
+    files after 2 epochs resumed to 3 against it; one float32 meta-step,
     second and then first order, on the card against the CPU; and the
     trained checkpoint served through the whole-loop kernel (float32 and
     bfloat16) and the segment kernel, held to the plain decode."""
@@ -1789,7 +1813,8 @@ def maml_phase(device) -> dict:
               f"{params['n_inner_test']}, optim_outer "
               f"{params['optim_outer']}, clip {params['grad_clip_thresh']}")
         t0 = time.perf_counter()
-        steps = _run_maml(params, f"{tmp}/full")
+        part_dir = f"{tmp}/part/maml/{params['experiment_name']}"
+        steps = _run_maml(params, f"{tmp}/full", keep=(2, part_dir))
         res["run_s"] = time.perf_counter() - t0
         run_dir = f"{tmp}/full/maml/{params['experiment_name']}"
         walls = [s["s"] for s in steps]
@@ -1824,13 +1849,12 @@ def maml_phase(device) -> dict:
             raise AssertionError(f"meta-training: {len(steps)} steps, "
                                  f"non-finite logs {bad}")
 
-        # ---- resume: 2 epochs, then resume: true to epoch 3
-        part = maml_params(corpus, f"{tmp}/part", n_epochs=2)
-        _run_maml(part, f"{tmp}/part")
-        _run_maml(dict(part, n_epochs=3, resume=True), f"{tmp}/part")
+        # ---- resume: the unbroken run's files after epoch 2 (kept
+        # above), resume: true to epoch 3
+        _run_maml(maml_params(corpus, f"{tmp}/part", n_epochs=3,
+                              resume=True), f"{tmp}/part")
         cfg = _trained_cfg(run_dir)
         full_sd, full_raw = _ckpt_state(run_dir, cfg)
-        part_dir = f"{tmp}/part/maml/{params['experiment_name']}"
         part_sd, part_raw = _ckpt_state(part_dir, cfg)
         names = [k for k, v in full_sd.items()
                  if "running" not in k and v.is_floating_point()]
@@ -2702,13 +2726,13 @@ def _run_vocoder_trainer(kind: str, params: dict, workdir: str):
     recs, ran = [], []
 
     class Timed(base):
-        def _step(self, *a):
+        def _step(self, *a, **k):
             dev = self.device
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             held = torch.cuda.memory_allocated(dev)
             t0 = time.perf_counter()
-            out = super()._step(*a)
+            out = super()._step(*a, **k)
             torch.cuda.synchronize(dev)
             recs.append({"s": time.perf_counter() - t0,
                          "peak_above_bytes":
@@ -3716,6 +3740,535 @@ def cli_phase(device) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 16
+# Dp serving: each row of the sharded decode (2 shards on one card) held
+# against the single-device K1 decode of the whole batch with the same
+# masks: float32 within DP_SERVE_ATOL (phase 4's limit for a B = 4 row
+# against its B = 1 decode); bfloat16 as _judge_dec holds the kernel
+# against the plain loop (DEC_BF16_ATOL over the first CHECK_STEPS steps,
+# the flip share over the run).  Stop steps equal.
+DP_SERVE_ATOL = 1e-5
+# Two ranks on one card over gloo against the same run at world 1: the
+# JAX package's limit for a parallel run against a single-device one
+# (tests/test_trainer_parallel.py), and for the batch-norm running
+# statistics a relative bound (each tensor's max |d| over its largest
+# value).  The resume at world 2 equals the unbroken run bit for bit.
+PAR_W_ATOL = 3e-5
+PAR_STAT_RTOL = 1e-4
+PAR_REDUCED = {
+    "corpus": "phase 12's synthetic corpus (4 speakers x 12 clips)",
+    "maml": "2 meta-steps (4 tasks x 8 shots), float32, SGD outer of "
+            "lr 1e-2, no meta-test; timing: the shipped settings "
+            "(bfloat16, Adam) for 4 meta-steps",
+    "joint": "1 epoch (2 steps: 32 and 8 rows), float32, SGD of lr "
+             "1e-2, no meta-test; timing: the shipped settings for 2 "
+             "epochs",
+    "wavernn": "10 steps of phase 14's served width (16 rows)",
+    "torchrun": "1 meta-step of the shipped MAML, no meta-test",
+}
+PAR_DEVICE = "cuda:0"      # both ranks' (and world 1's) device
+PAR_WAIT_S = 900           # how long the ranks wait for world 1's checks
+PAR_TRAINERS = {"maml": ("maml", "MAML"),
+                "baseline": ("baseline", "JointTrainer"),
+                "wavernn": ("wavernn_train", "WaveRNNTrainer")}
+
+
+def dp_serving(device) -> dict:
+    """Phase 16, part 1: ``serving.decode_sharded`` on a mesh of two
+    shards of ``cuda:0`` (``make_mesh(dp=2, devices=[cuda:0, cuda:0])``)
+    at the full width, B = 4 and B = 3 (a filler row), float32 and
+    bfloat16, T_in 120, gate bias -1e4 (500 steps): K1 launches twice a
+    call, and each row equals the single-device K1 decode of the same
+    rows and masks.  ``AdaptiveTTS`` with ``parallel: {dp: 2}`` raises
+    on a host with fewer cards."""
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        config_from_params,
+        tacotron2nv_infer,
+    )
+    from msa_tts_tpu_torch.parallel import make_mesh
+    from msa_tts_tpu_torch.serving import (
+        N_SYMBOLS,
+        AdaptiveTTS,
+        decode_sharded,
+    )
+
+    mp = dict(SHIPPED_MODEL, decoder_no_early_stopping=True,
+              n_mel_channels=SHIPPED_AUDIO["n_mels"], n_symbols=N_SYMBOLS)
+    params = {"model": mp, "audio_params": dict(SHIPPED_AUDIO),
+              "decode_backend": "cuda"}
+    n_cards = torch.cuda.device_count()
+    try:
+        AdaptiveTTS(dict(params, parallel={"dp": n_cards + 1}),
+                    Tacotron2NV(config_from_params(mp)), device=device)
+    except ValueError as e:
+        print(f"  AdaptiveTTS parallel: {{dp: {n_cards + 1}}} on {n_cards} "
+              f"card(s): {e}")
+        if f"have {n_cards}" not in str(e):
+            raise
+    else:
+        raise AssertionError("a mesh larger than the host's cards built")
+    mesh = make_mesh(dp=2, task=1, devices=[device, device])
+    res = {"launches": 0, "max_abs_err": 0.0}
+    g = torch.Generator().manual_seed(16)
+    for dtype in ("float32", "bfloat16"):
+        tts = AdaptiveTTS(dict(params, infer_dtype=dtype),
+                          Tacotron2NV(config_from_params(mp),
+                                      generator=torch.Generator()
+                                      .manual_seed(0)), device=device)
+        with torch.no_grad():
+            tts.model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
+        cfg, dcfg = tts.cfg, tts.cfg.decoder_config()
+        S, r = dcfg.max_decoder_steps, cfg.n_frames_per_step
+        for B in (4, 3):
+            lens = np.array([T_IN, T_IN - 23, T_IN - 10, T_IN - 56][:B]
+                            + [T_IN] * (4 - B))
+            inputs = np.random.default_rng(B).integers(
+                1, N_SYMBOLS, (4, T_IN))
+            for i in range(4):
+                inputs[i, lens[i]:] = 0
+            inputs[B:], lens[B:] = inputs[0], lens[0]      # filler rows
+            emb = np.random.default_rng(7).standard_normal(
+                (4, cfg.speaker_embedding_dim)).astype(np.float32)
+            pm = CD.prenet_masks(dcfg, S, 4, g, device=device)
+
+            def sharded():
+                return decode_sharded(
+                    mesh, [tts.model, tts.model], cfg, inputs, lens, emb,
+                    pm, decode_backend="cuda")
+
+            sharded()                   # the first call packs the weights
+            torch.cuda.synchronize()
+            CD.LAUNCHES = 0
+            t0 = time.perf_counter()
+            mel, mel_len = sharded()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            n = CD.LAUNCHES
+            res["launches"] += n
+            if n != 2:
+                raise AssertionError(f"dp serving launched K1 {n} times, "
+                                     "want 2")
+            t0 = time.perf_counter()
+            ref, ref_len, _ = tacotron2nv_infer(
+                tts.model, cfg, torch.as_tensor(inputs, device=device),
+                torch.as_tensor(lens, device=device),
+                torch.as_tensor(emb, device=device), pm, mask_pad=True,
+                decode_backend="cuda")
+            torch.cuda.synchronize()
+            one_ms = 1e3 * (time.perf_counter() - t0)
+            if not torch.equal(mel_len.cpu(), ref_len.cpu()):
+                raise AssertionError(f"stop steps {mel_len} != {ref_len}")
+            d = (mel[:B] - ref[:B]).abs()
+            err = float(d.max())
+            line = (f"  {dtype} B={B}: 2 shards vs one decode max|d| "
+                    f"{err:.3e}")
+            if dtype == "float32":
+                ok = err <= DP_SERVE_ATOL
+                line += f" (limit {DP_SERVE_ATOL})"
+            else:
+                # as _judge_dec holds bf16 mels: the first steps, and the
+                # share of flips over the run
+                first = float(d[..., :CHECK_STEPS * r].max())
+                share = float((d > DEC_BF16_FLIP["mels"]).float().mean())
+                ok = (first <= DEC_BF16_ATOL["mels"]
+                      and share <= DEC_BF16_SHARE)
+                line += (f", first {CHECK_STEPS} steps {first:.3e} (limit "
+                         f"{DEC_BF16_ATOL['mels']}), share beyond "
+                         f"{DEC_BF16_FLIP['mels']} {share:.2e} (limit "
+                         f"{DEC_BF16_SHARE})")
+                err = first
+            print(line + f", stop steps {mel_len.tolist()}, K1 launches {n},"
+                  f" {ms:.1f} ms (one decode {one_ms:.1f} ms)")
+            if not ok:
+                raise AssertionError(f"{dtype} B={B}: dp serving rows")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res[f"ms_{dtype}_b{B}"] = ms
+            res[f"one_device_ms_{dtype}_b{B}"] = one_ms
+        del tts
+        torch.cuda.empty_cache()
+    return res
+
+
+def _par_run(method: str, workdir: str, step_attr: str,
+             keep_epoch1: str | None = None):
+    """``trainers.<method>.main`` on ``workdir/params.yml`` (written by
+    the caller) with the trainer's ``step_attr`` timed (synchronised) and
+    the device's peak memory in each; ``keep_epoch1``: where rank 0
+    copies the run's checkpoints once epoch 1's are written.  Returns
+    ``(trainer, records)``."""
+    import argparse
+    import importlib
+    import shutil
+
+    import torch
+
+    mod_name, name = PAR_TRAINERS[method]
+    mod = importlib.import_module(f"msa_tts_tpu_torch.trainers.{mod_name}")
+    base = getattr(mod, name)
+    recs, ran = [], []
+
+    class Timed(base):
+        def run(self):
+            ran.append(self)
+            fn = getattr(self, step_attr)
+
+            def timed(*a, **k):
+                dev = self.device
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize(dev)
+                peak = torch.cuda.max_memory_allocated(dev)
+                recs.append({"s": time.perf_counter() - t0,
+                             "peak_bytes": peak,
+                             "peak_above_bytes": peak - held})
+                return out
+
+            setattr(self, step_attr, timed)
+            return super().run()
+
+        def _save_epoch_state(self, epoch, extra=None):
+            super()._save_epoch_state(epoch, extra)
+            if keep_epoch1 and epoch == 1 and self.is_writer:
+                if self._async_ckpt is not None:     # drain the writer
+                    self._async_ckpt.close()
+                    self._async_ckpt = None
+                shutil.copytree(self.path_manager.output_path, keep_epoch1)
+
+    setattr(mod, name, Timed)
+    try:
+        mod.main(argparse.Namespace(params_path=workdir))
+    finally:
+        setattr(mod, name, base)
+    return ran[0], recs
+
+
+def _par_state(t) -> dict:
+    """A trainer's weights and batch-norm statistics on the host."""
+    if hasattr(t, "train_state"):
+        return {"w": {k: v.cpu() for k, v in t.train_state.params.items()},
+                "stats": {k: v.cpu() for k, v in
+                          t.train_state.model_state.items()
+                          if v.is_floating_point()}}
+    return {"w": {k: v.cpu() for k, v in t.model_params.items()},
+            "stats": {}}
+
+
+def _par_rank(rank: int, world: int, tmp: str) -> None:
+    """What each of phase 16's two ranks (gloo, both on ``cuda:0``) runs:
+    the gloo collectives on CUDA tensors without staging (reported), then
+    every world-2 case of ``<tmp>/cases.json`` in order; each rank writes
+    ``<tmp>/rank<r>.pt``."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(PAR_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    direct = {}
+    # gloo on CUDA tensors, which the port relies on for ranks that share
+    # one card
+    for op in ("all_reduce", "all_gather", "broadcast"):
+        x = torch.full((4,), float(rank + 1), device=dev)
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(x)
+                ok = x.tolist() == [3.0] * 4
+            elif op == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x)
+                ok = torch.cat(parts).tolist() == [1.0] * 4 + [2.0] * 4
+            else:
+                dist.broadcast(x, src=0)
+                ok = x.tolist() == [1.0] * 4
+            direct[op] = "ok" if ok else "wrong values"
+        except Exception as e:
+            direct[op] = f"{type(e).__name__}: {str(e)[:120]}"
+    if set(direct.values()) != {"ok"}:
+        raise AssertionError(f"gloo on CUDA tensors: {direct}")
+    with open(os.path.join(tmp, "cases.json")) as f:
+        cases = json.load(f)
+    out = {"gloo_cuda_direct": direct}
+    waited = False
+    for name, c in cases.items():
+        if c.get("timed") and not waited:
+            # the timed runs wait until world 1's untimed ones are done
+            waited = True
+            dist.barrier()
+            if rank == 0:
+                open(f"{tmp}/w2_checked", "w").close()
+            t0 = time.perf_counter()
+            while not os.path.exists(f"{tmp}/w1_checked"):
+                if time.perf_counter() - t0 > PAR_WAIT_S:
+                    raise TimeoutError("world 1's checks did not end")
+                time.sleep(0.2)
+        if c.get("copy"):
+            # a run that resumes from a copy of an earlier run's files
+            if rank == 0:
+                shutil.copytree(*c["copy"])
+            dist.barrier()
+        t, recs = _par_run(c["method"], os.path.join(tmp, name), c["step"],
+                           c.get("keep_epoch1"))
+        out[name] = dict(_par_state(t), recs=recs, step=t.step_global)
+        del t
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _par_err(a: dict, b: dict) -> tuple:
+    """``(weights max|d|, statistics max relative |d|)``."""
+    w = max(float((a["w"][k] - b["w"][k]).abs().max()) for k in b["w"])
+    s = max([float((a["stats"][k] - b["stats"][k]).abs().max()
+                   / b["stats"][k].abs().max().clamp_min(1e-30))
+             for k in b["stats"]] or [0.0])
+    return w, s
+
+
+def _warm(recs: list) -> dict:
+    import statistics
+
+    warm = [r["s"] for r in recs[1:]] or [recs[0]["s"]]
+    return {"median_warm_s": statistics.median(warm), "n_warm": len(warm),
+            "peak_gib": max(r["peak_bytes"] for r in recs) / 2 ** 30,
+            "peak_above_gib":
+                max(r["peak_above_bytes"] for r in recs) / 2 ** 30}
+
+
+def parallel_training(device) -> dict:
+    """Phase 16, parts 2 and 3: two gloo ranks sharing ``cuda:0``
+    (``parallel/launch.py``) run MAML ``parallel: {task: 2}`` (float32,
+    second order, SGD outer, 2 meta-steps), the joint trainer ``{dp: 2}``
+    (float32, SGD, batches of 32, 2 steps) and WaveRNN ``{dp: 2}`` (10
+    steps) through their entry points, held against the same runs at
+    world 1 on the card; the shipped MAML and joint settings timed at
+    world 2 and at world 1; a world-2 MAML run of one meta-step resumed
+    at world 2 (bit for bit against the unbroken run) and at world 1;
+    and ``torchrun --standalone --nproc_per_node 1`` of the MAML entry
+    point on NCCL."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from msa_tts_tpu_torch.config import save_params
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+    from msa_tts_tpu_torch.parallel.launch import spawn
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        corpus = f"{tmp}/corpus"
+        make_synthetic_corpus(corpus, n_speakers=4,
+                              utterances_per_speaker=12, seed=0,
+                              spk_emb_dim=SHIPPED_MODEL[
+                                  "speaker_embedding_dim"])
+        print("  reduced: " + json.dumps(PAR_REDUCED))
+        sgd = {"optimizer_type": "SGD", "lr": 1e-2}
+        no_test = dict(metatest_epoch_interval=10 ** 6, do_metatest=False)
+        spk = list(MAML_SPEAKERS)
+        params = {
+            "maml": ("maml", maml_params(
+                corpus, "", n_epochs=2, compute_dtype="float32",
+                optim_outer=sgd, async_checkpoint=False, **no_test)),
+            "joint": ("baseline", example_params(
+                "baseline", corpus, "", spk, n_epochs=1,
+                compute_dtype="float32", optim=sgd, **no_test)),
+            "wavernn": ("wavernn", _voc_params("wavernn", corpus, "",
+                                               n_steps=10)),
+            "maml_shipped": ("maml", maml_params(corpus, "", n_epochs=4,
+                                                 **no_test)),
+            "joint_shipped": ("baseline", example_params(
+                "baseline", corpus, "", spk, n_epochs=2, **no_test)),
+        }
+        step_attr = {"maml": "_maml_step", "baseline": "_train_step",
+                     "wavernn": "_step"}
+
+        def write(root: str, world: int, **extra) -> dict:
+            cases = {}
+            for name, (method, p) in params.items():
+                d = f"{root}/{name}"
+                p = dict(p, output_path=f"{d}/out", device=PAR_DEVICE,
+                         **extra.get(name, {}))
+                if world == 2:
+                    p["parallel"] = ({"task": 2} if method == "maml"
+                                     else {"dp": 2})
+                os.makedirs(d, exist_ok=True)
+                save_params(p, f"{d}/params.yml")
+                attr = step_attr[method]
+                if method == "maml" and world == 2:
+                    attr = "_maml_step_sharded"
+                cases[name] = {"method": method, "step": attr,
+                               "timed": name.endswith("_shipped")}
+            return cases
+
+        w2 = f"{tmp}/w2"
+        cases = write(w2, 2)
+        # the unbroken world-2 MAML run keeps its files after step 1; a
+        # copy of them resumes at world 2 (and at world 1 below)
+        kept = f"{tmp}/maml_step1"
+        exp = f"maml/{params['maml'][1]['experiment_name']}"
+        cases["maml"]["keep_epoch1"] = kept
+        d = f"{w2}/maml_resumed"
+        os.makedirs(d)
+        save_params(dict(params["maml"][1], output_path=f"{d}/out",
+                         device=PAR_DEVICE, parallel={"task": 2},
+                         resume=True), f"{d}/params.yml")
+        cases["maml_resumed"] = {"method": "maml",
+                                 "step": "_maml_step_sharded",
+                                 "copy": [kept, f"{d}/out/{exp}"]}
+        order = [n for n in cases if not cases[n].get("timed")]
+        with open(f"{w2}/cases.json", "w") as f:
+            json.dump({n: cases[n] for n in order
+                       + [n for n in cases if n not in order]}, f)
+        # world 2's and world 1's untimed runs and the torchrun run go side
+        # by side; then world 2's timed runs, then world 1's, alone
+        t_side = time.perf_counter()
+        wait = spawn(_par_rank, 2, w2, store=f"{w2}/store", join=False)
+
+        # NCCL at world 1 through torchrun, beside the untimed runs
+        d = f"{tmp}/torchrun"
+        os.makedirs(d)
+        save_params(maml_params(corpus, f"{d}/out", n_epochs=1,
+                                parallel={"dp": 1, "task": 1}, **no_test),
+                    f"{d}/params.yml")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t_run = time.perf_counter()
+        torchrun = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "msa_tts_tpu_torch.trainers.maml",
+             "--params_path", d], cwd=here, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        w1 = f"{tmp}/w1"
+        write(w1, 1)
+        ref = {}
+        try:
+            for name in ("maml", "joint", "wavernn"):
+                method = params[name][0]
+                t, recs = _par_run(method, f"{w1}/{name}", step_attr[method])
+                ref[name] = dict(_par_state(t), step=t.step_global)
+                del t
+            # world 2's files after step 1, resumed at world 1, once the
+            # world-2 untimed runs are done
+            while not os.path.exists(f"{w2}/w2_checked"):
+                if wait(0.5):
+                    raise AssertionError("the ranks ended before their "
+                                         "timed runs")
+            d1 = f"{w1}/maml_from_w2"
+            os.makedirs(d1)
+            shutil.copytree(kept, f"{d1}/out/{exp}")
+            save_params(dict(params["maml"][1], output_path=f"{d1}/out",
+                             device=PAR_DEVICE, resume=True),
+                        f"{d1}/params.yml")
+            t, _ = _par_run("maml", d1, "_maml_step")
+            from_w2 = dict(_par_state(t), step=t.step_global)
+            del t
+            out, err = torchrun.communicate(timeout=600)
+        finally:
+            if torchrun.poll() is None:
+                torchrun.kill()
+                torchrun.wait()
+        sec = time.perf_counter() - t_run
+        torch.cuda.empty_cache()
+        open(f"{w2}/w1_checked", "w").close()
+        wait()
+        print(f"  world 2 (two gloo ranks on one card), with world 1's "
+              f"untimed runs beside it: {time.perf_counter() - t_side:.1f} s")
+        r0, r1 = (torch.load(f"{w2}/rank{r}.pt", weights_only=False)
+                  for r in (0, 1))
+        res["gloo_cuda_direct"] = r0["gloo_cuda_direct"]
+        print(f"  gloo's all-reduce, all-gather and broadcast of CUDA "
+              f"tensors: {r0['gloo_cuda_direct']}")
+        for name in r0:
+            if name == "gloo_cuda_direct":
+                continue
+            w, s = _par_err(r0[name], r1[name])
+            if w or s:
+                raise AssertionError(f"{name}: ranks differ ({w}, {s})")
+        t0 = time.perf_counter()
+        for name in ("maml_shipped", "joint_shipped"):
+            method = params[name][0]
+            t, recs = _par_run(method, f"{w1}/{name}", step_attr[method])
+            ref[name] = {"recs": recs}
+            del t
+            torch.cuda.empty_cache()
+        print(f"  world 1's timed runs: {time.perf_counter() - t0:.1f} s")
+
+        for name in ("maml", "joint", "wavernn"):
+            w, s = _par_err(r0[name], ref[name])
+            steps = (r0[name]["step"], ref[name]["step"])
+            print(f"  {name}: world 2 vs world 1 weights max|d| {w:.3e} "
+                  f"(limit {PAR_W_ATOL}), statistics {s:.3e} (limit "
+                  f"{PAR_STAT_RTOL}), steps {steps}")
+            if not (w <= PAR_W_ATOL and s <= PAR_STAT_RTOL
+                    and steps[0] == steps[1]):
+                raise AssertionError(f"{name}: world 2 vs 1 ({w}, {s}, "
+                                     f"{steps})")
+            res[f"{name}_w_err"], res[f"{name}_stat_err"] = w, s
+        w, s = _par_err(r0["maml_resumed"], r0["maml"])
+        print(f"  MAML resumed at world 2 after step 1 vs unbroken: "
+              f"{w:.3e}, {s:.3e} (equal bit for bit)")
+        if w or s or r0["maml_resumed"]["step"] != r0["maml"]["step"]:
+            raise AssertionError("world-2 resume is not the unbroken run")
+        w, s = _par_err(from_w2, r0["maml"])
+        print(f"  MAML world-2 checkpoint resumed at world 1: weights "
+              f"{w:.3e} (limit {PAR_W_ATOL}), statistics {s:.3e}")
+        if not (w <= PAR_W_ATOL and s <= PAR_STAT_RTOL
+                and from_w2["step"] == r0["maml"]["step"]):
+            raise AssertionError(f"world-1 resume ({w}, {s})")
+        res["resume_w1_w_err"] = w
+        for name in ("maml_shipped", "joint_shipped"):
+            a = [_warm(r[name]["recs"]) for r in (r0, r1)]
+            b = _warm(ref[name]["recs"])
+            print(f"  {name}: world 2 median warm step "
+                  f"{a[0]['median_warm_s']:.3f} s (ranks' peaks "
+                  f"{a[0]['peak_gib']:.2f}, {a[1]['peak_gib']:.2f} GiB, "
+                  f"{a[0]['peak_above_gib']:.2f}, {a[1]['peak_above_gib']:.2f}"
+                  f" above what each held), world 1 "
+                  f"{b['median_warm_s']:.3f} s ({b['peak_gib']:.2f} GiB, "
+                  f"{b['peak_above_gib']:.2f} above what it held); "
+                  f"{b['n_warm']} warm steps each; two ranks share one "
+                  "card, so this is no multi-GPU speed-up")
+            res[name] = {"world2": a, "world1": b}
+
+        ckpts = sorted(os.listdir(f"{d}/out/{exp}/checkpoints")) \
+            if torchrun.returncode == 0 else []
+        want = "nccl" if PAR_DEVICE.startswith("cuda") else "gloo"
+        print(f"  torchrun --nproc_per_node 1: exit {torchrun.returncode}, "
+              f"{sec:.1f} s beside world 1's untimed runs, backend {want}, "
+              f"checkpoints {ckpts}")
+        if (torchrun.returncode != 0 or "checkpoint_0.ckpt" not in ckpts
+                or f"backend {want}" not in out):
+            print(out[-2000:], err[-3000:])
+            raise AssertionError("the torchrun run failed")
+        res["torchrun_s"] = sec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def parallel_phase(device) -> dict:
+    """Phase 16: dp serving through K1, then data- and task-parallel
+    training (``dp_serving``, ``parallel_training``)."""
+    print("  dp serving: 2 shards of one card through K1")
+    res = {"serving": dp_serving(device)}
+    print("  training: 2 gloo ranks on one card, and torchrun on NCCL")
+    res["training"] = parallel_training(device)
+    return res
+
+
 def main(argv=None) -> int:
     import shutil
 
@@ -3733,7 +4286,7 @@ def _run(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--only", default=None,
-                    help="comma-separated phases (12, 13, 14, 15) to run "
+                    help="comma-separated phases (12, 13, 14, 15, 16) to run "
                          "after phase 1 instead of all phases; the kernels "
                          "line is then not printed")
     only = ap.parse_args(argv).only
@@ -3785,7 +4338,8 @@ def _run(argv=None) -> int:
             print(f"phase {phase} alone")
             t0 = time.perf_counter()
             res = {"12": maml_phase, "13": train_phase,
-                   "14": vocoder_phase, "15": cli_phase}[phase](device)
+                   "14": vocoder_phase, "15": cli_phase,
+                   "16": parallel_phase}[phase](device)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
             print(gpu)
             print(json.dumps({phase: res}))
@@ -3900,6 +4454,14 @@ def _run(argv=None) -> int:
     print(json.dumps({"cli": cp}))
     cli_launches = {k: sum(n[k] for n in cp["launches"].values())
                     for k in ("decoder_loop", "wavernn_loop")}
+    print("phase 16: dp serving through the decoder kernel (2 shards of "
+          "one card), data- and task-parallel training over 2 gloo ranks "
+          "on one card against world 1, resumes, and torchrun on NCCL")
+    t0 = time.perf_counter()
+    pp = parallel_phase(device)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    print(gpu)
+    print(json.dumps({"parallel": pp}))
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in
@@ -3932,7 +4494,9 @@ def _run(argv=None) -> int:
              trained_checkpoint_launches=mm["launches"],
              joint_checkpoint_launches=tp["joint_served"]["launches"],
              ewc_checkpoint_launches=tp["ewc_served"]["launches"],
-             cli_launches=cli_launches["decoder_loop"]),
+             cli_launches=cli_launches["decoder_loop"],
+             dp_serving_launches=pp["serving"]["launches"],
+             dp_serving_max_abs_err=pp["serving"]["max_abs_err"]),
         dict(dec_entry("decoder_segment", 553, sk, seg_launches),
              adapted_voice_launches=ad["seg_launches"],
              trained_checkpoint_launches=mm["seg_launches"],

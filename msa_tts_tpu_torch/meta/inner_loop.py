@@ -20,7 +20,7 @@ from ..optim import Transform, apply_updates
 
 
 def make_adapt_fn(loss_fn: Callable, inner_tx: Transform, n_steps: int, *,
-                  create_graph: bool = False):
+                  create_graph: bool = False, group=None):
     """Build ``adapt(params, model_state, batch, masks)``.
 
     ``loss_fn(params, model_state, batch, masks) -> (loss,
@@ -33,7 +33,13 @@ def make_adapt_fn(loss_fn: Callable, inner_tx: Transform, n_steps: int, *,
     graph, so the adapted parameters can be differentiated with respect
     to the ``params`` given (second-order meta-learning); those must
     then require grad, and each step's forward runs under
-    ``ops.rnn.twice_differentiable``."""
+    ``ops.rnn.twice_differentiable``.
+
+    ``group``: a mesh's ``AxisGroup`` (the JAX package's
+    ``grad_pmean_axis``) over which each step's gradients and loss are
+    averaged, through one differentiable all-reduce: a task whose shots
+    are split over the group then adapts to the same parameters on every
+    rank of it (``parallel/shard_meta.py``)."""
 
     def adapt(params: dict, model_state: dict, batch, masks):
         if not create_graph:
@@ -54,6 +60,8 @@ def make_adapt_fn(loss_fn: Callable, inner_tx: Transform, n_steps: int, *,
             # a zero gradient, as under jax.grad
             grads = {n: torch.zeros_like(p) if g is None else g
                      for (n, p), g in zip(params.items(), grads)}
+            if group is not None and group.pg is not None:
+                grads, loss = _pmean(grads, loss, group)
             updates, opt_state = inner_tx.update(grads, opt_state, params)
             params = apply_updates(params, updates)
             if not create_graph:
@@ -66,3 +74,18 @@ def make_adapt_fn(loss_fn: Callable, inner_tx: Transform, n_steps: int, *,
                 torch.stack(losses) if losses else torch.zeros(0))
 
     return adapt
+
+
+def _pmean(grads: dict, loss, group):
+    """``grads`` and ``loss`` averaged over ``group`` in one flat,
+    differentiable all-reduce."""
+    from ..parallel.collectives import pmean
+
+    flat = pmean(torch.cat([g.reshape(-1) for g in grads.values()]
+                           + [loss.detach().reshape(1).to(
+                               next(iter(grads.values())).dtype)]), group)
+    out, off = {}, 0
+    for n, g in grads.items():
+        out[n] = flat[off: off + g.numel()].view(g.shape)
+        off += g.numel()
+    return out, flat[off]

@@ -56,7 +56,7 @@ def _task(batch: dict, k: int) -> dict:
 def make_maml_step(loss_fn: Callable, inner_tx: Transform,
                    outer_tx: Transform, n_inner: int, *,
                    second_order: bool = True,
-                   clip_thresh: float | None = None):
+                   clip_thresh: float | None = None, placement=None):
     """Build ``maml_step(state, support, query, masks) -> (state,
     MetaMetrics)``.
 
@@ -64,27 +64,41 @@ def make_maml_step(loss_fn: Callable, inner_tx: Transform,
     K.  ``masks[k]``: task k's dropout masks for its ``n_inner`` inner
     steps and its query pass (``n_inner + 1`` passes).
     ``loss_fn(params, model_state, batch, masks) -> (loss,
-    new_model_state)``."""
+    new_model_state)``.
+
+    ``placement`` (``parallel/shard_meta.py``): the batches are this
+    rank's block of the episode and ``masks`` the whole episode's; the
+    step runs its tasks, and the placement's reductions make the result
+    the whole episode's on every rank."""
+    pl = placement
     adapt = make_adapt_fn(loss_fn, inner_tx, n_inner,
-                          create_graph=second_order)
+                          create_graph=second_order,
+                          group=pl.shot_group if pl is not None else None)
 
     def maml_step(state: TrainState, support: dict, query: dict, masks):
-        K = next(iter(support.values())).shape[0]
+        first = next(iter(support.values()))
+        k_loc = first.shape[0]
+        if pl is None:
+            ids, K, scale = range(k_loc), k_loc, 1.0 / k_loc
+        else:
+            ids, K = pl.task_ids(k_loc), pl.n_tasks(k_loc)
+            scale = 1.0 / (K * pl.shot_parts)
         names = list(state.params)
         theta = {k: p.detach().requires_grad_(second_order)
                  for k, p in state.params.items()}
         grads = {k: torch.zeros_like(p) for k, p in theta.items()}
         qlosses, inner, task_states = [], [], []
         with torch.enable_grad():
-            for k in range(K):
+            for j, k in enumerate(ids):
+                m = masks[k] if pl is None else pl.task_masks(
+                    masks[k], first.shape[1])
                 adapted, ms, inner_k = adapt(theta, state.model_state,
-                                             _task(support, k),
-                                             masks[k][:n_inner])
-                qloss, ms_q = loss_fn(adapted, ms, _task(query, k),
-                                      masks[k][n_inner])
+                                             _task(support, j), m[:n_inner])
+                qloss, ms_q = loss_fn(adapted, ms, _task(query, j),
+                                      m[n_inner])
                 if second_order:
                     # d(qloss_k / K) / d theta, through the inner steps
-                    g = torch.autograd.grad(qloss * (1.0 / K),
+                    g = torch.autograd.grad(qloss * scale,
                                             [theta[n] for n in names],
                                             allow_unused=True)
                 else:
@@ -101,10 +115,17 @@ def make_maml_step(loss_fn: Callable, inner_tx: Transform,
                 task_states.append({n: v.detach() for n, v in ms_q.items()})
                 del adapted, qloss, g
         with torch.no_grad():
+            if pl is not None:
+                grads = pl.sum_grads(grads)
             if not second_order:
-                grads = {n: g * (1.0 / K) for n, g in grads.items()}
-            task_losses = torch.stack(qlosses)
-            new_ms = merge_task_states(task_states, state.model_state)
+                grads = {n: g * scale for n, g in grads.items()}
+            task_losses, inner = torch.stack(qlosses), torch.stack(inner)
+            if pl is None:
+                new_ms = merge_task_states(task_states, state.model_state)
+            else:
+                task_losses = pl.gather_tasks(pl.shot_mean(task_losses))
+                inner = pl.gather_tasks(inner)
+                new_ms = pl.merge_states(task_states, state.model_state)
             if clip_thresh is not None:
                 grads, grad_norm = clip_by_global_norm(grads, clip_thresh)
             else:
@@ -116,8 +137,7 @@ def make_maml_step(loss_fn: Callable, inner_tx: Transform,
                 model_state=new_ms, opt_state=opt_state,
                 step=state.step + 1)
         return new_state, MetaMetrics(task_losses.sum() * (1.0 / K),
-                                      task_losses,
-                                      torch.stack(inner), grad_norm)
+                                      task_losses, inner, grad_norm)
 
     return maml_step
 

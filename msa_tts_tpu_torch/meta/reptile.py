@@ -36,13 +36,19 @@ class ReptileMetrics(NamedTuple):
 def make_reptile_step(loss_fn: Callable, inner_tx: Transform,
                       outer_tx: Transform, n_inner: int, *,
                       mode: str = "sequential",
-                      clip_thresh: float | None = None):
+                      clip_thresh: float | None = None, placement=None):
     """Build ``reptile_step(state, support, query, masks) -> (state,
     ReptileMetrics)``; arguments as ``make_maml_step``'s (``masks[k]``:
-    task k's ``n_inner`` inner steps', then its query pass's)."""
+    task k's ``n_inner`` inner steps', then its query pass's), and so is
+    ``placement``, which only the batched mode takes: the sequential
+    one's outer update sits between tasks."""
     if mode not in ("sequential", "batched"):
         raise ValueError(f"unknown reptile mode: {mode}")
-    adapt = make_adapt_fn(loss_fn, inner_tx, n_inner)
+    pl = placement
+    if pl is not None and mode != "batched":
+        raise ValueError("only batched Reptile shards its tasks")
+    adapt = make_adapt_fn(loss_fn, inner_tx, n_inner,
+                          group=pl.shot_group if pl is not None else None)
 
     def task_direction(params, model_state, sup, qry, masks):
         adapted, ms, inner = adapt(params, model_state, sup, masks[:n_inner])
@@ -67,14 +73,22 @@ def make_reptile_step(loss_fn: Callable, inner_tx: Transform,
                               step=state.step + 1), grad_norm
 
     def reptile_step(state: TrainState, support: dict, query: dict, masks):
-        K = next(iter(support.values())).shape[0]
+        first = next(iter(support.values()))
+        k_loc = first.shape[0]
+        if pl is None:
+            ids, K, scale = range(k_loc), k_loc, 1.0 / k_loc
+        else:
+            ids, K = pl.task_ids(k_loc), pl.n_tasks(k_loc)
+            scale = 1.0 / (K * pl.shot_parts)
         theta0 = state
         qlosses, inner, norms, directions, states = [], [], [], [], []
-        for k in range(K):
+        for j, k in enumerate(ids):
+            m = masks[k] if pl is None else pl.task_masks(masks[k],
+                                                          first.shape[1])
             src = state if mode == "sequential" else theta0
             d, q, i, ms_q = task_direction(
-                src.params, src.model_state, _task(support, k),
-                _task(query, k), masks[k])
+                src.params, src.model_state, _task(support, j),
+                _task(query, j), m)
             qlosses.append(q)
             inner.append(i)
             if mode == "sequential":
@@ -85,18 +99,25 @@ def make_reptile_step(loss_fn: Callable, inner_tx: Transform,
                 directions.append(d)
                 states.append(ms_q)
         with torch.no_grad():
+            task_losses, inner = torch.stack(qlosses), torch.stack(inner)
             if mode == "batched":
                 # jnp.mean over the task axis: a sum times 1/K
                 mean = {n: torch.stack([d[n] for d in directions]).sum(0)
-                        * (1.0 / K) for n in directions[0]}
+                        for n in directions[0]}
+                if pl is not None:
+                    mean = pl.sum_grads(mean)
+                mean = {n: d * scale for n, d in mean.items()}
                 state, norm = apply(mean, state)
-                state = state._replace(
-                    model_state=merge_task_states(states, state.model_state))
+                if pl is None:
+                    merged = merge_task_states(states, state.model_state)
+                else:
+                    merged = pl.merge_states(states, state.model_state)
+                    task_losses = pl.gather_tasks(pl.shot_mean(task_losses))
+                    inner = pl.gather_tasks(inner)
+                state = state._replace(model_state=merged)
                 norms.append(norm)
-            task_losses = torch.stack(qlosses)
             return state, ReptileMetrics(
-                task_losses.sum() * (1.0 / K), task_losses,
-                torch.stack(inner),
+                task_losses.sum() * (1.0 / K), task_losses, inner,
                 torch.stack(norms).sum() * (1.0 / len(norms)))
 
     return reptile_step

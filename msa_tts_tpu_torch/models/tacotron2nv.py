@@ -301,6 +301,21 @@ def dropout_masks(cfg: ModelConfig, B: int, T_in: int, T_mel: int,
     }
 
 
+def mask_rows(masks: dict | None, rows: slice) -> dict | None:
+    """``masks`` (as :func:`dropout_masks` draws them) cut to the batch
+    rows ``rows``: the batch axis is the first of the encoder's and the
+    postnet's, the third of the prenet's, the second of the rest."""
+    if masks is None:
+        return None
+    return {
+        "encoder": [m[rows] for m in masks["encoder"]],
+        "prenet": masks["prenet"][:, :, rows],
+        "attention": masks["attention"][:, rows],
+        "decoder": masks["decoder"][:, rows],
+        "postnet": [m[rows] for m in masks["postnet"]],
+    }
+
+
 def parse_output(cfg: ModelConfig, outputs, output_lengths):
     """Zero the mel outputs and fill the gate energies with 1e3 at padded
     frames (with ``mask_padding``, as the reference does)."""

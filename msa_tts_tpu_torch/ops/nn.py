@@ -10,6 +10,8 @@ biases, U(±1/√H) for LSTM cells.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -122,18 +124,53 @@ def batchnorm1d(bn: nn.BatchNorm1d, x, *, eps: float | None = None):
     return y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
 
 
+# the data group of a sharded step (synced_batchnorm); None: local moments
+_BN_GROUP = contextvars.ContextVar("bn_group", default=None)
+
+
+@contextlib.contextmanager
+def synced_batchnorm(group):
+    """Within this context (of the calling thread only),
+    :func:`batchnorm1d_train` takes its moments over ``group`` (a mesh's
+    ``AxisGroup``; None: this process's batch alone)."""
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
+
+
 def batchnorm1d_train(bn: nn.BatchNorm1d, x, *, momentum: float = 0.1,
                       eps: float = 1e-5):
     """Training-mode BatchNorm over ``(B, C, T)`` or ``(B, C)``: normalise
     with the batch's mean and biased variance (padded columns included)
     and return ``(y, (running_mean, running_var))``, the running
     statistics moved toward the batch's mean and unbiased variance.  The
-    module's buffers are read, never written."""
+    module's buffers are read, never written.
+
+    Under :func:`synced_batchnorm` the batch is the data group's: each
+    rank holds an equal block of its rows, the mean and then the mean
+    squared deviation are summed over the group (in float32, through the
+    differentiable all-reduce of ``parallel/collectives.py``) and divided
+    by the global count, which the unbiased variance uses too: the
+    moments of the joined batch, as GSPMD computes them for the JAX
+    package's sharded step."""
     dims = (0,) if x.dim() == 2 else (0, 2)
     shape = (1, -1) if x.dim() == 2 else (1, -1, 1)
-    mean = x.mean(dim=dims)
-    var = x.var(dim=dims, unbiased=False)
-    n = x.numel() // x.shape[1]
+    group = _BN_GROUP.get()
+    if group is None or group.pg is None:
+        mean = x.mean(dim=dims)
+        var = x.var(dim=dims, unbiased=False)
+        n = x.numel() // x.shape[1]
+    else:
+        from ..parallel.collectives import all_reduce_sum
+
+        n = x.numel() // x.shape[1] * group.size
+        xf = x.float()
+        mean = all_reduce_sum(xf.sum(dim=dims), group) / n
+        d = xf - mean.reshape(shape)
+        var = all_reduce_sum((d * d).sum(dim=dims), group) / n
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
     unbiased = var * n / max(n - 1, 1)
     new_state = ((1 - momentum) * bn.running_mean + momentum * mean,
                  (1 - momentum) * bn.running_var + momentum * unbiased)

@@ -664,6 +664,8 @@ def _make_handler(server: TTSServer):
                     # which compute paths serve this deployment
                     "decode_backend": server.tts.decode_backend,
                     "device": str(server.tts.device),
+                    # parallel: {dp: N} — synthesize_batch's devices
+                    "dp": getattr(server.tts, "_dp", 1),
                     "stream_multiplex": (
                         server.stream_mux.B
                         if server.stream_mux is not None else 0

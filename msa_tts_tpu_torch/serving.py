@@ -39,12 +39,22 @@ float32 here (the JAX package's ``auto`` routes by a batch gate measured
 on its own hardware, which is not carried over).  Solo, streamed and
 multiplexed decoding use the same type.
 
-Not in this version: ``parallel`` dp/tp serving (raises
-``NotImplementedError``).
+``parallel: {dp: N}`` serves ``synthesize_batch`` over N devices, as the
+JAX package shard_maps its decode: the batch is padded to a multiple of
+N with filler rows, its prenet masks are drawn for the whole padded
+batch, and each device decodes a contiguous block of rows on its own
+replica of the model (its own copy of the kernel's packed weights),
+every block launched before any result is awaited; the mels are
+gathered on the model's device.  The devices are the host's CUDA
+devices (a mesh larger than ``torch.cuda.device_count()`` raises), or N
+times the CPU.  The noise does not depend on N (the JAX package folds the
+shard index into each shard's key).  ``tp > 1`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import weakref
 from dataclasses import dataclass
@@ -74,6 +84,7 @@ from .models.tacotron2nv import (
 )
 from .ops.audio import griffinlim_logmelspec, load_wav, trim_margin_silence
 from .optim import make_optimizer
+from .parallel.mesh import TP_NOT_PORTED, Mesh, make_mesh
 from .utils.backend import load_device, resolve_kernel_backend
 from .utils.checkpoint import (
     load_checkpoint,
@@ -151,15 +162,23 @@ class AdaptiveTTS:
         self.infer_dtype = (torch.bfloat16 if idt in ("bfloat16", "bf16")
                             else torch.float32)
         pcfg = params.get("parallel") or {}
-        if int(pcfg.get("dp", 1)) > 1 or int(pcfg.get("tp", 1)) > 1:
-            raise NotImplementedError(
-                "parallel dp/tp serving is not ported yet"
-            )
+        if int(pcfg.get("tp", 1)) > 1:
+            raise NotImplementedError(TP_NOT_PORTED)
+        self._dp = int(pcfg.get("dp", 1))
 
         self.device = torch.device(
             device if device is not None
             else next(model.parameters()).device
         )
+        # parallel: {dp: N}: synthesize_batch's rows over N devices
+        self._mesh = None
+        if self._dp > 1:
+            devices = ([self.device] * self._dp if self.device.type == "cpu"
+                       else [torch.device("cuda", i)
+                             for i in range(torch.cuda.device_count())])
+            self._mesh = make_mesh(dp=self._dp, task=1, devices=devices)
+        self._replicas: weakref.WeakKeyDictionary = (
+            weakref.WeakKeyDictionary())
         # the float32 weights adapt starts from; the serving model is
         # derived from them at infer_dtype (in float32 it holds them
         # itself; in bfloat16 the cast leaves them to _master alone)
@@ -334,15 +353,37 @@ class AdaptiveTTS:
             language=self.params.get("language", "en-us"),
         )[0]
 
+    def _replicas_of(self, model: Tacotron2NV) -> list:
+        """``model`` on each device of the mesh (itself on its own
+        device), made once per model."""
+        reps = self._replicas.get(model)
+        if reps is None:
+            by_dev = {next(model.parameters()).device: model}
+            for dev in self._mesh.devices.ravel():
+                if dev not in by_dev:
+                    by_dev[dev] = copy.deepcopy(model).to(dev)
+            reps = [by_dev[d] for d in self._mesh.devices.ravel()]
+            self._replicas[model] = reps
+        return reps
+
     def _decode(self, model, inputs: np.ndarray, in_len: np.ndarray,
-                emb: np.ndarray, generator: torch.Generator, pre_masks):
+                emb: np.ndarray, generator: torch.Generator, pre_masks,
+                shard: bool = False):
         """(B, T) phoneme ids → mels (B, n_mel, S·r) on the device and
-        host mel_lengths (B,) in decoder steps."""
+        host mel_lengths (B,) in decoder steps; with ``shard`` and a
+        ``parallel: {dp: N}`` mesh, over its devices (B a multiple of
+        N)."""
         dev = self.device
         if pre_masks is None:
             dcfg = self.cfg.decoder_config()
             pre_masks = prenet_masks(dcfg, dcfg.max_decoder_steps,
                                      inputs.shape[0], generator, device=dev)
+        if shard and self._mesh is not None:
+            mel, mel_len = decode_sharded(
+                self._mesh, self._replicas_of(model), self.cfg, inputs,
+                in_len, emb, pre_masks, decode_backend=self.decode_backend,
+                out_device=dev)
+            return mel, mel_len.cpu().numpy()
         mel, mel_len, _ = tacotron2nv_infer(
             model, self.cfg,
             torch.as_tensor(inputs, dtype=torch.int64, device=dev),
@@ -384,7 +425,8 @@ class AdaptiveTTS:
         """Batched text → waveforms: one decode over all texts.
 
         ``text_pad_multiple`` / ``pad_batch_to`` quantize the padded
-        (B, T) shape; filler rows replicate row 0 and are dropped from
+        (B, T) shape, and a ``parallel: {dp: N}`` mesh pads it to a
+        multiple of N; filler rows replicate row 0 and are dropped from
         the result.  ``pre_masks`` (S, 2, Bp, P), ``gl_phase`` and
         ``voc_noise`` (WaveRNN: one ``(noise1, noise2)`` pair per text)
         inject the request's noise."""
@@ -392,6 +434,7 @@ class AdaptiveTTS:
         seqs = [self._phonemes(t) for t in texts]
         B = len(seqs)
         Bp = max(B, pad_batch_to or B)
+        Bp = -(-Bp // self._dp) * self._dp
         m = max(int(text_pad_multiple), 1)
         T = -(-max(len(s) for s in seqs) // m) * m
         inputs = np.zeros((Bp, T), np.int64)
@@ -404,7 +447,7 @@ class AdaptiveTTS:
         mel, mel_len = self._decode(
             self._voice_model(voice), inputs, in_len,
             np.tile(np.asarray(emb, np.float32)[None], (Bp, 1)), g,
-            pre_masks,
+            pre_masks, shard=True,
         )
         r = self.cfg.n_frames_per_step
         mels = [mel[i, :, : max(int(mel_len[i]), 1) * r] for i in range(B)]
@@ -470,6 +513,42 @@ class AdaptiveTTS:
         hop = _hop(ap)
         return [wavs[i][: (m.shape[1] - 1) * hop]
                 for i, m in enumerate(mels)]
+
+
+def decode_sharded(mesh: Mesh, models: list, cfg, inputs, in_len, emb,
+                   pre_masks, *, decode_backend="auto", out_device=None):
+    """The decode of a (Bp, T) batch with its rows split in contiguous
+    blocks over the devices of a serving ``mesh`` (``make_mesh(dp=N,
+    devices=...)``; Bp a multiple of N): block i decodes on ``models[i]``
+    (a replica on device i) with its rows of the (S, 2, Bp, P)
+    ``pre_masks``, every block launched before any is read.  Returns the
+    mels (Bp, n_mel, S·r), shorter blocks padded with zeros, and the
+    lengths (Bp,), both on ``out_device`` (default the first device)."""
+    devices = list(mesh.devices.ravel())
+    n = len(devices)
+    Bp = len(inputs)
+    if Bp % n:
+        raise ValueError(f"{Bp} rows do not split over {n} devices")
+    b = Bp // n
+    out_device = devices[0] if out_device is None else out_device
+    outs = []
+    for i, (dev, model) in enumerate(zip(devices, models)):
+        rows = slice(i * b, (i + 1) * b)
+        mel, mel_len, _ = tacotron2nv_infer(
+            model, cfg,
+            torch.as_tensor(inputs[rows], dtype=torch.int64, device=dev),
+            torch.as_tensor(in_len[rows], dtype=torch.int64, device=dev),
+            torch.as_tensor(emb[rows], dtype=torch.float32, device=dev),
+            torch.as_tensor(pre_masks[:, :, rows], dtype=torch.float32,
+                            device=dev).contiguous(),
+            mask_pad=True, decode_backend=decode_backend,
+        )
+        outs.append((mel, mel_len))
+    T = max(m.shape[-1] for m, _ in outs)
+    mel = torch.cat([torch.nn.functional.pad(m.to(out_device),
+                                             (0, T - m.shape[-1]))
+                     for m, _ in outs])
+    return mel, torch.cat([ln.to(out_device) for _, ln in outs])
 
 
 def _on_device(masks, device):

@@ -29,9 +29,24 @@ states; for Adam ``{"count", "mu", "nu"}``) with every per-parameter
 dictionary written as the JAX params tree and every empty state as an
 empty map, which for Adam and plain SGD is optax's own layout.
 
+Data and task parallelism.  A ``parallel: {dp, task}`` block runs the
+trainer as one rank of a ``torch.distributed`` world (``torchrun``
+starts one process per device; the trainer initializes the process group
+from its variables when none is up, NCCL on CUDA, gloo on the CPU, and
+takes ``cuda:LOCAL_RANK`` unless the params name a device).  Every rank
+builds the same initial weights and loads the same global batch; the
+mesh (``parallel/``) gives each rank its rows (dp·task of them, or the
+whole batch where they do not divide), the batch norms take their
+moments over the ranks' rows, and one flat all-reduce sums the ranks'
+gradients, so every rank applies the same update and a run equals the
+single-device one up to the order of float sums.  Every mask seam draws
+the global batch's masks and each rank takes its rows.  Only rank 0
+writes files (params, logs, plots, checkpoints); the ranks take one
+preemption decision together.  Checkpoints do not depend on the world
+size.  ``tp > 1`` raises ``NotImplementedError``.
+
 Read and ignored: ``compilation_cache`` (XLA's compile cache).  Raises:
-a ``parallel`` block (``NotImplementedError``: multi-device training is
-not ported), ``plot_examples: true`` (the default) without matplotlib.
+``plot_examples: true`` (the default) without matplotlib.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import save_params
 from ..dataloaders.prefetch import host_tensors, tree_map
@@ -50,7 +66,17 @@ from ..models.tacotron2nv import (
     dropout_masks,
 )
 from ..ops.metrics import mcd_batch
+from ..models.tacotron2nv import mask_rows
+from ..ops.nn import synced_batchnorm
 from ..optim import apply_updates
+from ..parallel import collectives as C
+from ..parallel.mesh import AXES, TP_NOT_PORTED, init_from_env, make_mesh
+from ..parallel.sharding import (
+    batch_sharding,
+    replicate_state,
+    take_rows,
+    task_batch_sharding,
+)
 from ..utils.backend import load_device
 from ..utils.checkpoint import (
     AsyncCheckpointer,
@@ -79,30 +105,37 @@ _P = 1_000_003          # a prime: distinct (seed, phase, indices) seeds
 class TrainerBase:
     def __init__(self, **params):
         self.params = params
-        if params.get("parallel"):
-            raise NotImplementedError(
-                "parallel: multi-device training is not ported to the "
-                "PyTorch package yet (ROADMAP.md item 22)"
-            )
+        pcfg = params.get("parallel")
+        device = params.get("device")
+        if pcfg:
+            if int(pcfg.get("tp", 1)) > 1:
+                raise NotImplementedError(TP_NOT_PORTED)
+            device = init_from_env(device) or device
         # `compilation_cache` / `compilation_cache_dir` configure XLA's
         # compile cache; nothing here compiles, so they are ignored
         if params.get("plot_examples", True):
             from ..utils.plot import pyplot
 
             pyplot()            # raises now, not after an epoch of training
-        self.device = load_device(params.get("device", "cuda"))
+        self.device = load_device(device or "cuda")
         make_reproducible(self.device)
+        self.mesh = None
+        self._said_replicated = False
+        if pcfg:
+            self._init_parallel(pcfg)
         # the mask seam's seed (TrainerBase._draw_step_masks)
         self._mask_seed = int(params.get("train_seed", 1234))
         output_path = os.path.join(
             params["output_path"], params["method"], params["experiment_name"]
         )
         self.path_manager = PathManager(output_path)
-        save_params(params, os.path.join(output_path, "params.yml"))
-        self.logger = MetricsLogger(
-            self.path_manager.logs_path,
-            use_tensorboard=params.get("use_tensorboard", True),
-        )
+        self.logger = None
+        if self.is_writer:
+            save_params(params, os.path.join(output_path, "params.yml"))
+            self.logger = MetricsLogger(
+                self.path_manager.logs_path,
+                use_tensorboard=params.get("use_tensorboard", True),
+            )
         self.step_global = 0
 
         self._preempt_guard = None
@@ -118,6 +151,7 @@ class TrainerBase:
         self._init_criterion_optimizer()
         if params.get("finetune", False):
             self._load_finetune_checkpoint()
+        self._reshard_state()
 
     # ------------------------------------------------------------ setup
     def _init_dataloaders(self):  # overridden by subclasses
@@ -259,19 +293,40 @@ class TrainerBase:
         parameters, the clip (``clip_grad_norm``, ``grad_clip_thresh``
         read now), the optimizer ``self.tx``.  Returns ``(new_state,
         metrics, outputs)``; metrics ``loss``, ``mcd``, ``grad_norm``
-        (0 without the clip), and ``base_loss`` with a penalty."""
+        (0 without the clip), and ``base_loss`` with a penalty.
+
+        On a mesh the rank takes its rows of the global ``batch`` and
+        ``masks`` (``_put_batch``), differentiates its share of the
+        global loss with the batch norms' moments over the ranks, and the
+        ranks' gradients and metrics are summed in one all-reduce; the
+        outputs are the rank's rows."""
+        batch, masks, group = self._put_batch(batch, masks)
         params = {k: p.detach().requires_grad_()
                   for k, p in state.params.items()}
-        with torch.enable_grad():
+        with torch.enable_grad(), synced_batchnorm(group):
             base, (outs, new_ms) = self._loss_for_batch(
                 params, state.model_state, batch, masks)
-            loss = base if penalty is None else base + penalty(params)
+            pen = None if penalty is None else penalty(params)
+            if group is None:
+                loss = base if pen is None else base + pen
+            else:
+                loss = self._loss_share(base, pen, group.size)
             grads = torch.autograd.grad(loss, list(params.values()),
                                         allow_unused=True)
         with torch.no_grad():
             # a parameter a freeze_* flag cuts off gets a zero gradient
             grads = {n: torch.zeros_like(p) if g is None else g
                      for (n, p), g in zip(params.items(), grads)}
+            outs = [o.detach() for o in outs]
+            mcd = self._mcd(outs, batch)
+            if group is not None:
+                share = self._loss_share(base, None, group.size)
+                vec = torch.stack([loss.detach(), share.detach(),
+                                   torch.tensor(mcd / group.size,
+                                                device=loss.device)])
+                *gs, vec = C.all_reduce_flat([*grads.values(), vec], group)
+                grads = dict(zip(grads, gs))
+                loss, base, mcd = vec[0], vec[1], float(vec[2])
             if self.params.get("clip_grad_norm", False):
                 grads, grad_norm = clip_by_global_norm(
                     grads, float(self.params.get("grad_clip_thresh", 1.0)))
@@ -283,8 +338,7 @@ class TrainerBase:
                 params=apply_updates(state.params, updates),
                 model_state={k: v.detach() for k, v in new_ms.items()},
                 opt_state=opt_state, step=state.step + 1)
-        outs = [o.detach() for o in outs]
-        metrics = {"loss": loss.detach(), "mcd": self._mcd(outs, batch),
+        metrics = {"loss": loss.detach(), "mcd": mcd,
                    "grad_norm": grad_norm}
         if penalty is not None:
             metrics["base_loss"] = base.detach()
@@ -298,25 +352,122 @@ class TrainerBase:
     def _eval_step(self, state: TrainState, batch: dict, masks: dict):
         """The loss and MCD of one pass in training mode, as the
         reference tests (dropout on, batch-norm statistics advance):
-        ``(state with the new statistics, {loss, mcd}, outputs)``."""
-        loss, (outs, new_ms) = self._loss_for_batch(
-            state.params, state.model_state, batch, masks)
+        ``(state with the new statistics, {loss, mcd}, outputs)``.  On a
+        mesh the rank evaluates its rows with the moments over the
+        ranks, so every rank ends with the same statistics."""
+        batch, masks, group = self._put_batch(batch, masks)
+        with synced_batchnorm(group):
+            loss, (outs, new_ms) = self._loss_for_batch(
+                state.params, state.model_state, batch, masks)
+        mcd = self._mcd(outs, batch)
+        if group is not None:
+            vec = torch.stack([self._loss_share(loss, None, group.size),
+                               torch.tensor(mcd / group.size,
+                                            device=loss.device)])
+            vec = C.all_reduce(vec, group)
+            loss, mcd = vec[0], float(vec[1])
         return (state._replace(model_state=new_ms),
-                {"loss": loss, "mcd": self._mcd(outs, batch)}, outs)
+                {"loss": loss, "mcd": mcd}, outs)
 
     def _plot_example(self, last, name: str):
         """The last item of ``last = (batch, outputs)``: its predicted and
-        target mels and its alignment, to ``examples/<name>.png``."""
+        target mels and its alignment, to ``examples/<name>.png`` (rank 0
+        alone, whose rows come first: its last row)."""
+        if not self.is_writer:
+            return
         from ..utils.plot import plot_spec_attn_example
 
         batch, outs = last
+        i = outs[1].shape[0] - 1
         plot_spec_attn_example(
-            outs[1][-1].cpu().numpy(), batch["melspecs"][-1].cpu().numpy(),
-            outs[3][-1].cpu().numpy(),
+            outs[1][i].cpu().numpy(), batch["melspecs"][i].cpu().numpy(),
+            outs[3][i].cpu().numpy(),
             os.path.join(self.path_manager.examples_path, name),
-            length_mel=int(batch["melspec_lengths"][-1]),
-            length_attn=int(batch["input_lengths"][-1]),
+            length_mel=int(batch["melspec_lengths"][i]),
+            length_attn=int(batch["input_lengths"][i]),
         )
+
+    # ------------------------------------------------------ parallelism
+    def _init_parallel(self, pcfg: dict):
+        """The ``(dp, task)`` mesh over the world's ranks (every rank
+        calls this) and the rank's layouts."""
+        mesh = make_mesh(dp=pcfg.get("dp"), task=int(pcfg.get("task", 1)))
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is outside {mesh}: start "
+                             "dp x task ranks")
+        self._use_mesh(mesh)
+        backend = dist.get_backend() if dist.is_initialized() else "none"
+        print(f"[parallel] rank {self.mesh.rank}: mesh dp="
+              f"{self.mesh.shape['dp']} task={self.mesh.shape['task']} "
+              f"({self.mesh.size} ranks) on {self.device}, backend "
+              f"{backend}")
+
+    def _use_mesh(self, mesh):
+        self.mesh = mesh
+        self._data = mesh.group(AXES)
+        self._batch_layout = batch_sharding(mesh)
+        self._task_layout = task_batch_sharding(mesh)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self._data.index == 0
+
+    @property
+    def _data_axes_size(self) -> int:
+        """The ranks a batch's rows split over: dp·task."""
+        return self.mesh.shape["dp"] * self.mesh.shape["task"]
+
+    def _splits(self, n: int) -> bool:
+        """Whether ``n`` rows (or tasks) split over the data axes; a batch
+        whose rows do not split runs whole on every rank (said once)."""
+        if self.mesh is None:
+            return False
+        if n % self._data_axes_size == 0:
+            return True
+        if not self._said_replicated:
+            print(f"[parallel] {n} rows do not split over "
+                  f"{self._data_axes_size} ranks: such a batch runs whole "
+                  "on every rank")
+            self._said_replicated = True
+        return False
+
+    def _put_batch(self, batch: dict, masks: dict | None = None):
+        """This rank's rows of a global batch and of its masks, and the
+        group its reductions run over (None: the batch runs whole)."""
+        B = int(batch["inputs"].shape[0])
+        if not self._splits(B):
+            return batch, masks, None
+        rows = self._batch_layout.rows(B)
+        return take_rows(batch, rows), mask_rows(masks, rows), self._data
+
+    def _put_task_batch(self, support: dict, query: dict):
+        """This rank's tasks of a global episode (the task-parallel
+        layout) and whether they are a block of it."""
+        K = int(support["inputs"].shape[0])
+        if not self._splits(K):
+            return support, query, False
+        rows = self._task_layout.rows(K)
+        return take_rows(support, rows), take_rows(query, rows), True
+
+    def _loss_share(self, base, penalty, parts: int):
+        """This rank's share of the global loss: the shares of the ranks
+        sum to it (the loss of ``reduction: sum`` is a sum of the ranks'
+        losses, the others a mean; a penalty counts once)."""
+        if self.loss_kwargs["reduction"] != "sum":
+            base = base * (1.0 / parts)
+        return base if penalty is None else base + penalty * (1.0 / parts)
+
+    def _barrier(self):
+        if self.mesh is not None:
+            C.barrier(self._data)
+
+    def _reshard_state(self):
+        """Every rank's train state as rank 0 holds it (a broadcast);
+        checkpoints do not depend on the world size, so this is also how
+        a run restores on another one."""
+        if self.mesh is not None:
+            self.train_state = replicate_state(self.train_state, self.mesh)
 
     # ----------------------------------------------------------- batches
     def _host_batch(self, batch) -> dict:
@@ -368,10 +519,12 @@ class TrainerBase:
                 "step": self.step_global}
 
     def _save_checkpoint(self, name: str | None = None) -> str:
+        """Write a checkpoint (rank 0 alone) and return its path."""
         if name is None:
             name = f"checkpoint_{self.step_global // 100}.ckpt"
         path = os.path.join(self.path_manager.checkpoints_path, name)
-        save_checkpoint(path, self._ckpt_payload())
+        if self.is_writer:
+            save_checkpoint(path, self._ckpt_payload())
         return path
 
     def _state_dict_from_raw(self, raw: dict) -> dict:
@@ -405,6 +558,8 @@ class TrainerBase:
     _AUTO_CKPT = "auto_resume.ckpt"
 
     def _save_epoch_state(self, epoch: int, extra: dict | None = None):
+        if not self.is_writer:
+            return
         resume_state = {"epoch": epoch, "step_global": self.step_global}
         resume_state.update(extra or {})
         payload = dict(self._ckpt_payload(), resume_state=resume_state)
@@ -418,16 +573,19 @@ class TrainerBase:
             save_checkpoint(path, payload)
 
     def _finish_checkpoints(self):
-        """Drain pending writes and stop the writer thread."""
+        """Drain pending writes and stop the writer thread; on a mesh no
+        rank leaves before rank 0's files are whole."""
         if self._async_ckpt is not None:
             self._async_ckpt.close()
             self._async_ckpt = None
+        self._barrier()
 
     def _try_resume_epoch(self):
         """``(completed_epochs, resume_state | None)``."""
         if not self.params.get("resume", False):
             return 0, None
         wait_all_checkpoints()
+        self._barrier()
         path = os.path.join(self.path_manager.checkpoints_path,
                             self._AUTO_CKPT)
         if not os.path.exists(path):
@@ -456,16 +614,28 @@ class TrainerBase:
             step=int(raw["step"]),
         )
         self.step_global = int(raw["step"])
+        self._reshard_state()
 
     # ------------------------------------------------ failure detection
     def _preempt_requested(self) -> bool:
-        return (self._preempt_guard is not None
+        """Whether a preemption notice arrived; on a mesh, at any rank (a
+        max over the ranks at every call, so that all stop together)."""
+        stop = (self._preempt_guard is not None
                 and self._preempt_guard.should_stop)
+        if self.mesh is None:
+            return stop
+        flag = torch.tensor([int(stop)], device=self._flag_device())
+        return bool(C.all_reduce(flag, self._data, dist.ReduceOp.MAX))
+
+    def _flag_device(self) -> torch.device:
+        pg = self._data.pg
+        nccl = pg is not None and dist.get_backend(pg) == "nccl"
+        return self.device if nccl else torch.device("cpu")
 
     def _start_watchdog(self):
         """Arm the stall watchdog when ``stall_timeout_s`` is set."""
         timeout = self.params.get("stall_timeout_s")
-        if timeout:
+        if timeout and self.is_writer:
             from ..utils.preemption import StallWatchdog
 
             self._watchdog = StallWatchdog(
@@ -487,7 +657,9 @@ class TrainerBase:
     def log_writer(self, logs: dict, type: str = "scalar"):
         """``logs``: ``{tag: (value, step)}``, to the JSON-lines log (and
         TensorBoard where it is installed and asked for); ``type="hist"``
-        for histograms."""
+        for histograms.  Rank 0 alone writes."""
+        if self.logger is None:
+            return
         if type == "scalar":
             self.logger.log_scalars(logs)
         elif type == "hist":

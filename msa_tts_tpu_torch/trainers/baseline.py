@@ -39,6 +39,8 @@ class JointTrainer(TrainerBase):
             self.dataloader_metatest, logs_mts = get_dataloader_meta(
                 "metatest", **self.params)
             log_ds += "Meta-Test:\n\n" + logs_mts
+        if not self.is_writer:
+            return
         with open(os.path.join(self.path_manager.output_path,
                                "dataset_details.txt"), "w") as f:
             f.write(log_ds)
@@ -184,7 +186,11 @@ class JointTrainer(TrainerBase):
     def _metatest(self, epoch: int):
         """Per held-out speaker of each meta-test batch: ``n_inner_test``
         adaptation steps on its support set and the query loss, logged as
-        ``test/loss_{spk}`` (the weights are not changed)."""
+        ``test/loss_{spk}`` (the weights are not changed).  On a mesh
+        rank 0 runs it and the others wait."""
+        if not self.is_writer:
+            self._barrier()
+            return
         ts = self.train_state
         n = self.n_inner_test
         for itr_b, (speakers, support, query) in enumerate(
@@ -206,6 +212,7 @@ class JointTrainer(TrainerBase):
                                                       self.step_global)})
                 print(f"| Epoch: {epoch}, itr: {self.step_global}, spk:{spk}"
                       f" ::  step loss: {loss_test:#.4}")
+        self._barrier()
 
 
 def main(args):

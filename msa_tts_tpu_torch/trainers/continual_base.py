@@ -74,6 +74,8 @@ class ContinualTrainerBase(TrainerBase):
         )
         self.dataset_train_all = TTSDataset(splits, "train", **common)
         self.dataset_test_all = TTSDataset(splits, "test", **common)
+        if not self.is_writer:
+            return
         with open(os.path.join(self.path_manager.output_path,
                                "dataset_details.txt"), "w") as f:
             f.write("Train:\n\n" + logs)
@@ -208,9 +210,10 @@ class ContinualTrainerBase(TrainerBase):
             if last is not None and self.params.get("plot_examples", True):
                 self._plot_example(last, f"cumTest_{spk_itr}_spk-{speaker}"
                                  f"_to_spk-{test_speaker}")
-        with open(os.path.join(self.path_manager.examples_path,
-                               "cumutest.pkl"), "wb") as f:
-            pickle.dump(self.cumutest_dict, f)
+        if self.is_writer:
+            with open(os.path.join(self.path_manager.examples_path,
+                                   "cumutest.pkl"), "wb") as f:
+                pickle.dump(self.cumutest_dict, f)
         print("-" * 30 + "\n")
 
     # ------------------------------------------------------------ resume
@@ -234,6 +237,8 @@ class ContinualTrainerBase(TrainerBase):
                 for i, soft in extras["buffer"]]
 
     def _save_stream_state(self, next_spk_itr: int) -> None:
+        if not self.is_writer:
+            return
         payload = {
             "next_spk_itr": next_spk_itr,
             "all_speakers": list(self.all_speakers),
@@ -264,6 +269,7 @@ class ContinualTrainerBase(TrainerBase):
         if not self.params.get("resume", False):
             return None
         wait_all_checkpoints()
+        self._barrier()
         path = os.path.join(self.path_manager.checkpoints_path,
                             self._STREAM_STATE)
         if not os.path.exists(path):

@@ -22,6 +22,8 @@ import os
 
 import torch
 
+from ..ops.nn import synced_batchnorm
+from ..parallel.collectives import all_reduce_flat
 from .continual_base import ContinualTrainerBase
 
 
@@ -44,20 +46,33 @@ class EWCTrainer(ContinualTrainerBase):
         for itr, b in enumerate(loader, 1):
             batch = self._unpack_batch(b)
             masks = self._draw_step_masks("fisher", (spk_itr, itr), batch)
-            params = {k: p.detach().requires_grad_()
-                      for k, p in ts.params.items()}
-            with torch.enable_grad():
-                loss, _ = self._loss_for_batch(params, ts.model_state, batch,
-                                               masks)
-                grads = torch.autograd.grad(loss, list(params.values()),
-                                            allow_unused=True)
             with torch.no_grad():
-                for k, g in zip(params, grads):
-                    if g is not None:
-                        fisher[k] = fisher[k] + g * g / n
+                for k, g in self._batch_grads(ts, batch, masks).items():
+                    fisher[k] = fisher[k] + g * g / n
         # a copy: the penalty is measured from the weights of this moment
         means = {k: p.detach().clone() for k, p in ts.params.items()}
         self._ewc = (fisher, means)
+
+    def _batch_grads(self, ts, batch: dict, masks: dict) -> dict:
+        """The gradient of ``batch``'s mean loss at ``ts``'s weights (zero
+        where the loss does not reach).  On a mesh each rank takes its
+        rows, and the ranks' shares are summed before anything squares
+        the gradient."""
+        batch, masks, group = self._put_batch(batch, masks)
+        params = {k: p.detach().requires_grad_()
+                  for k, p in ts.params.items()}
+        with torch.enable_grad(), synced_batchnorm(group):
+            loss, _ = self._loss_for_batch(params, ts.model_state, batch,
+                                           masks)
+            if group is not None:
+                loss = self._loss_share(loss, None, group.size)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params.values(), grads)]
+        if group is not None:
+            grads = all_reduce_flat(grads, group)
+        return dict(zip(params, grads))
 
     def _penalty(self, params: dict):
         fisher, means = self._ewc

@@ -84,6 +84,14 @@ class HiFiGANTrainer(VocoderTrainer):
         self.tx_d = adamw(lr, b1=0.8, b2=0.99, weight_decay=0.0)
         self.opt_g = self.tx_g.init(self.gen_params)
         self.opt_d = self.tx_d.init(self.disc_params)
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Every rank's weights and optimizer states as rank 0's."""
+        if self.shard is not None:
+            (self.gen_params, self.disc_params, self.opt_g,
+             self.opt_d) = self.shard.replicate(
+                (self.gen_params, self.disc_params, self.opt_g, self.opt_d))
 
     # ------------------------------------------------------------- data
     def _sample_batch(self, rng: np.random.Generator, batch_size: int):
@@ -107,10 +115,13 @@ class HiFiGANTrainer(VocoderTrainer):
 
     # ------------------------------------------------------------- step
     @torch.no_grad()
-    def _step(self, gen_params, disc_params, opt_g, opt_d, mels, wav):
+    def _step(self, gen_params, disc_params, opt_g, opt_d, mels, wav,
+              n_rows: int | None = None):
         """One discriminator and one generator update: ``(gen_params,
         disc_params, opt_g, opt_d, {loss_d, loss_g, loss_mel})``, the
-        inputs untouched."""
+        inputs untouched.  ``n_rows``: the global batch's rows when the
+        batch is this rank's block of it (each update then takes the
+        ranks' averaged gradients, the losses their average)."""
         ap = self.params["audio_params"]
         y = wav[:, None, :]
         gp = {k: v.detach().requires_grad_() for k, v in gen_params.items()}
@@ -125,6 +136,8 @@ class HiFiGANTrainer(VocoderTrainer):
             d_loss = (discriminator_loss(r_p, g_p)[0]
                       + discriminator_loss(r_s, g_s)[0])
             d_grads = _leaf_grads(d_loss, dp)
+        if n_rows is not None:
+            d_grads = self._mean_grads(d_grads, n_rows)
         updates, opt_d = self.tx_d.update(d_grads, opt_d, disc_params)
         disc_params = apply_updates(disc_params, updates)
 
@@ -139,11 +152,15 @@ class HiFiGANTrainer(VocoderTrainer):
             g_loss = (generator_loss(g_p)[0] + generator_loss(g_s)[0] + fm
                       + mel_loss)
             g_grads = _leaf_grads(g_loss, gp)
+        if n_rows is not None:
+            g_grads = self._mean_grads(g_grads, n_rows)
         updates, opt_g = self.tx_g.update(g_grads, opt_g, gen_params)
         gen_params = apply_updates(gen_params, updates)
-        return gen_params, disc_params, opt_g, opt_d, {
-            "loss_d": d_loss.detach(), "loss_g": g_loss.detach(),
-            "loss_mel": mel_loss.detach()}
+        metrics = {"loss_d": d_loss.detach(), "loss_g": g_loss.detach(),
+                   "loss_mel": mel_loss.detach()}
+        if n_rows is not None:
+            metrics = self._mean_metrics(metrics, n_rows)
+        return gen_params, disc_params, opt_g, opt_d, metrics
 
     # -------------------------------------------------------------- run
     def run(self) -> dict:
@@ -153,16 +170,17 @@ class HiFiGANTrainer(VocoderTrainer):
         n_steps = int(p.get("n_steps", 1000))
         metrics = {}
         for step in range(1, n_steps + 1):
-            mels, wav = (x.to(self.device, non_blocking=True)
-                         for x in self._sample_batch(rng, batch_size))
+            mels, wav = self._put(*self._sample_batch(rng, batch_size))
             (self.gen_params, self.disc_params, self.opt_g, self.opt_d,
              metrics) = self._step(self.gen_params, self.disc_params,
-                                   self.opt_g, self.opt_d, mels, wav)
+                                   self.opt_g, self.opt_d, mels, wav,
+                                   n_rows=batch_size)
             self.step_global += 1
             self._log(metrics, step, n_steps)
             if step % p.get("ckpt_save_step_interval", 500) == 0:
                 self._save()
         self._save()
+        self._finish()
         return {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------ checkpoints
@@ -180,7 +198,8 @@ class HiFiGANTrainer(VocoderTrainer):
     def _save(self) -> str:
         path = os.path.join(self.path_manager.checkpoints_path,
                             f"hifigan_{self.step_global}.ckpt")
-        save_checkpoint(path, self._payload())
+        if self.is_writer:
+            save_checkpoint(path, self._payload())
         return path
 
     def restore(self, path: str) -> None:
@@ -196,6 +215,7 @@ class HiFiGANTrainer(VocoderTrainer):
                                    self.disc_params.keys(),
                                    tree_to_state_dict)
         self.step_global = int(raw["step"])
+        self._replicate()
 
 
 def main(args):

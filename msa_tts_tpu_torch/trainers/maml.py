@@ -5,8 +5,10 @@
 respect to the initial weights through the inner steps); ``false`` →
 FOMAML (the query gradient at the adapted weights).  The tasks of a
 meta-batch run one after another (``meta/maml.py``); ``maml_remat`` is
-ignored, since only one task's graph is alive at a time.  The run goes
-on the GPU unless ``device: cpu`` is set in the params.
+ignored, since only one task's graph is alive at a time.  With a
+``parallel: {dp, task}`` block each rank runs its K / (dp·task) tasks
+(whole, where K does not divide) and the ranks' gradients are summed.
+The run goes on the GPU unless ``device: cpu`` is set in the params.
 Entry point::
 
     python -m msa_tts_tpu_torch.trainers.maml --params_path <dir>
@@ -18,6 +20,7 @@ import argparse
 import os
 
 from ..meta.maml import make_maml_step
+from ..parallel.shard_meta import task_placement
 from .metatrainer import MetaTrainer
 
 
@@ -29,12 +32,16 @@ class MAML(MetaTrainer):
         self.n_inner_train = int(self.params.get("n_inner_train", 1))
         # `maml_remat` is not read: one task's graph is alive at a time,
         # so recomputation has nothing to buy
-        self._maml_step = make_maml_step(
-            self._meta_loss_fn(), self.inner_tx, self.outer_tx,
-            self.n_inner_train,
+        kw = dict(
             second_order=bool(self.params.get("track_higher_grads", True)),
-            clip_thresh=clip,
-        )
+            clip_thresh=clip)
+        args = (self._meta_loss_fn(), self.inner_tx, self.outer_tx,
+                self.n_inner_train)
+        self._maml_step = make_maml_step(*args, **kw)
+        # on a mesh: this rank's K/world tasks, the gradients summed
+        self._maml_step_sharded = None if self.mesh is None else (
+            make_maml_step(*args, **kw,
+                           placement=task_placement(self.mesh)))
 
     def run(self):
         self.step_global = 0
@@ -80,8 +87,10 @@ class MAML(MetaTrainer):
                 return False
             masks = self._draw_masks("train", epoch, itr_b, len(speakers),
                                      self.n_inner_train + 1, sup)
-            self.train_state, metrics = self._maml_step(
-                self.train_state, sup, qry, masks)
+            sup, qry, sharded = self._put_task_batch(sup, qry)
+            step = self._maml_step_sharded if sharded else self._maml_step
+            self.train_state, metrics = step(self.train_state, sup, qry,
+                                             masks)
             self._heartbeat()
             loss = float(metrics.loss)
             logs = {

@@ -34,6 +34,8 @@ class MetaTrainer(TrainerBase):
         print("\nInitializing meta-test loaders")
         self.dataloader_metatest, logs_mts = get_dataloader_meta(
             "metatest", **self.params)
+        if not self.is_writer:
+            return
         with open(os.path.join(self.path_manager.output_path,
                                "dataset_details.txt"), "w") as f:
             f.write("Meta-Train:\n\n" + logs_mtr
@@ -88,7 +90,11 @@ class MetaTrainer(TrainerBase):
         """Per task of each meta-test batch: ``n_inner_test`` adaptation
         steps on the support set, the query loss, and the MCD of a
         teacher-forced forward with the adapted weights (logged as
-        ``test/loss_{spk}`` and ``test/mcd_{spk}``)."""
+        ``test/loss_{spk}`` and ``test/mcd_{spk}``).  It touches no
+        training state: on a mesh rank 0 runs it and the others wait."""
+        if not self.is_writer:
+            self._barrier()
+            return
         ts = self.train_state
         n = self.n_inner_test
         for itr_b, (speakers, support, query) in enumerate(
@@ -132,3 +138,4 @@ class MetaTrainer(TrainerBase):
                 print(f"| Epoch: {epoch}, itr: {self.step_global}, "
                       f"spk:{spk} ::  step loss: {loss_test:#.4} | "
                       f"mcd: {mcd:#.4} ")
+        self._barrier()

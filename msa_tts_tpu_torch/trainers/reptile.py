@@ -4,8 +4,11 @@ First-order meta-learning: per speaker, k inner steps from the current
 weights, and the outer optimizer steps along θ₀ − θ_T
 (``meta/reptile.py``).  ``reptile_mode: sequential`` (default) takes one
 outer step per speaker in the meta-batch, in order, as the reference
-does; ``batched`` averages the speakers' directions into one step.  A
-meta-batch counts one global step per speaker, as the reference's does.
+does; ``batched`` averages the speakers' directions into one step.
+With a ``parallel: {dp, task}`` block, batched mode runs each rank's
+K / (dp·task) tasks and sums the directions over the ranks; sequential
+mode runs every task on every rank (its outer step sits between tasks).
+A meta-batch counts one global step per speaker, as the reference's does.
 The run goes on the GPU unless ``device: cpu`` is set in the params.
 Entry point::
 
@@ -18,6 +21,7 @@ import argparse
 import os
 
 from ..meta.reptile import make_reptile_step
+from ..parallel.shard_meta import task_placement
 from .metatrainer import MetaTrainer
 
 
@@ -27,12 +31,19 @@ class Reptile(MetaTrainer):
         clip = (float(self.params.get("grad_clip_thresh", 1.0))
                 if self.params.get("clip_grad_norm", False) else None)
         self.n_inner_train = int(self.params.get("n_inner_train", 1))
-        self._reptile_step = make_reptile_step(
-            self._meta_loss_fn(), self.inner_tx, self.outer_tx,
-            self.n_inner_train,
-            mode=self.params.get("reptile_mode", "sequential"),
-            clip_thresh=clip,
-        )
+        mode = self.params.get("reptile_mode", "sequential")
+        args = (self._meta_loss_fn(), self.inner_tx, self.outer_tx,
+                self.n_inner_train)
+        self._reptile_step = make_reptile_step(*args, mode=mode,
+                                               clip_thresh=clip)
+        self._reptile_step_sharded = None
+        if self.mesh is not None and mode == "batched":
+            self._reptile_step_sharded = make_reptile_step(
+                *args, mode=mode, clip_thresh=clip,
+                placement=task_placement(self.mesh))
+        elif self.mesh is not None:
+            print("[parallel] sequential Reptile takes its outer step "
+                  "between tasks: every rank runs every task")
 
     def run(self):
         self.step_global = 0
@@ -78,8 +89,13 @@ class Reptile(MetaTrainer):
                 return False
             masks = self._draw_masks("train", epoch, itr_b, len(speakers),
                                      self.n_inner_train + 1, sup)
-            self.train_state, metrics = self._reptile_step(
-                self.train_state, sup, qry, masks)
+            step = self._reptile_step
+            if self._reptile_step_sharded is not None:
+                sup, qry, sharded = self._put_task_batch(sup, qry)
+                if sharded:
+                    step = self._reptile_step_sharded
+            self.train_state, metrics = step(self.train_state, sup, qry,
+                                             masks)
             self._heartbeat()
             logs = {"train/loss": (float(metrics.loss), self.step_global)}
             for i, spk in enumerate(speakers):

@@ -74,6 +74,9 @@ class WaveRNNTrainer(VocoderTrainer):
         self.tx = make_optimizer({"optimizer_type": "Adam",
                                   "lr": float(params.get("lr", 1e-4))})
         self.opt_state = self.tx.init(self.model_params)
+        if self.shard is not None:
+            self.model_params, self.opt_state = self.shard.replicate(
+                (self.model_params, self.opt_state))
 
     # ------------------------------------------------------------- data
     def _sample_batch(self, rng: np.random.Generator, batch_size: int):
@@ -121,10 +124,16 @@ class WaveRNNTrainer(VocoderTrainer):
         return loss.detach(), dict(zip(p, grads))
 
     @torch.no_grad()
-    def _step(self, params: dict, opt_state, mels, wav):
+    def _step(self, params: dict, opt_state, mels, wav,
+              n_rows: int | None = None):
         """One Adam step on a batch on the device: ``(params, opt_state,
-        loss)``, the inputs untouched."""
+        loss)``, the inputs untouched.  ``n_rows``: the global batch's
+        rows when ``mels`` / ``wav`` are this rank's block of it (the
+        ranks' gradients and losses are then averaged)."""
         loss, grads = self._grads(params, mels, wav)
+        if n_rows is not None:
+            grads = self._mean_grads(grads, n_rows)
+            loss = self._mean_metrics({"nll": loss}, n_rows)["nll"]
         updates, opt_state = self.tx.update(grads, opt_state, params)
         return apply_updates(params, updates), opt_state, loss
 
@@ -136,16 +145,17 @@ class WaveRNNTrainer(VocoderTrainer):
         n_steps = int(p.get("n_steps", 1000))
         loss = float("nan")
         for step in range(1, n_steps + 1):
-            mels, wav = (x.to(self.device, non_blocking=True)
-                         for x in self._sample_batch(rng, batch_size))
+            mels, wav = self._put(*self._sample_batch(rng, batch_size))
             self.model_params, self.opt_state, loss_t = self._step(
-                self.model_params, self.opt_state, mels, wav)
+                self.model_params, self.opt_state, mels, wav,
+                n_rows=batch_size)
             loss = float(loss_t)
             self.step_global += 1
             self._log({"nll": loss}, step, n_steps)
             if step % p.get("ckpt_save_step_interval", 500) == 0:
                 self._save()
         self._save()
+        self._finish()
         return loss
 
     # ------------------------------------------------------ checkpoints
@@ -164,7 +174,8 @@ class WaveRNNTrainer(VocoderTrainer):
     def _save(self) -> str:
         path = os.path.join(self.path_manager.checkpoints_path,
                             f"wavernn_{self.step_global}.ckpt")
-        save_checkpoint(path, self._payload())
+        if self.is_writer:
+            save_checkpoint(path, self._payload())
         return path
 
     def restore(self, path: str) -> None:
@@ -184,6 +195,9 @@ class WaveRNNTrainer(VocoderTrainer):
         self.opt_state = opt_from_tree(self.opt_state, raw["opt_state"],
                                        set(self.param_names), from_tree)
         self.step_global = int(raw["step"])
+        if self.shard is not None:
+            self.model_params, self.opt_state = self.shard.replicate(
+                (self.model_params, self.opt_state))
 
 
 def main(args):

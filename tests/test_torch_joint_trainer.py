@@ -270,8 +270,9 @@ def test_trainers_default_to_cuda_and_refuse_parallel(corpus, tmp_path,
                                                       method, cls):
     """Every trainer of the port loads onto ``cuda`` unless ``device:
     cpu`` is asked for, and raises where there is no CUDA device, before
-    it reads any data; a ``parallel`` block raises and names ROADMAP item
-    22."""
+    it reads any data; a ``parallel`` block larger than the world (one
+    process here) raises, and so does ``tp > 1``, naming ROADMAP item
+    22b."""
     import importlib
 
     mod, name = cls.rsplit(".", 1)
@@ -281,5 +282,7 @@ def test_trainers_default_to_cuda_and_refuse_parallel(corpus, tmp_path,
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             trainer(**p)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         trainer(**dict(p, parallel={"dp": 2}, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 22b"):
+        trainer(**dict(p, parallel={"dp": 1, "tp": 2}, device="cpu"))

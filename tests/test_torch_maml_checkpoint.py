@@ -11,8 +11,9 @@ tiny experiment of ``tests/torch_parity.py`` (CPU):
   log-mels up to 2.3, read 1.3e-6 and 1.7e-6: float32 decodes summed in
   other orders);
 - ``finetune`` from a ``.pt`` loads what fits; the entry point runs from
-  a ``params.yml``; a ``parallel`` block, ``plot_examples`` without
-  matplotlib and the default device without CUDA raise.
+  a ``params.yml``; a ``parallel`` block larger than the world or with
+  ``tp > 1``, ``plot_examples`` without matplotlib and the default
+  device without CUDA raise.
 """
 
 import argparse
@@ -251,9 +252,11 @@ def test_entry_point_runs_from_params_yml(corpus, tmp_path):
 
 
 def test_what_raises(corpus, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         TM.MAML(**_params(corpus, tmp_path / "a",
                           parallel={"dp": 2, "task": 1}))
+    with pytest.raises(NotImplementedError, match="item 22b"):
+        TM.MAML(**_params(corpus, tmp_path / "a", parallel={"tp": 2}))
     monkeypatch.setitem(__import__("sys").modules, "matplotlib", None)
     with pytest.raises(RuntimeError, match="plot_examples: false"):
         TM.MAML(**_params(corpus, tmp_path / "b", plot_examples=True))

@@ -9,8 +9,10 @@ request, the MAML trainer takes two second-order steps on a synthetic
 corpus and its checkpoint serves, the joint trainer, Reptile and an
 EWC stream of two speakers run there, the WaveRNN and HiFi-GAN
 trainers each take two steps and write their checkpoints, the inference
-CLI adapts to a speaker from the MAML checkpoint and writes its wav, and
-the landscape, speaker-classifier and profiling utilities run."""
+CLI adapts to a speaker from the MAML checkpoint and writes its wav, the
+landscape, speaker-classifier and profiling utilities run, and two gloo
+ranks (``parallel/launch.py``), each blocking both imports first thing,
+take one data-parallel joint step of the tiny model and agree."""
 
 import os
 import subprocess
@@ -187,6 +189,17 @@ with profiling.trace("trace", device="cpu"):
     with profiling.annotate("add"):
         torch.ones(2).add_(1)
 assert glob.glob("trace/*")
+import os
+from msa_tts_tpu_torch.parallel.launch import spawn
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    msa_tts_tpu_torch.__file__)), "tests"))
+import torch_parallel_ranks
+os.makedirs("par")
+torch.save({"model": mp, "sd": model.state_dict()}, "par/model.pt")
+spawn(torch_parallel_ranks.joint_step_no_jax, 2, "par", store="par/store")
+p0, p1 = (torch.load(f"par/rank{r}.pt") for r in (0, 1))
+assert all(torch.equal(p0[k], p1[k]) for k in p0)
+assert not all(torch.equal(p0[k], model.state_dict()[k]) for k in p0)
 for blocked in ("jax", "msa_tts_tpu"):
     bad = sorted(m for m in sys.modules
                  if m == blocked or m.startswith(blocked + "."))

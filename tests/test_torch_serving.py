@@ -132,9 +132,12 @@ def test_not_ported_features_raise(both):
     _, tts = both
     base = {"model": dict(tts.params["model"]),
             "audio_params": dict(AP)}
-    for extra in ({"parallel": {"dp": 2}}, {"parallel": {"tp": 2}}):
-        with pytest.raises(NotImplementedError):
-            AdaptiveTTS(dict(base, **extra), tts.model)
+    # tensor parallelism is not ported (ROADMAP item 22b); dp serving is
+    # (tests/test_torch_parallel.py): on the CPU, two shards of it
+    with pytest.raises(NotImplementedError, match="item 22b"):
+        AdaptiveTTS(dict(base, parallel={"tp": 2}), tts.model)
+    dp2 = AdaptiveTTS(dict(base, parallel={"dp": 2}), tts.model)
+    assert dp2._mesh.shape == {"dp": 2, "task": 1}
     # infer_dtype: bfloat16 is served (tests/test_torch_bf16.py); a type
     # the package does not know still raises
     with pytest.raises(ValueError, match="infer_dtype"):
