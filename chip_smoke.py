@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA
 GPU.
 
-    python3 chip_smoke.py [--only 12,13,14]
+    python3 chip_smoke.py [--only 12,13,14,15,16,17]
 
 (``--only``: phase 1, then only the training phases named.)
 
@@ -100,7 +100,18 @@ Phases (any failure exits non-zero):
      ``{dp: 2}`` against world 1, the shipped MAML and joint steps timed
      at both, a world-2 MAML checkpoint resumed at world 2 (bit for bit)
      and at world 1; and ``torchrun --nproc_per_node 1`` of the MAML
-     entry point on NCCL.
+     entry point on NCCL;
+ 17. tensor parallelism (``parallel/tp.py``): ``AdaptiveTTS`` with
+     ``parallel: {tp: 2}`` over two shards of the one card (B = 1 and
+     B = 4, float32, the plain decode with partitioned products): each
+     row against the one-device plain decode, no K1 launch, the wall
+     time beside the plain decode's and K1's, one bfloat16 request
+     against the one-device bfloat16 plain decode, the kernel decode
+     under tp refused; the joint trainer and second-order MAML (2
+     tasks) at ``{dp: 1, tp: 2}`` over two gloo ranks sharing the card
+     against world 1, the joint run resumed at tp 2 (bit for bit) and at
+     world 1, each rank's peak memory and the bytes it holds, warm step
+     times.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -3759,7 +3770,8 @@ PAR_REDUCED = {
     "corpus": "phase 12's synthetic corpus (4 speakers x 12 clips)",
     "maml": "2 meta-steps (4 tasks x 8 shots), float32, SGD outer of "
             "lr 1e-2, no meta-test; timing: the shipped settings "
-            "(bfloat16, Adam) for 4 meta-steps",
+            "(bfloat16, Adam) for 3 meta-steps (4 until the whole script "
+            "read 1,014 s of its 1,200 with phase 17)",
     "joint": "1 epoch (2 steps: 32 and 8 rows), float32, SGD of lr "
              "1e-2, no meta-test; timing: the shipped settings for 2 "
              "epochs",
@@ -4088,7 +4100,7 @@ def parallel_training(device) -> dict:
                 compute_dtype="float32", optim=sgd, **no_test)),
             "wavernn": ("wavernn", _voc_params("wavernn", corpus, "",
                                                n_steps=10)),
-            "maml_shipped": ("maml", maml_params(corpus, "", n_epochs=4,
+            "maml_shipped": ("maml", maml_params(corpus, "", n_epochs=3,
                                                  **no_test)),
             "joint_shipped": ("baseline", example_params(
                 "baseline", corpus, "", spk, n_epochs=2, **no_test)),
@@ -4269,6 +4281,391 @@ def parallel_phase(device) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 17
+# Tensor parallelism (parallel/tp.py).  Serving: {tp: 2} on two shards of
+# cuda:0 runs the plain decode with partitioned products (the JAX
+# package's choice under tp: its whole-loop kernel is single-device), so
+# K1 must not launch; each row's mel is held to the one-device plain
+# decode at the JAX package's limit for tp serving
+# (tests/test_serving.py), stop steps equal.  Training: two gloo ranks on
+# cuda:0 at {dp: 1, tp: 2} against world 1 at phase 16's limits; a tp-2
+# run resumed at tp 2 equals the unbroken run bit for bit, and its
+# checkpoint, at world 1, the unbroken tp-2 run within TP_RESUME_ATOL.
+TP_SERVE_ATOL = 1e-4
+TP_RESUME_ATOL = 1e-6
+TP_REDUCED = {
+    "serving": "B 1 and B 4, T_in 120, 500 steps, float32, and one "
+               "bfloat16 request at B 1; the full width",
+    "joint": "2 epochs of phase 16's joint run (2 steps each: 32 and 8 "
+             "rows), float32, SGD of lr 1e-2, no meta-test",
+    "maml": "1 meta-step of phase 16's MAML run at 2 tasks x 8 shots (its "
+            "first 2 speakers; 4 until the whole script read 1,014 s of its "
+            "1,200: the tasks run one after another, shots do not cost "
+            "time), float32, second order, SGD outer of lr 1e-2, no "
+            "meta-test",
+}
+TP_DEVICES = ["cuda:0", "cuda:0"]   # serving's two shards
+TP_TRAIN = {"dp": 1, "tp": 2}
+
+
+def tp_serving(device) -> dict:
+    """Phase 17, part 1: ``AdaptiveTTS`` with ``parallel: {tp: 2}`` over
+    ``TP_DEVICES`` at the full width (seeded weights, gate bias -1e4,
+    T_in 120, 500 steps), B = 1 and B = 4: rows against the one-device
+    plain decode, K1 launches under tp (0), and the wall time of a tp-2
+    decode, a one-device plain decode and K1's; one ``infer_dtype:
+    bfloat16`` request (B = 1) against the one-device plain bfloat16
+    decode at phase 3's bound.  An explicit ``cuda`` decode under tp
+    raises."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.models import cuda_decoder as CD
+    from msa_tts_tpu_torch.models.tacotron2nv import (
+        Tacotron2NV,
+        config_from_params,
+    )
+    from msa_tts_tpu_torch.serving import N_SYMBOLS, AdaptiveTTS
+
+    mp = dict(SHIPPED_MODEL, decoder_no_early_stopping=True,
+              n_mel_channels=SHIPPED_AUDIO["n_mels"], n_symbols=N_SYMBOLS)
+    params = {"model": mp, "audio_params": dict(SHIPPED_AUDIO)}
+    model = Tacotron2NV(config_from_params(mp),
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.decoder.gate_layer.linear_layer.bias.fill_(-1e4)
+    one = AdaptiveTTS(dict(params, decode_backend="torch"), model,
+                      device=device)
+    kern = AdaptiveTTS(dict(params, decode_backend="cuda"), model,
+                       device=device)
+    tp = AdaptiveTTS(dict(params, parallel={"tp": 2}), model, device=device,
+                     mesh_devices=TP_DEVICES)
+    n_split = sum(a is not None for a in tp._tp_plan.values())
+    print(f"  tp serving: decode_backend {tp.decode_backend}, mesh "
+          f"{tp._tp_mesh}, {n_split} of {len(tp._tp_plan)} tensors split")
+    if tp.decode_backend != "torch":
+        raise AssertionError("tp serving resolved to a kernel decode")
+    try:
+        AdaptiveTTS(dict(params, parallel={"tp": 2}, decode_backend="cuda"),
+                    model, device=device, mesh_devices=TP_DEVICES)
+    except NotImplementedError as e:
+        print(f"  decode_backend cuda with tp raises: {e}")
+        if "single-device" not in str(e):
+            raise
+    else:
+        raise AssertionError("decode_backend cuda with tp did not raise")
+    cfg, dcfg = one.cfg, one.cfg.decoder_config()
+    S, r = dcfg.max_decoder_steps, cfg.n_frames_per_step
+    g = torch.Generator().manual_seed(17)
+    res = {"k1_launches_under_tp": 0, "max_abs_err": 0.0}
+
+    def timed(tts, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tts._decode(tts.model, *args)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for B in (1, 4):
+        lens = np.array([T_IN, T_IN - 23, T_IN - 10, T_IN - 56][:B])
+        inputs = np.random.default_rng(B).integers(1, N_SYMBOLS, (B, T_IN))
+        for i in range(B):
+            inputs[i, lens[i]:] = 0
+        emb = np.random.default_rng(7).standard_normal(
+            (B, cfg.speaker_embedding_dim)).astype(np.float32)
+        pm = CD.prenet_masks(dcfg, S, B, g, device=device)
+        args = (inputs, lens, emb, None, pm)
+        if B == 1:                   # warm each path once
+            args1 = args
+            for tts in (one, tp, kern):
+                tts._decode(tts.model, *args)
+        (ref, ref_len), plain_ms = timed(one, *args)
+        CD.LAUNCHES = 0
+        (mel, mel_len), tp_ms = timed(tp, *args)
+        n = CD.LAUNCHES
+        res["k1_launches_under_tp"] += n
+        (_, k1_len), k1_ms = timed(kern, *args)
+        if n != 0:
+            raise AssertionError(f"tp serving launched K1 {n} times")
+        if not np.array_equal(mel_len, ref_len):
+            raise AssertionError(f"stop steps {mel_len} != {ref_len}")
+        err = max(float((mel[i, :, :max(int(ref_len[i]), 1) * r]
+                         - ref[i, :, :max(int(ref_len[i]), 1) * r])
+                        .abs().max()) for i in range(B))
+        print(f"  float32 B={B}: tp 2 vs one-device plain decode max|d| "
+              f"{err:.3e} (limit {TP_SERVE_ATOL}), stop steps "
+              f"{mel_len.tolist()} (K1's {k1_len.tolist()}), K1 launches "
+              f"under tp {n}; wall {tp_ms:.1f} ms tp 2, {plain_ms:.1f} ms "
+              f"one-device plain ({tp_ms / plain_ms:.2f}x), {k1_ms:.1f} ms "
+              f"K1; {tp_ms / S:.2f} ms a step under tp")
+        if not err <= TP_SERVE_ATOL:
+            raise AssertionError(f"B={B}: tp serving rows ({err})")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res[f"b{B}"] = {"tp_ms": tp_ms, "plain_ms": plain_ms,
+                        "k1_ms": k1_ms, "max_abs_err": err}
+    del one, kern, tp
+
+    # one bfloat16 request (B = 1): the shards cast as the one-device
+    # model is, against the one-device plain bfloat16 decode at phase 3's
+    # bound (a copy: the one-device service casts its model in place)
+    p16 = dict(params, infer_dtype="bfloat16", decode_backend="torch")
+    tp16 = AdaptiveTTS(dict(p16, parallel={"tp": 2}), model, device=device,
+                       mesh_devices=TP_DEVICES)
+    one16 = AdaptiveTTS(p16, copy.deepcopy(model), device=device)
+    for tts in (one16, tp16):
+        tts._decode(tts.model, *args1)
+    (ref, ref_len), plain_ms = timed(one16, *args1)
+    CD.LAUNCHES = 0
+    (mel, mel_len), tp_ms = timed(tp16, *args1)
+    n = CD.LAUNCHES
+    res["k1_launches_under_tp"] += n
+    if n != 0:
+        raise AssertionError(f"bfloat16 tp serving launched K1 {n} times")
+    if not np.array_equal(mel_len, ref_len):
+        raise AssertionError(f"bfloat16 stop steps {mel_len} != {ref_len}")
+    L = max(int(ref_len[0]), 1) * r
+    d = (mel[0, :, :L].float() - ref[0, :, :L].float()).abs()
+    err = float(d.max())
+    share = float((d > DEC_BF16_FLIP["mels"]).float().mean())
+    print(f"  bfloat16 B=1: tp 2 vs one-device plain bfloat16 decode max|d| "
+          f"{err:.3e} (limit {SERVE_BF16_MAX}), share beyond "
+          f"{DEC_BF16_FLIP['mels']}: {share:.2e} (limit {DEC_BF16_SHARE}), "
+          f"stop steps {mel_len.tolist()}, K1 launches under tp {n}; wall "
+          f"{tp_ms:.1f} ms tp 2, {plain_ms:.1f} ms one-device plain "
+          f"({tp_ms / plain_ms:.2f}x)")
+    if not (err <= SERVE_BF16_MAX and share <= DEC_BF16_SHARE):
+        raise AssertionError(f"bfloat16 tp serving rows ({err}, {share})")
+    res["bf16_b1"] = {"tp_ms": tp_ms, "plain_ms": plain_ms,
+                      "max_abs_err": err, "share_beyond": share}
+    del one16, tp16, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_state(t) -> dict:
+    """A trainer's whole weights and batch-norm statistics on the host
+    (a tp trainer's ranks gather them: every rank calls this)."""
+    ts = t._whole_state()
+    return {"w": {k: v.cpu() for k, v in ts.params.items()},
+            "stats": {k: v.cpu() for k, v in ts.model_state.items()
+                      if v.is_floating_point()}}
+
+
+def _held_bytes(t) -> dict:
+    """The bytes of weights this process holds, and of the Adam moments
+    of the same layout (``optim.make_optimizer``'s Adam on them)."""
+    from msa_tts_tpu_torch.optim import make_optimizer
+
+    params = t.train_state.params
+    adam = make_optimizer({"optimizer_type": "Adam", "lr": 1e-3}).init(
+        params)
+    moments = [v for s in adam if isinstance(s, dict)
+               for m in ("mu", "nu") for v in s.get(m, {}).values()]
+    return {"weights": sum(v.numel() * v.element_size()
+                           for v in params.values()),
+            "moments": sum(v.numel() * v.element_size() for v in moments)}
+
+
+def _tp_rank(rank: int, world: int, tmp: str) -> None:
+    """What each of phase 17's two ranks (gloo, both on ``cuda:0``) runs:
+    every case of ``<tmp>/cases.json`` in order; each rank writes
+    ``<tmp>/rank<r>.pt``."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device(PAR_DEVICE))
+    with open(os.path.join(tmp, "cases.json")) as f:
+        cases = json.load(f)
+    out = {}
+    for name, c in cases.items():
+        if c.get("copy"):
+            if rank == 0:
+                shutil.copytree(*c["copy"])
+            dist.barrier()
+        t, recs = _par_run(c["method"], os.path.join(tmp, name), c["step"],
+                           c.get("keep_epoch1"))
+        out[name] = dict(_tp_state(t), recs=recs, step=t.step_global,
+                         held=_held_bytes(t))
+        del t
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def tp_training(device) -> dict:
+    """Phase 17, part 2: two gloo ranks sharing ``cuda:0`` at ``{dp: 1,
+    tp: 2}`` run the joint trainer (float32, SGD, 2 epochs of 2 steps)
+    and second-order MAML (float32, SGD outer, 1 meta-step of 2 tasks)
+    through their entry points, held against the same runs at world 1;
+    the joint run's files after epoch 1 resumed at tp 2 (bit for bit
+    against the unbroken run) and at world 1; each rank's peak memory
+    and the bytes of
+    weights (and of Adam's moments of that layout) it holds, against
+    world 1's; median warm step times at both worlds."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from msa_tts_tpu_torch.config import save_params
+    from msa_tts_tpu_torch.dataloaders.synthetic import make_synthetic_corpus
+    from msa_tts_tpu_torch.parallel.launch import spawn
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        corpus = f"{tmp}/corpus"
+        make_synthetic_corpus(corpus, n_speakers=4,
+                              utterances_per_speaker=12, seed=0,
+                              spk_emb_dim=SHIPPED_MODEL[
+                                  "speaker_embedding_dim"])
+        print("  reduced: " + json.dumps(TP_REDUCED))
+        sgd = {"optimizer_type": "SGD", "lr": 1e-2}
+        no_test = dict(metatest_epoch_interval=10 ** 6, do_metatest=False)
+        params = {
+            "joint": ("baseline", example_params(
+                "baseline", corpus, "", list(MAML_SPEAKERS), n_epochs=2,
+                compute_dtype="float32", optim=sgd, async_checkpoint=False,
+                ckpt_save_epoch_interval=1, **no_test)),
+            "maml": ("maml", maml_params(
+                corpus, "", n_epochs=1, compute_dtype="float32",
+                optim_outer=sgd, async_checkpoint=False, **no_test)),
+        }
+        for k in ("dataset_train", "dataset_metatrain", "dataset_metatest"):
+            mp = params["maml"][1]
+            mp[k] = dict(mp[k], speakers_list=list(MAML_SPEAKERS[:2]))
+        step_attr = {"maml": "_maml_step", "baseline": "_train_step"}
+        exp = f"baseline/{params['joint'][1]['experiment_name']}"
+        kept = f"{tmp}/joint_epoch1"
+
+        def write(root: str, parallel) -> dict:
+            cases = {}
+            for name, (method, p) in params.items():
+                d = f"{root}/{name}"
+                p = dict(p, output_path=f"{d}/out", device=PAR_DEVICE)
+                if parallel:
+                    p["parallel"] = dict(parallel)
+                os.makedirs(d, exist_ok=True)
+                save_params(p, f"{d}/params.yml")
+                attr = step_attr[method]
+                if method == "maml" and parallel:
+                    attr = "_maml_step_sharded"   # the tasks' placement
+                cases[name] = {"method": method, "step": attr}
+            return cases
+
+        w2 = f"{tmp}/tp2"
+        cases = write(w2, TP_TRAIN)
+        cases["joint"]["keep_epoch1"] = kept
+        d = f"{w2}/joint_resumed"
+        os.makedirs(d)
+        save_params(dict(params["joint"][1], output_path=f"{d}/out",
+                         device=PAR_DEVICE, parallel=dict(TP_TRAIN),
+                         resume=True), f"{d}/params.yml")
+        cases["joint_resumed"] = {"method": "baseline", "step": "_train_step",
+                                  "copy": [kept, f"{d}/out/{exp}"]}
+        with open(f"{w2}/cases.json", "w") as f:
+            json.dump(cases, f)
+        t0 = time.perf_counter()
+        spawn(_tp_rank, 2, w2, store=f"{w2}/store")
+        print(f"  tp 2 (two gloo ranks on one card): "
+              f"{time.perf_counter() - t0:.1f} s")
+        r0, r1 = (torch.load(f"{w2}/rank{r}.pt", weights_only=False)
+                  for r in (0, 1))
+        for name in r0:
+            w, s = _par_err(r0[name], r1[name])
+            if w or s:
+                raise AssertionError(f"{name}: ranks' gathered states "
+                                     f"differ ({w}, {s})")
+        w1 = f"{tmp}/w1"
+        write(w1, None)
+        ref = {}
+        t0 = time.perf_counter()
+        for name in ("joint", "maml"):
+            method = params[name][0]
+            t, recs = _par_run(method, f"{w1}/{name}", step_attr[method])
+            ref[name] = dict(_tp_state(t), recs=recs, step=t.step_global,
+                             held=_held_bytes(t))
+            del t
+            torch.cuda.empty_cache()
+        d1 = f"{w1}/joint_from_tp2"
+        os.makedirs(d1)
+        shutil.copytree(kept, f"{d1}/out/{exp}")
+        save_params(dict(params["joint"][1], output_path=f"{d1}/out",
+                         device=PAR_DEVICE, resume=True), f"{d1}/params.yml")
+        t, _ = _par_run("baseline", d1, "_train_step")
+        from_tp2 = dict(_tp_state(t), step=t.step_global)
+        del t
+        torch.cuda.empty_cache()
+        print(f"  world 1's runs: {time.perf_counter() - t0:.1f} s")
+
+        for name in ("joint", "maml"):
+            w, s = _par_err(r0[name], ref[name])
+            steps = (r0[name]["step"], ref[name]["step"])
+            print(f"  {name}: tp 2 vs world 1 weights max|d| {w:.3e} (limit "
+                  f"{PAR_W_ATOL}), statistics {s:.3e} (limit "
+                  f"{PAR_STAT_RTOL}), steps {steps}")
+            if not (w <= PAR_W_ATOL and s <= PAR_STAT_RTOL
+                    and steps[0] == steps[1]):
+                raise AssertionError(f"{name}: tp 2 vs world 1 ({w}, {s}, "
+                                     f"{steps})")
+            res[f"{name}_w_err"], res[f"{name}_stat_err"] = w, s
+        w, s = _par_err(r0["joint_resumed"], r0["joint"])
+        print(f"  joint resumed at tp 2 after epoch 1 vs unbroken: {w:.3e}, "
+              f"{s:.3e} (equal bit for bit)")
+        if (w or s
+                or r0["joint_resumed"]["step"] != r0["joint"]["step"]):
+            raise AssertionError("tp-2 resume is not the unbroken run")
+        w, s = _par_err(from_tp2, r0["joint"])
+        print(f"  joint tp-2 checkpoint resumed at world 1: weights {w:.3e} "
+              f"(limit {TP_RESUME_ATOL}), statistics {s:.3e} (limit "
+              f"{PAR_STAT_RTOL})")
+        if not (w <= TP_RESUME_ATOL and s <= PAR_STAT_RTOL
+                and from_tp2["step"] == r0["joint"]["step"]):
+            raise AssertionError(f"world-1 resume of tp 2 ({w}, {s})")
+        res["resume_w1_w_err"], res["resume_w1_stat_err"] = w, s
+        for name in ("joint", "maml"):
+            a = [_warm(r[name]["recs"]) for r in (r0, r1)]
+            b = _warm(ref[name]["recs"])
+            held = [r[name]["held"] for r in (r0, r1)]
+            mb = [(h["weights"] + h["moments"]) / 1e6 for h in held]
+            mb1 = (ref[name]["held"]["weights"]
+                   + ref[name]["held"]["moments"]) / 1e6
+            print(f"  {name}: tp 2 median warm step "
+                  f"{a[0]['median_warm_s']:.3f} s, world 1 "
+                  f"{b['median_warm_s']:.3f} s ({b['n_warm']} warm steps); "
+                  f"peak memory per rank {a[0]['peak_gib']:.2f}, "
+                  f"{a[1]['peak_gib']:.2f} GiB ({a[0]['peak_above_gib']:.2f}"
+                  f", {a[1]['peak_above_gib']:.2f} above what each held) "
+                  f"against world 1's {b['peak_gib']:.2f} GiB "
+                  f"({b['peak_above_gib']:.2f}); weights and Adam moments "
+                  f"held per rank {mb[0]:.1f}, {mb[1]:.1f} MB against "
+                  f"{mb1:.1f} MB; two ranks share one card, so this is no "
+                  "multi-GPU speed-up")
+            res[name] = {"tp2": a, "world1": b, "held_mb_tp2": mb,
+                         "held_mb_world1": mb1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def tp_phase(device) -> dict:
+    """Phase 17: tp serving over two shards of the card (no kernel), then
+    tensor-parallel training over two gloo ranks (``tp_serving``,
+    ``tp_training``)."""
+    print("  tp serving: 2 shards of one card, the plain decode")
+    res = {"serving": tp_serving(device)}
+    print("  training: {dp: 1, tp: 2} over 2 gloo ranks on one card")
+    res["training"] = tp_training(device)
+    return res
+
+
 def main(argv=None) -> int:
     import shutil
 
@@ -4286,7 +4683,8 @@ def _run(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--only", default=None,
-                    help="comma-separated phases (12, 13, 14, 15, 16) to run "
+                    help="comma-separated phases (12, 13, 14, 15, 16, 17) to "
+                         "run "
                          "after phase 1 instead of all phases; the kernels "
                          "line is then not printed")
     only = ap.parse_args(argv).only
@@ -4339,7 +4737,7 @@ def _run(argv=None) -> int:
             t0 = time.perf_counter()
             res = {"12": maml_phase, "13": train_phase,
                    "14": vocoder_phase, "15": cli_phase,
-                   "16": parallel_phase}[phase](device)
+                   "16": parallel_phase, "17": tp_phase}[phase](device)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
             print(gpu)
             print(json.dumps({phase: res}))
@@ -4462,6 +4860,15 @@ def _run(argv=None) -> int:
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"parallel": pp}))
+    print("phase 17: tensor parallelism: {tp: 2} serving over 2 shards of "
+          "one card (the plain decode, no kernel), and {dp: 1, tp: 2} "
+          "joint and MAML training over 2 gloo ranks on one card against "
+          "world 1, resumes")
+    t0 = time.perf_counter()
+    tpp = tp_phase(device)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    print(gpu)
+    print(json.dumps({"tp": tpp}))
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from ..optim import sq_norm_sum
+
 
 def mix_grads(grad_list: list[dict], weights=None) -> dict:
     """Weighted average of a list of gradient dictionaries (uniform when
@@ -32,9 +34,9 @@ def mix_grads_stacked(stacked: dict, weights=None) -> dict:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the float32 sum of squares of every tensor."""
-    return torch.sqrt(sum((t.to(torch.float32) ** 2).sum()
-                          for t in tree.values()))
+    """sqrt of the float32 sum of squares of every tensor (each sharded
+    leaf over all its shards under ``parallel.tp.tp_products``)."""
+    return torch.sqrt(sq_norm_sum(tree))
 
 
 def tree_sub(a: dict, b: dict) -> dict:

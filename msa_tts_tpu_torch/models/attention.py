@@ -75,6 +75,10 @@ class LocationLayer(nn.Module):
             N.uniform_(self.location_conv1d.weight, a, generator)
 
     @property
+    def conv_module(self) -> nn.Conv1d:
+        return self.location_conv1d
+
+    @property
     def conv_weight(self):
         return self.location_conv1d.weight
 
@@ -93,6 +97,10 @@ class LSALocationLayer(nn.Module):
             n_filters, attention_dim, bias=False, w_init_gain="tanh",
             generator=generator,
         )
+
+    @property
+    def conv_module(self) -> nn.Conv1d:
+        return self.location_conv.conv
 
     @property
     def conv_weight(self):
@@ -170,8 +178,9 @@ def _location_features(location_layer, state: AttnState, rnd=None):
     attention_cat = torch.stack(
         [state.attention_weights, state.attention_weights_cum], dim=1
     )  # (B, 2, T)
-    w = location_layer.conv_weight
-    processed = N.conv1d(attention_cat, w, padding=(w.shape[-1] - 1) // 2)
+    conv = location_layer.conv_module
+    processed = N.conv1d_of(conv, attention_cat,
+                            padding=(conv.kernel_size[0] - 1) // 2)
     if rnd is not None:
         processed = rnd(processed)
     return location_layer.location_dense(processed.transpose(1, 2))
@@ -287,7 +296,8 @@ def forward_attention(
     new_u = state.u
     if forward_attn and trans_agent:
         ta_in = torch.cat([context, query], dim=-1)
-        new_u = torch.sigmoid(attn.ta(ta_in if rnd is None else rnd(ta_in)))
+        new_u = torch.sigmoid(N.linear_of(
+            attn.ta, ta_in if rnd is None else rnd(ta_in)))
 
     new_state = AttnState(
         attention_weights=alignment,

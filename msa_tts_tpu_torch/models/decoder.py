@@ -135,7 +135,7 @@ def postnet_forward(postnet: Postnet, x, masks=None, *, width=None):
         if valid is not None:
             x = torch.where(valid, x, 0.0)
         conv = conv_bn[0].conv
-        x = N.conv1d(x, conv.weight, conv.bias, padding=pad)
+        x = N.conv1d_of(conv, x, padding=pad)
         if masks is None:
             x = N.batchnorm1d(conv_bn[1], x)
         else:
@@ -249,9 +249,14 @@ def compute_view(decoder: Decoder):
     with float32 accumulation.  In the copy each LSTM's ``bias_ih`` holds
     the two biases' bfloat16 sum and ``bias_hh`` zeros.  The copy is kept
     per decoder and made again when a parameter changes
-    (:func:`params_key`)."""
+    (:func:`params_key`).  Under ``parallel.tp.tp_products`` the
+    decoder runs as it is: the partitioned products take its bfloat16
+    shards into float32 products (an LSTM's two biases are added one
+    after the other in float32, not summed at bfloat16 first)."""
     if decoder_dtype(decoder) != torch.bfloat16:
         return decoder, _same
+    if N.tp_active() is not None:
+        return decoder, _round_bf16
     key = params_key(decoder)
     hit = _VIEWS.get(decoder)
     if hit is None or hit[0] != key:

@@ -77,7 +77,7 @@ def encoder_forward(encoder: Encoder, x, input_lengths, masks=None, *,
     new_state = []
     for i, conv_bn in enumerate(encoder.convolutions):
         conv, bn = conv_bn[0].conv, conv_bn[1]
-        x = N.conv1d(x, conv.weight, conv.bias, padding=pad)
+        x = N.conv1d_of(conv, x, padding=pad)
         if masks is None:
             x = torch.relu(N.batchnorm1d(bn, x))
         else:

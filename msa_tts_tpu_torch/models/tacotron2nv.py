@@ -202,7 +202,7 @@ def _encode_conditioned(model, cfg, inputs, input_lengths, speaker_vecs, *,
     state)``."""
     if speaker_vecs.is_floating_point():
         speaker_vecs = speaker_vecs.to(model.embedding.weight.dtype)
-    emb = N.embedding(inputs, model.embedding.weight)          # (B, T, D)
+    emb = N.embedding_of(model.embedding, inputs)              # (B, T, D)
     if cfg.freeze_charemb:
         emb = emb.detach()
     enc_out, enc_state = encoder_forward(
@@ -213,11 +213,11 @@ def _encode_conditioned(model, cfg, inputs, input_lengths, speaker_vecs, *,
     if cfg.freeze_encoder:
         enc_out = enc_out.detach()
     if cfg.speaker_emb_type == "learnable_lookup":
-        spk = N.embedding(speaker_vecs, model.speaker_embedder.weight)
+        spk = N.embedding_of(model.speaker_embedder, speaker_vecs)
     elif cfg.speaker_emb_type == "static":
         spk = speaker_vecs
     elif cfg.speaker_emb_type == "static+linear":
-        spk = model.speaker_lin(speaker_vecs)
+        spk = N.linear_of(model.speaker_lin, speaker_vecs)
     else:
         raise ValueError(cfg.speaker_emb_type)
     spk = spk[:, None, :].expand(-1, enc_out.shape[1], -1)

@@ -6,6 +6,10 @@ keys are the reference checkpoint's.  Initializers draw from an explicit
 ``torch.Generator`` with the JAX package's distributions:
 xavier-uniform by nonlinearity gain for linear and conv weights, zero
 biases, U(±1/√H) for LSTM cells.
+
+The ``*_of`` products take the module that holds the weights, so that
+under ``parallel.tp.tp_products`` they run partitioned (``parallel/
+tp.py``); outside it they are the plain ops on the module's tensors.
 """
 
 from __future__ import annotations
@@ -38,6 +42,16 @@ def uniform_(t: torch.Tensor, a: float, generator: torch.Generator):
     return t
 
 
+# the tensor-parallel products in force (parallel.tp.tp_products); None:
+# every module's tensors are whole
+_TP = contextvars.ContextVar("tp_products", default=None)
+
+
+def tp_active():
+    """The ``parallel.tp.TensorParallel`` of the calling thread, or None."""
+    return _TP.get()
+
+
 # ----------------------------------------------------------------- linear
 
 class LinearNorm(nn.Module):
@@ -63,12 +77,14 @@ class LinearNorm(nn.Module):
             lin.bias.zero_()
 
     def forward(self, x):
-        return self.linear_layer(x)
+        return linear_of(self.linear_layer, x)
 
 
-def linear(x, weight, bias=None):
-    """``x @ weight.T + bias`` with the torch (out, in) weight layout."""
-    return F.linear(x, weight, bias)
+def linear_of(lin: nn.Linear, x):
+    """``lin(x)`` (``x @ weight.T + bias``, the torch (out, in) weight
+    layout), partitioned under ``tp_products``."""
+    tp = _TP.get()
+    return lin(x) if tp is None else tp.linear(lin, x)
 
 
 # ----------------------------------------------------------------- conv1d
@@ -105,12 +121,25 @@ class ConvNorm(nn.Module):
         return self.conv(x)
 
 
-def conv1d(x, weight, bias=None, *, padding: int = 0):
-    """1-D convolution on ``(B, C, T)`` inputs (torch NCW layout)."""
-    return F.conv1d(x, weight, bias, padding=padding)
+def conv1d_of(conv: nn.Conv1d, x, *, padding: int = 0):
+    """1-D convolution of ``(B, C, T)`` inputs (torch NCW layout) with
+    ``conv``'s weight and bias, partitioned under ``tp_products``."""
+    tp = _TP.get()
+    if tp is None:
+        return F.conv1d(x, conv.weight, conv.bias, padding=padding)
+    return tp.conv1d(conv, x, padding)
 
 
 # ------------------------------------------------------------- batch norm
+
+def _bn_tensors(bn: nn.BatchNorm1d):
+    """``bn``'s weight, bias, running mean and variance, whole."""
+    names = ("weight", "bias", "running_mean", "running_var")
+    tp = _TP.get()
+    if tp is None:
+        return tuple(getattr(bn, n) for n in names)
+    return tuple(tp.full(bn, n) for n in names)
+
 
 def batchnorm1d(bn: nn.BatchNorm1d, x, *, eps: float | None = None):
     """Eval-mode BatchNorm over ``(B, C, T)`` or ``(B, C)`` from the
@@ -118,10 +147,11 @@ def batchnorm1d(bn: nn.BatchNorm1d, x, *, eps: float | None = None):
     (``(x - mean) · rsqrt(var + eps) · weight + bias``)."""
     eps = bn.eps if eps is None else eps
     shape = (1, -1) if x.dim() == 2 else (1, -1, 1)
-    y = (x - bn.running_mean.reshape(shape)) * torch.rsqrt(
-        bn.running_var.reshape(shape) + eps
+    weight, bias, running_mean, running_var = _bn_tensors(bn)
+    y = (x - running_mean.reshape(shape)) * torch.rsqrt(
+        running_var.reshape(shape) + eps
     )
-    return y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+    return y * weight.reshape(shape) + bias.reshape(shape)
 
 
 # the data group of a sharded step (synced_batchnorm); None: local moments
@@ -154,7 +184,10 @@ def batchnorm1d_train(bn: nn.BatchNorm1d, x, *, momentum: float = 0.1,
     differentiable all-reduce of ``parallel/collectives.py``) and divided
     by the global count, which the unbiased variance uses too: the
     moments of the joined batch, as GSPMD computes them for the JAX
-    package's sharded step."""
+    package's sharded step.  Under ``tp_products`` the scales and
+    statistics are joined for use and the new statistics cut back to
+    their shards."""
+    weight, bias, running_mean, running_var = _bn_tensors(bn)
     dims = (0,) if x.dim() == 2 else (0, 2)
     shape = (1, -1) if x.dim() == 2 else (1, -1, 1)
     group = _BN_GROUP.get()
@@ -172,10 +205,14 @@ def batchnorm1d_train(bn: nn.BatchNorm1d, x, *, momentum: float = 0.1,
         var = all_reduce_sum((d * d).sum(dim=dims), group) / n
         mean, var = mean.to(x.dtype), var.to(x.dtype)
     unbiased = var * n / max(n - 1, 1)
-    new_state = ((1 - momentum) * bn.running_mean + momentum * mean,
-                 (1 - momentum) * bn.running_var + momentum * unbiased)
+    new_state = ((1 - momentum) * running_mean + momentum * mean,
+                 (1 - momentum) * running_var + momentum * unbiased)
+    tp = _TP.get()
+    if tp is not None:
+        new_state = tuple(tp.local_state(bn, k, v) for k, v in zip(
+            ("running_mean", "running_var"), new_state))
     y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
-    return (y * bn.weight.reshape(shape) + bn.bias.reshape(shape),
+    return (y * weight.reshape(shape) + bias.reshape(shape),
             new_state)
 
 
@@ -209,5 +246,9 @@ def init_embedding(emb: nn.Embedding, generator: torch.Generator, *,
     return emb
 
 
-def embedding(ids, weight):
-    return F.embedding(ids, weight)
+def embedding_of(emb: nn.Embedding, ids):
+    """The rows of ``emb``'s table at ``ids``, partitioned under
+    ``tp_products``."""
+    tp = _TP.get()
+    return F.embedding(ids, emb.weight) if tp is None else tp.embedding(
+        emb, ids)

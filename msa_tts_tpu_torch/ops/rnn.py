@@ -9,7 +9,10 @@ the reverse direction starts at each row's last valid step and outputs
 at padded positions are zero.  Under :func:`twice_differentiable` it
 runs as that masked scan in plain tensor ops instead, whose backward can
 itself be differentiated (second-order meta-learning): cuDNN's RNN
-backward, which ``nn.LSTM`` takes on a GPU, cannot.
+backward, which ``nn.LSTM`` takes on a GPU, cannot.  Under
+``parallel.tp.tp_products`` the gates are partitioned products joined
+before they split, and the BiLSTM is the masked scan (``nn.LSTM`` cannot
+take sharded weights).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
-from .nn import uniform_
+from .nn import _TP, uniform_
 
 
 @torch.no_grad()
@@ -37,10 +40,14 @@ def init_lstm_(module: nn.Module, generator: torch.Generator):
 def lstm_cell(cell: nn.LSTMCell, x, hc):
     """One LSTM step. ``x``: (B, in); ``hc``: ((B, H), (B, H))."""
     h, c = hc
-    gates = (
-        x @ cell.weight_ih.T + h @ cell.weight_hh.T
-        + cell.bias_ih + cell.bias_hh
-    )
+    tp = _TP.get()
+    if tp is not None:
+        gates = tp.lstm_gates(cell, x, h)
+    else:
+        gates = (
+            x @ cell.weight_ih.T + h @ cell.weight_hh.T
+            + cell.bias_ih + cell.bias_hh
+        )
     i, f, g, o = gates.chunk(4, dim=-1)
     i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
     c_new = f * c + i * torch.tanh(g)
@@ -67,16 +74,24 @@ def _masked_lstm_scan(lstm: nn.LSTM, x, lengths, suffix: str):
     input projection hoisted, then a step loop whose carry moves only at
     valid positions (blended by the 0/1 validity), outputs zero at
     padded ones; ``suffix`` ``""`` forward, ``"_reverse"`` backward."""
-    w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{n}_l0{suffix}") for n in (
-        "weight_ih", "weight_hh", "bias_ih", "bias_hh"))
     B, T, _ = x.shape
-    x_proj = x @ w_ih.T + b_ih + b_hh                      # (B, T, 4H)
+    tp = _TP.get()
+    if tp is not None:
+        gates = tp.lstm_scan_gates(lstm, x, suffix)
+    else:
+        w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{n}_l0{suffix}")
+                                  for n in ("weight_ih", "weight_hh",
+                                            "bias_ih", "bias_hh"))
+        x_proj = x @ w_ih.T + b_ih + b_hh                  # (B, T, 4H)
+
+        def gates(t, h):
+            return x_proj[:, t] + h @ w_hh.T
     valid = (torch.arange(T, device=x.device)[None, :]
              < lengths.to(x.device)[:, None]).to(x.dtype)  # (B, T)
     h = c = x.new_zeros(B, lstm.hidden_size)
     out = [None] * T
     for t in (range(T - 1, -1, -1) if suffix else range(T)):
-        i, f, g, o = (x_proj[:, t] + h @ w_hh.T).chunk(4, dim=-1)
+        i, f, g, o = gates(t, h).chunk(4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
         v = valid[:, t, None]
@@ -90,7 +105,7 @@ def bilstm(lstm: nn.LSTM, x, lengths):
     """Bidirectional masked LSTM: (B, T, D) → (B, T, 2H), zeros at
     padded positions.  ``lstm`` is a one-layer, batch-first,
     bidirectional ``nn.LSTM``."""
-    if _TWICE.get():
+    if _TWICE.get() or _TP.get() is not None:
         return torch.cat([_masked_lstm_scan(lstm, x, lengths, ""),
                           _masked_lstm_scan(lstm, x, lengths, "_reverse")],
                          dim=-1)

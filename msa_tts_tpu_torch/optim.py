@@ -27,6 +27,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .config import parse_optim_params
+from .ops.nn import tp_active
 
 
 class TrainState(NamedTuple):
@@ -211,10 +212,18 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  add_decayed_weights(weight_decay), scale(-lr))
 
 
+def sq_norm_sum(tree: dict) -> torch.Tensor:
+    """The float32 sum of squares of every tensor of ``tree``; under
+    ``parallel.tp.tp_products`` a sharded leaf's over all its shards."""
+    tp = tp_active()
+    if tp is not None:
+        return tp.sq_sum(tree)
+    return sum((g.to(torch.float32) ** 2).sum() for g in tree.values())
+
+
 def clip_by_global_norm(grads: dict, max_norm: float):
     """Global-norm clipping: returns ``(clipped, the norm before)``; the
     scale is ``min(1, max_norm / max(norm, 1e-6))``."""
-    norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum()
-                          for g in grads.values()))
+    norm = torch.sqrt(sq_norm_sum(grads))
     s = torch.clamp(max_norm / torch.clamp_min(norm, 1e-6), max=1.0)
     return {k: g * s for k, g in grads.items()}, norm

@@ -1,6 +1,6 @@
-"""Data- and task-parallel training and dp serving over
+"""Data-, task- and tensor-parallel training and dp and tp serving over
 ``torch.distributed`` (counterpart of ``msa_tts_tpu/parallel/``, without
-its tensor parallelism and ``jit_with_mesh``)."""
+its ``jit_with_mesh``)."""
 
 from .mesh import make_mesh, single_device_mesh
 from .shard_meta import (
@@ -9,6 +9,7 @@ from .shard_meta import (
     make_sharded_reptile_step,
     shard_task_batch_2d,
 )
+from .tp import gather_tree_tp, shard_tree_tp, tp_leaf_spec, tp_shardings
 from .sharding import (
     batch_sharding,
     replicate_state,
@@ -30,5 +31,9 @@ __all__ = [
     "shard_batch",
     "shard_task_batch",
     "shard_task_batch_2d",
+    "gather_tree_tp",
+    "shard_tree_tp",
     "task_batch_sharding",
+    "tp_leaf_spec",
+    "tp_shardings",
 ]

@@ -18,6 +18,13 @@ replicated, as if each copy were the loss, would count it once per rank:
 ``world`` times the gradient.)  The backward builds its own graph, so
 a second-order step differentiates through it again.
 
+Tensor parallelism.  Megatron's four conjugate operators over a tp
+group (:func:`copy_to_tp`, :func:`reduce_from_tp`, :func:`gather_from_tp`,
+:func:`scatter_to_tp`) carry the partitioned products of
+``parallel/tp.py``: each is an autograd function whose backward is its
+conjugate's forward, through the conjugate's own autograd function, so
+that a second-order step differentiates through it again.
+
 The backend takes the tensors where they are: NCCL those on the card,
 gloo those on the CPU and, for ranks that share one card, those on it
 (gloo's all-reduce, all-gather and broadcast of CUDA tensors, which
@@ -125,3 +132,91 @@ def pmean(t: torch.Tensor, group: AxisGroup | None):
     if not _active(group):
         return t
     return _AllReduceSum.apply(t, group) * (1.0 / group.size)
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _gather_dim(t: torch.Tensor, dim: int, group: AxisGroup):
+    src = t.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(group.size)]
+    dist.all_gather(parts, src, group=group.pg)
+    return torch.cat(parts, dim=dim)
+
+
+def _own_slice(t: torch.Tensor, dim: int, group: AxisGroup):
+    n = t.shape[dim] // group.size
+    return t.narrow(dim, group.index * n, n).contiguous()
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceFromTP.apply(grad, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _CopyToTP.apply(grad, ctx.group), None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ScatterToTP.apply(grad, ctx.dim, ctx.group), None, None
+
+
+class _ScatterToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_slice(x.detach(), dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherFromTP.apply(grad, ctx.dim, ctx.group), None, None
+
+
+def copy_to_tp(x: torch.Tensor, group: AxisGroup | None):
+    """The identity forward; the sum of the cotangents over ``group``
+    backward (the input of a column-parallel product)."""
+    return x if not _active(group) else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group: AxisGroup | None):
+    """The sum over ``group`` forward; the identity backward (the output
+    of a row-parallel product)."""
+    return x if not _active(group) else _ReduceFromTP.apply(x, group)
+
+
+def gather_from_tp(x: torch.Tensor, dim: int, group: AxisGroup | None):
+    """The ranks' ``x`` joined along ``dim`` in the group's order forward;
+    this rank's slice of the cotangent backward (the output of a
+    column-parallel product, a sharded vector used whole)."""
+    if not _active(group):
+        return x
+    return _GatherFromTP.apply(x, dim % x.dim(), group)
+
+
+def scatter_to_tp(x: torch.Tensor, dim: int, group: AxisGroup | None):
+    """This rank's contiguous slice of ``x`` along ``dim`` forward; the
+    ranks' cotangents joined backward (the input of a row-parallel
+    product)."""
+    if not _active(group):
+        return x
+    return _ScatterToTP.apply(x, dim % x.dim(), group)

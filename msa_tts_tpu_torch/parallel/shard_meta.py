@@ -100,7 +100,7 @@ class Placement:
         local = [torch.stack([st[k] for st in states]).sum(dim=0)
                  for k in names]
         total = C.all_reduce_flat(local, self.all)
-        n = len(states) * self.mesh.size
+        n = len(states) * self.all.size
         out = {k: states[0][k].detach().to(like[k].dtype) for k in like}
         for k, s in zip(names, total):
             out[k] = (s * (1.0 / n)).to(like[k].dtype)

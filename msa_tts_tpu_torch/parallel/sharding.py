@@ -2,8 +2,10 @@
 (counterpart of ``msa_tts_tpu/parallel/sharding.py``).
 
 Layout policy, as the JAX package's: parameters and optimizer state are
-replicated (every rank holds all of them, and they stay equal bit for
-bit because every rank applies the same reduced gradient); a joint batch
+replicated over the data axes (every rank holds all of them, or with
+tensor parallelism all of its tp coordinate's shards, ``parallel/tp.py``,
+and they stay equal bit for bit because every rank applies the same
+reduced gradient); a joint batch
 is split on its rows over dp·task; meta-training episodes on their task
 axis.  Each JAX ``NamedSharding`` becomes a :class:`Layout`: which
 contiguous rows of the global tensor a rank holds.
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from . import collectives as C
-from .mesh import AXES, Mesh, make_mesh
+from .mesh import ALL, AXES, Mesh, make_mesh
 
 
 class Layout:
@@ -49,7 +51,8 @@ class Layout:
         coords = np.argwhere(self.mesh.devices == rank)[0]
         i = 0
         for a in self.axes:
-            i = i * self.mesh.shape[a] + int(coords[AXES.index(a)])
+            i = (i * self.mesh.shape[a]
+                 + int(coords[self.mesh.axis_names.index(a)]))
         return i
 
     def rows(self, n: int, index: int | None = None) -> slice:
@@ -130,8 +133,8 @@ def _refill(tree, it):
 
 def replicate_state(state, mesh: Mesh):
     """``state`` (any tree of tensors) as the mesh's first rank holds it:
-    one broadcast per type over the mesh."""
-    group = mesh.group(AXES)
+    one broadcast per type over the whole mesh."""
+    group = mesh.group(ALL)
     if group.pg is None:
         return state
     return _refill(state, iter(C.broadcast_flat(_leaves(state, []), group)))

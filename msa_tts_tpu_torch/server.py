@@ -664,8 +664,10 @@ def _make_handler(server: TTSServer):
                     # which compute paths serve this deployment
                     "decode_backend": server.tts.decode_backend,
                     "device": str(server.tts.device),
-                    # parallel: {dp: N} — synthesize_batch's devices
+                    # parallel: {dp: N} — synthesize_batch's devices;
+                    # {tp: M} — the devices every product splits over
                     "dp": getattr(server.tts, "_dp", 1),
+                    "tp": getattr(server.tts, "_tp", 1),
                     "stream_multiplex": (
                         server.stream_mux.B
                         if server.stream_mux is not None else 0

@@ -47,9 +47,20 @@ replica of the model (its own copy of the kernel's packed weights),
 every block launched before any result is awaited; the mels are
 gathered on the model's device.  The devices are the host's CUDA
 devices (a mesh larger than ``torch.cuda.device_count()`` raises), or N
-times the CPU.  The noise does not depend on N (the JAX package folds the
-shard index into each shard's key).  ``tp > 1`` raises
-``NotImplementedError``.
+times the CPU, or ``mesh_devices``.  The noise does not depend on N (the
+JAX package folds the shard index into each shard's key).
+
+``parallel: {tp: M}`` (and ``tp_min_dim``, default 128) shards the
+weights over M devices in the JAX package's layout (``parallel/tp.py``,
+through ``parallel.tp.DeviceTransport``): each device holds its shards,
+the first also the whole leaves, and every request runs the plain
+decode with partitioned products (the JAX package runs its XLA decode
+under tp: the whole-loop kernel is single-device).  ``decode_backend:
+auto`` resolves to ``torch``; ``cuda`` with tp raises.  ``self.model``
+is then a weightless meta-device template; a voice is sharded when it
+is first served.  ``infer_dtype: bfloat16`` casts the shards, as the
+one-device model is cast.  ``{dp, tp}`` together raises, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -84,7 +95,15 @@ from .models.tacotron2nv import (
 )
 from .ops.audio import griffinlim_logmelspec, load_wav, trim_margin_silence
 from .optim import make_optimizer
-from .parallel.mesh import TP_NOT_PORTED, Mesh, make_mesh
+from .parallel.mesh import Mesh, make_mesh
+from .parallel.tp import (
+    DeviceTransport,
+    TensorParallel,
+    gather_tree_tp,
+    shard_tree_tp,
+    tp_products,
+    tp_shardings,
+)
 from .utils.backend import load_device, resolve_kernel_backend
 from .utils.checkpoint import (
     load_checkpoint,
@@ -138,8 +157,13 @@ def _hop(ap: dict) -> int:
     return ap.get("hop_length", ap.get("hop_size"))
 
 
+TP_WITH_DP = ("serving parallel: use {dp: N} (batch throughput) or {tp: M} "
+              "(per-stream latency), not both")
+
+
 class AdaptiveTTS:
-    def __init__(self, params: dict, model: Tacotron2NV, *, device=None):
+    def __init__(self, params: dict, model: Tacotron2NV, *, device=None,
+                 mesh_devices=None):
         self.params = params
         mp = dict(params["model"])
         mp.setdefault("n_mel_channels", params["audio_params"]["n_mels"])
@@ -162,21 +186,30 @@ class AdaptiveTTS:
         self.infer_dtype = (torch.bfloat16 if idt in ("bfloat16", "bf16")
                             else torch.float32)
         pcfg = params.get("parallel") or {}
-        if int(pcfg.get("tp", 1)) > 1:
-            raise NotImplementedError(TP_NOT_PORTED)
         self._dp = int(pcfg.get("dp", 1))
+        self._tp = int(pcfg.get("tp", 1))
+        if self._tp > 1 and self._dp > 1:
+            raise NotImplementedError(TP_WITH_DP)
 
         self.device = torch.device(
             device if device is not None
             else next(model.parameters()).device
         )
-        # parallel: {dp: N}: synthesize_batch's rows over N devices
-        self._mesh = None
-        if self._dp > 1:
-            devices = ([self.device] * self._dp if self.device.type == "cpu"
-                       else [torch.device("cuda", i)
-                             for i in range(torch.cuda.device_count())])
-            self._mesh = make_mesh(dp=self._dp, task=1, devices=devices)
+        # parallel: {dp: N}: synthesize_batch's rows over N devices;
+        # {tp: M}: every product over M devices
+        self._mesh = self._tp_mesh = None
+        if self._dp > 1 or self._tp > 1:
+            devices = mesh_devices or (
+                [self.device] * max(self._dp, self._tp)
+                if self.device.type == "cpu"
+                else [torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())])
+            if self._dp > 1:
+                self._mesh = make_mesh(dp=self._dp, task=1, devices=devices)
+            else:
+                self._tp_mesh = make_mesh(dp=1, task=1, tp=self._tp,
+                                          devices=devices)
+                self._tp_min_dim = int(pcfg.get("tp_min_dim", 128))
         self._replicas: weakref.WeakKeyDictionary = (
             weakref.WeakKeyDictionary())
         # the float32 weights adapt starts from; the serving model is
@@ -185,12 +218,31 @@ class AdaptiveTTS:
         model = model.to(self.device, torch.float32)
         self._master = {k: v.detach() for k, v in model.state_dict().items()}
         self._param_names = [k for k, _ in model.named_parameters()]
-        self.model = model.to(self.infer_dtype).eval()
+        # tp: the model's tensors as their shards (the float32 master
+        # weights adapt starts from, served at infer_dtype); the model a
+        # meta-device template
+        self._tp_ctx: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+        if self._tp_mesh is not None:
+            self._tp_plan = tp_shardings(self._master, self._tp_mesh,
+                                         self._tp_min_dim)
+            self._master = shard_tree_tp(self._master, self._tp_mesh,
+                                         self._tp_min_dim)
+            self.model = self._tp_template(self._master, self.infer_dtype)
+        else:
+            self.model = model.to(self.infer_dtype).eval()
+        del model
         self._inner_tx = make_optimizer(
             params.get("optim_inner", {"optimizer_type": "SGD", "lr": 1e-2})
         )
         self._n_inner = int(params.get("n_inner_test", 5))
         self.decode_backend = params.get("decode_backend") or "auto"
+        if self._tp_mesh is not None:
+            if self.decode_backend == "cuda":
+                raise NotImplementedError(
+                    "decode_backend: cuda with parallel: tp — the decoder "
+                    "kernel is single-device; tp runs the plain decode "
+                    "(decode_backend: torch or auto)")
+            self.decode_backend = "torch"
         # raises now, not at the first request, for `cuda` on a CPU or a
         # config the kernel does not lower on a GPU
         if resolve_kernel_backend(self.decode_backend, self.device) == "cuda":
@@ -297,18 +349,53 @@ class AdaptiveTTS:
         # the serving model is never reparametrised (the loss runs a
         # weightless copy), so requests that run meanwhile see their own
         # weights
-        loss_fn = teacher_forced_loss_fn(
-            self.cfg, self.params.get("criterion", {}))
-        params = {k: self._master[k] for k in self._param_names}
-        state = {k: v for k, v in self._master.items() if k not in params}
+        crit = self.params.get("criterion", {})
+        if self._tp_mesh is not None:
+            loss_fn = self._tp_loss_fn(crit)
+            params = _flat_shards({k: self._master[k]
+                                   for k in self._param_names})
+            state = _flat_shards({k: v for k, v in self._master.items()
+                                  if k not in self._param_names})
+        else:
+            loss_fn = teacher_forced_loss_fn(self.cfg, crit)
+            params = {k: self._master[k] for k in self._param_names}
+            state = {k: v for k, v in self._master.items()
+                     if k not in params}
         with torch.enable_grad():           # also under a caller's no_grad
             qloss, adapted, ms, _ = make_metatest_fn(
                 loss_fn, self._inner_tx, self._n_inner)(
                     params, state, batch, batch, masks)
         sd = {k: v.detach() for k, v in {**adapted, **ms}.items()}
+        if self._tp_mesh is not None:
+            sd = gather_tree_tp(_unflat_shards(sd), self._tp_mesh,
+                                self._tp_plan)
         return Voice(state_dict=sd,
                      spk_emb=np.asarray(spk_emb, np.float32),
                      support_loss=float(qloss))
+
+    def _tp_loss_fn(self, crit: dict):
+        """:func:`teacher_forced_loss_fn` over the shards of a tp model,
+        keyed ``name@i`` (:func:`_flat_shards`), so that the inner loop
+        steps each shard as a tensor of its own; the new batch-norm
+        state comes back whole and is cut to its shards again."""
+        template = self._tp_template({})
+        ctx = self._tp_ctx[template]
+
+        def loss_fn(p, ms, b, masks):
+            with tp_products(ctx.with_values(_unflat_shards({**p, **ms}))):
+                outs, new_ms = template(
+                    b["inputs"], b["input_lengths"], b["melspecs"],
+                    b["melspec_lengths"], b["speaker_vecs"], masks)
+            loss = tacotron2_loss(
+                outs, (b["melspecs"], b["stop_labels"]),
+                b["melspec_lengths"],
+                n_frames_per_step=self.cfg.n_frames_per_step,
+                reduction=crit.get("reduction", "none"),
+                pos_weight=float(crit.get("pos_weight", 1.0)))
+            return loss, {**ms, **_flat_shards(shard_tree_tp(
+                new_ms, self._tp_mesh, self._tp_min_dim))}
+
+        return loss_fn
 
     # ---------------------------------------------------- voice storage
     def save_voice(self, voice: Voice, path: str) -> None:
@@ -340,11 +427,39 @@ class AdaptiveTTS:
             return self.model
         model = self._voice_cache.get(voice)
         if model is None:
-            model = Tacotron2NV(self.model.cfg)
-            model.load_state_dict(voice.state_dict, strict=True)
-            model = model.to(self.device, self.infer_dtype).eval()
+            if self._tp_mesh is not None:
+                model = self._tp_template(shard_tree_tp(
+                    {k: v.to(self.device, torch.float32)
+                     for k, v in voice.state_dict.items()},
+                    self._tp_mesh, self._tp_min_dim), self.infer_dtype)
+            else:
+                model = Tacotron2NV(self.model.cfg)
+                model.load_state_dict(voice.state_dict, strict=True)
+                model = model.to(self.device, self.infer_dtype).eval()
             self._voice_cache[voice] = model
         return model
+
+    # --------------------------------------------------- tensor parallel
+    def _tp_template(self, shards: dict,
+                     dtype=torch.float32) -> Tacotron2NV:
+        """A weightless template of the model at ``dtype`` whose products
+        run on ``shards`` (``{name: [shard, ...]}``, their float32 ones
+        cast to ``dtype``, as the one-device model is) under
+        :meth:`_tp_scope`."""
+        with torch.device("meta"):
+            template = Tacotron2NV(self.cfg).to(dtype).eval()
+        if dtype != torch.float32:
+            shards = {k: [v.to(dtype) if v.dtype == torch.float32 else v
+                          for v in vs] for k, vs in shards.items()}
+        self._tp_ctx[template] = TensorParallel(
+            DeviceTransport(self._tp_mesh.devices.ravel()), self._tp_plan,
+            template, shards)
+        return template
+
+    def _tp_scope(self, model):
+        """The partitioned products of ``model`` (a tp template), or
+        nothing for a model that holds its weights."""
+        return tp_products(self._tp_ctx.get(model))
 
     # -------------------------------------------------------- synthesize
     def _phonemes(self, text: str) -> list[int]:
@@ -384,14 +499,15 @@ class AdaptiveTTS:
                 in_len, emb, pre_masks, decode_backend=self.decode_backend,
                 out_device=dev)
             return mel, mel_len.cpu().numpy()
-        mel, mel_len, _ = tacotron2nv_infer(
-            model, self.cfg,
-            torch.as_tensor(inputs, dtype=torch.int64, device=dev),
-            torch.as_tensor(in_len, dtype=torch.int64, device=dev),
-            torch.as_tensor(emb, dtype=torch.float32, device=dev),
-            torch.as_tensor(pre_masks, dtype=torch.float32, device=dev),
-            mask_pad=True, decode_backend=self.decode_backend,
-        )
+        with self._tp_scope(model):
+            mel, mel_len, _ = tacotron2nv_infer(
+                model, self.cfg,
+                torch.as_tensor(inputs, dtype=torch.int64, device=dev),
+                torch.as_tensor(in_len, dtype=torch.int64, device=dev),
+                torch.as_tensor(emb, dtype=torch.float32, device=dev),
+                torch.as_tensor(pre_masks, dtype=torch.float32, device=dev),
+                mask_pad=True, decode_backend=self.decode_backend,
+            )
         return mel, mel_len.cpu().numpy()
 
     def synthesize(self, text: str, voice: Voice | None = None, *,
@@ -549,6 +665,21 @@ def decode_sharded(mesh: Mesh, models: list, cfg, inputs, in_len, emb,
                                              (0, T - m.shape[-1]))
                      for m, _ in outs])
     return mel, torch.cat([ln.to(out_device) for _, ln in outs])
+
+
+def _flat_shards(tree: dict) -> dict:
+    """``{name: [shard, ...]}`` as ``{"name@i": shard i}``."""
+    return {f"{k}@{i}": s for k, v in tree.items() for i, s in enumerate(v)}
+
+
+def _unflat_shards(flat: dict) -> dict:
+    """The inverse of :func:`_flat_shards`."""
+    out: dict = {}
+    for key, s in flat.items():
+        name, i = key.rsplit("@", 1)
+        out.setdefault(name, []).append((int(i), s))
+    return {k: [s for _, s in sorted(v, key=lambda e: e[0])]
+            for k, v in out.items()}
 
 
 def _on_device(masks, device):
@@ -709,7 +840,8 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
     pctx = _postnet_ctx(cfg)
 
     def post_fn(x, width):
-        return x + postnet_residual(model.postnet, x, width=width)
+        with tts._tp_scope(model):
+            return x + postnet_residual(model.postnet, x, width=width)
 
     # windows are padded to the widest a segment stream can produce (left
     # ctx + held-back ctx + a segment's raw frames + final zeros <= 3·ctx)
@@ -856,11 +988,12 @@ def _stream_encode(tts, model, seq, t_pad: int, emb):
     padded = np.zeros((1, t_pad), np.int64)
     padded[0, : len(seq)] = seq
     in_len = torch.tensor([len(seq)], dtype=torch.int64, device=dev)
-    enc = _encode(
-        model, tts.cfg, torch.as_tensor(padded, device=dev), in_len,
-        torch.as_tensor(np.asarray(emb, np.float32)[None], device=dev),
-        mask_pad=True,
-    )
+    with tts._tp_scope(model):
+        enc = _encode(
+            model, tts.cfg, torch.as_tensor(padded, device=dev), in_len,
+            torch.as_tensor(np.asarray(emb, np.float32)[None], device=dev),
+            mask_pad=True,
+        )
     return enc.contiguous(), in_len
 
 
@@ -924,8 +1057,9 @@ def synthesize_stream(self, text: str, voice: Voice | None = None, *,
                                         maskf, pm, st, n)
     else:
         def seg(st, pm):
-            return decoder_infer_segment(model.decoder, dcfg, enc, in_len,
-                                         pm, st, n)
+            with self._tp_scope(model):
+                return decoder_infer_segment(model.decoder, dcfg, enc,
+                                             in_len, pm, st, n)
 
     cursor = _stream_cursor(self, model, vocoder, seed, gl_phase, n,
                             chunk_frames, vocode_ctx_frames, voc_noise)

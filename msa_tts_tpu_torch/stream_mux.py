@@ -158,7 +158,7 @@ class _TorchEngine:
             )
         model = dec_model if dec_model is not None else self.tts.model
         self.rows[idx] = dict(
-            decoder=model.decoder, enc=enc_row, in_len=in_len,
+            model=model, decoder=model.decoder, enc=enc_row, in_len=in_len,
             masks=masks_row, step=0,
             st=decoder_stream_init(self.dcfg, 1, self.t_cap,
                                    device=enc_row.device),
@@ -168,11 +168,12 @@ class _TorchEngine:
         mels, flags = {}, []
         for i in active:
             row = self.rows[i]
-            row["st"], m, _, _ = decoder_infer_segment(
-                row["decoder"], self.dcfg, row["enc"], row["in_len"],
-                _segment_masks(row["masks"], row["step"], self.n_seg),
-                row["st"], self.n_seg,
-            )
+            with self.tts._tp_scope(row["model"]):
+                row["st"], m, _, _ = decoder_infer_segment(
+                    row["decoder"], self.dcfg, row["enc"], row["in_len"],
+                    _segment_masks(row["masks"], row["step"], self.n_seg),
+                    row["st"], self.n_seg,
+                )
             row["step"] += self.n_seg
             mels[i] = m[0]
             flags += [row["st"]["not_finished"], row["st"]["mel_lengths"]]
@@ -235,6 +236,14 @@ class StreamMultiplexer:
         if backend not in ("cuda", "torch", "auto"):
             raise ValueError(f"unknown mux backend {backend!r}")
         on_card = tts.device.type == "cuda"
+        if getattr(tts, "_tp_mesh", None) is not None:
+            # tp serving decodes plainly with partitioned products: the
+            # segment kernel takes one device's whole weights
+            if backend == "cuda":
+                raise NotImplementedError(
+                    "the mux's cuda engine is single-device; a parallel: "
+                    "{tp: M} model runs backend='torch'")
+            backend = "torch"
         if self.per_slot_params and (backend == "cuda" or (
                 backend == "auto" and on_card)):
             raise ValueError(

@@ -43,7 +43,20 @@ single-device one up to the order of float sums.  Every mask seam draws
 the global batch's masks and each rank takes its rows.  Only rank 0
 writes files (params, logs, plots, checkpoints); the ranks take one
 preemption decision together.  Checkpoints do not depend on the world
-size.  ``tp > 1`` raises ``NotImplementedError``.
+size.
+
+Tensor parallelism.  ``parallel: {dp: N, tp: M}`` adds a tp axis
+(innermost) to the mesh: each rank holds only its shards of the weights,
+of the optimizer's moments and of the batch-norm state, laid out as the
+JAX package lays them out (``parallel/tp.py``; the smallest axis that
+splits is 128, as the JAX package's trainers fix it), and every forward
+runs the partitioned products under :meth:`TrainerBase._tp_scope`.  The
+tp ranks of one data coordinate take the same rows; the gradient
+all-reduce runs over the data ranks of one tp coordinate (shards of one
+index); global norms and EWC's penalty count every shard.  Checkpoints
+are whole (the tp ranks gather, rank 0 writes) and restore at any
+``(dp, tp)``.  tp does not compose with ``task`` (the JAX package's
+text).
 
 Read and ignored: ``compilation_cache`` (XLA's compile cache).  Raises:
 ``plot_examples: true`` (the default) without matplotlib.
@@ -70,12 +83,20 @@ from ..models.tacotron2nv import mask_rows
 from ..ops.nn import synced_batchnorm
 from ..optim import apply_updates
 from ..parallel import collectives as C
-from ..parallel.mesh import AXES, TP_NOT_PORTED, init_from_env, make_mesh
+from ..parallel.mesh import ALL, AXES, init_from_env, make_mesh
 from ..parallel.sharding import (
     batch_sharding,
     replicate_state,
     take_rows,
     task_batch_sharding,
+)
+from ..parallel.tp import (
+    GroupTransport,
+    TensorParallel,
+    gather_tree_tp,
+    shard_tree_tp,
+    tp_products,
+    tp_shardings,
 )
 from ..utils.backend import load_device
 from ..utils.checkpoint import (
@@ -101,15 +122,25 @@ _PHASES = {"train": 0, "test": 1, "metatest": 2, "task": 3, "task_test": 4,
            "cumulative": 5, "fisher": 6, "kd": 7}
 _P = 1_000_003          # a prime: distinct (seed, phase, indices) seeds
 
+TP_WITH_TASK = ("parallel: tp composes with dp, not with the task axis (the "
+                "shard_map meta layout manages its own mesh) — use {dp, tp} "
+                "or {dp, task}")
+
 
 class TrainerBase:
+    # the partitioned products of a tp mesh (set by _reshard_state)
+    _tp = None
+    # the smallest axis the tp layout splits, fixed as the JAX package's
+    # trainers fix it
+    _TP_MIN_DIM = 128
+
     def __init__(self, **params):
         self.params = params
         pcfg = params.get("parallel")
         device = params.get("device")
         if pcfg:
-            if int(pcfg.get("tp", 1)) > 1:
-                raise NotImplementedError(TP_NOT_PORTED)
+            if int(pcfg.get("tp", 1)) > 1 and int(pcfg.get("task", 1)) > 1:
+                raise NotImplementedError(TP_WITH_TASK)
             device = init_from_env(device) or device
         # `compilation_cache` / `compilation_cache_dir` configure XLA's
         # compile cache; nothing here compiles, so they are ignored
@@ -231,10 +262,11 @@ class TrainerBase:
             for k in ("melspecs", "speaker_vecs"):
                 if batch[k].dtype == torch.float32:
                     batch[k] = batch[k].to(dt)
-        outs, new_state = torch.func.functional_call(
-            self.model, {**params, **ms},
-            (batch["inputs"], batch["input_lengths"], batch["melspecs"],
-             batch["melspec_lengths"], batch["speaker_vecs"], masks))
+        with self._tp_scope():
+            outs, new_state = torch.func.functional_call(
+                self.model, {**params, **ms},
+                (batch["inputs"], batch["input_lengths"], batch["melspecs"],
+                 batch["melspec_lengths"], batch["speaker_vecs"], masks))
         outs = [o.float() for o in outs]
         new_state = {**model_state,
                      **{k: v.float() for k, v in new_state.items()}}
@@ -300,6 +332,10 @@ class TrainerBase:
         global loss with the batch norms' moments over the ranks, and the
         ranks' gradients and metrics are summed in one all-reduce; the
         outputs are the rank's rows."""
+        with self._tp_scope():
+            return self._grad_step_in(state, batch, masks, penalty)
+
+    def _grad_step_in(self, state, batch, masks, penalty):
         batch, masks, group = self._put_batch(batch, masks)
         params = {k: p.detach().requires_grad_()
                   for k, p in state.params.items()}
@@ -389,28 +425,49 @@ class TrainerBase:
 
     # ------------------------------------------------------ parallelism
     def _init_parallel(self, pcfg: dict):
-        """The ``(dp, task)`` mesh over the world's ranks (every rank
-        calls this) and the rank's layouts."""
-        mesh = make_mesh(dp=pcfg.get("dp"), task=int(pcfg.get("task", 1)))
+        """The ``(dp, task)`` or ``(dp, task, tp)`` mesh over the world's
+        ranks (every rank calls this) and the rank's layouts."""
+        mesh = make_mesh(dp=pcfg.get("dp"), task=int(pcfg.get("task", 1)),
+                         tp=int(pcfg.get("tp", 1)))
         if not mesh.member:
             raise ValueError(f"rank {mesh.rank} is outside {mesh}: start "
-                             "dp x task ranks")
+                             "dp x task x tp ranks")
         self._use_mesh(mesh)
         backend = dist.get_backend() if dist.is_initialized() else "none"
-        print(f"[parallel] rank {self.mesh.rank}: mesh dp="
-              f"{self.mesh.shape['dp']} task={self.mesh.shape['task']} "
+        dims = " ".join(f"{k}={v}" for k, v in self.mesh.shape.items())
+        print(f"[parallel] rank {self.mesh.rank}: mesh {dims} "
               f"({self.mesh.size} ranks) on {self.device}, backend "
               f"{backend}")
 
     def _use_mesh(self, mesh):
         self.mesh = mesh
         self._data = mesh.group(AXES)
+        self._all = mesh.group(ALL)
         self._batch_layout = batch_sharding(mesh)
         self._task_layout = task_batch_sharding(mesh)
+
+    def _tp_scope(self):
+        """The context the model's forwards and the steps' norms run in:
+        the partitioned products on a tp mesh, else nothing."""
+        return tp_products(self._tp)
+
+    def _in_tp_scope(self, fn):
+        """``fn`` run under :meth:`_tp_scope` (a meta step)."""
+        def run(*args, **kwargs):
+            with self._tp_scope():
+                return fn(*args, **kwargs)
+
+        return run
 
     @property
     def is_writer(self) -> bool:
         """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self._all.index == 0
+
+    @property
+    def _evaluates(self) -> bool:
+        """Whether this rank runs the phases that rank 0's data
+        coordinate runs alone (the meta-tests): with tp, its tp group."""
         return self.mesh is None or self._data.index == 0
 
     @property
@@ -460,14 +517,31 @@ class TrainerBase:
 
     def _barrier(self):
         if self.mesh is not None:
-            C.barrier(self._data)
+            C.barrier(self._all)
 
     def _reshard_state(self):
-        """Every rank's train state as rank 0 holds it (a broadcast);
-        checkpoints do not depend on the world size, so this is also how
-        a run restores on another one."""
-        if self.mesh is not None:
-            self.train_state = replicate_state(self.train_state, self.mesh)
+        """Every rank's train state as rank 0 holds it (a broadcast of the
+        whole state), on a tp mesh cut to the rank's shards; checkpoints
+        do not depend on the mesh, so this is also how a run restores on
+        another one."""
+        if self.mesh is None:
+            return
+        ts = replicate_state(self.train_state, self.mesh)
+        if self.mesh.tp > 1:
+            self._tp_plan = tp_shardings(ts, self.mesh, self._TP_MIN_DIM)
+            self._tp = TensorParallel(
+                GroupTransport(self.mesh.group("tp")),
+                {**self._tp_plan.params, **self._tp_plan.model_state},
+                self.model)
+            ts = shard_tree_tp(ts, self.mesh, self._TP_MIN_DIM)
+        self.train_state = ts
+
+    def _whole_state(self) -> TrainState:
+        """The train state whole: on a tp mesh gathered over the tp group
+        (every rank must call this), else as it is."""
+        if self._tp is None:
+            return self.train_state
+        return gather_tree_tp(self.train_state, self.mesh, self._tp_plan)
 
     # ----------------------------------------------------------- batches
     def _host_batch(self, batch) -> dict:
@@ -511,8 +585,12 @@ class TrainerBase:
             template, raw, set(self.param_names),
             lambda tree: state_dict_from_jax(tree, state_tree, self.cfg))
 
-    def _ckpt_payload(self) -> dict:
-        ts = self.train_state
+    def _ckpt_payload(self) -> dict | None:
+        """The checkpoint of the whole train state; every rank calls it
+        (the tp ranks gather), rank 0 alone gets it, the others None."""
+        ts = self._whole_state()
+        if not self.is_writer:
+            return None
         params, model_state = self._to_trees(ts.params, ts.model_state)
         return {"params": params, "model_state": model_state,
                 "opt_state": self._opt_to_tree(ts.opt_state),
@@ -523,8 +601,9 @@ class TrainerBase:
         if name is None:
             name = f"checkpoint_{self.step_global // 100}.ckpt"
         path = os.path.join(self.path_manager.checkpoints_path, name)
+        payload = self._ckpt_payload()
         if self.is_writer:
-            save_checkpoint(path, self._ckpt_payload())
+            save_checkpoint(path, payload)
         return path
 
     def _state_dict_from_raw(self, raw: dict) -> dict:
@@ -558,11 +637,12 @@ class TrainerBase:
     _AUTO_CKPT = "auto_resume.ckpt"
 
     def _save_epoch_state(self, epoch: int, extra: dict | None = None):
+        ckpt = self._ckpt_payload()
         if not self.is_writer:
             return
         resume_state = {"epoch": epoch, "step_global": self.step_global}
         resume_state.update(extra or {})
-        payload = dict(self._ckpt_payload(), resume_state=resume_state)
+        payload = dict(ckpt, resume_state=resume_state)
         path = os.path.join(self.path_manager.checkpoints_path,
                             self._AUTO_CKPT)
         if self.params.get("async_checkpoint", True):
@@ -625,10 +705,10 @@ class TrainerBase:
         if self.mesh is None:
             return stop
         flag = torch.tensor([int(stop)], device=self._flag_device())
-        return bool(C.all_reduce(flag, self._data, dist.ReduceOp.MAX))
+        return bool(C.all_reduce(flag, self._all, dist.ReduceOp.MAX))
 
     def _flag_device(self) -> torch.device:
-        pg = self._data.pg
+        pg = self._all.pg
         nccl = pg is not None and dist.get_backend(pg) == "nccl"
         return self.device if nccl else torch.device("cpu")
 

@@ -187,8 +187,8 @@ class JointTrainer(TrainerBase):
         """Per held-out speaker of each meta-test batch: ``n_inner_test``
         adaptation steps on its support set and the query loss, logged as
         ``test/loss_{spk}`` (the weights are not changed).  On a mesh
-        rank 0 runs it and the others wait."""
-        if not self.is_writer:
+        rank 0 runs it (with its tp group) and the others wait."""
+        if not self._evaluates:
             self._barrier()
             return
         ts = self.train_state

@@ -237,6 +237,7 @@ class ContinualTrainerBase(TrainerBase):
                 for i, soft in extras["buffer"]]
 
     def _save_stream_state(self, next_spk_itr: int) -> None:
+        ckpt = self._ckpt_payload()
         if not self.is_writer:
             return
         payload = {
@@ -256,9 +257,9 @@ class ContinualTrainerBase(TrainerBase):
             if self._async_ckpt is None:
                 self._async_ckpt = AsyncCheckpointer()
             self._async_ckpt.save_pickle(path, payload,
-                                         ckpt_payload=self._ckpt_payload())
+                                         ckpt_payload=ckpt)
             return
-        payload["ckpt"] = serialize_payload(self._ckpt_payload())
+        payload["ckpt"] = serialize_payload(ckpt)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
             pickle.dump(payload, f)

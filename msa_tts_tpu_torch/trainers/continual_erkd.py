@@ -40,11 +40,12 @@ class ExperienceReplayKnowledgeDistillTrainer(ExperienceReplayTrainer):
                 chunk, reduction_factor=self.cfg.n_frames_per_step,
                 sort_by_length=False, use_soft_mel=False))
             masks = self._draw_step_masks("kd", (kd_seed,), batch)
-            outs, _ = torch.func.functional_call(
-                self.model, {**ts.params, **ts.model_state},
-                (batch["inputs"], batch["input_lengths"],
-                 batch["melspecs"], batch["melspec_lengths"],
-                 batch["speaker_vecs"], masks))
+            with self._tp_scope():
+                outs, _ = torch.func.functional_call(
+                    self.model, {**ts.params, **ts.model_state},
+                    (batch["inputs"], batch["input_lengths"],
+                     batch["melspecs"], batch["melspec_lengths"],
+                     batch["speaker_vecs"], masks))
             mel_post = outs[1].cpu().numpy()
             for i, it in enumerate(chunk):
                 out.append(dataclasses.replace(

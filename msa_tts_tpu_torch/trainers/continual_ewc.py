@@ -24,6 +24,7 @@ import torch
 
 from ..ops.nn import synced_batchnorm
 from ..parallel.collectives import all_reduce_flat
+from ..parallel.tp import leaf_sum
 from .continual_base import ContinualTrainerBase
 
 
@@ -75,10 +76,13 @@ class EWCTrainer(ContinualTrainerBase):
         return dict(zip(params, grads))
 
     def _penalty(self, params: dict):
+        """``ewc_importance`` · Σ F (θ − θ*)², a sharded leaf's over all its
+        shards (``parallel.tp.leaf_sum``)."""
         fisher, means = self._ewc
         importance = float(self.params["ewc_importance"])
-        return importance * sum(torch.sum(fisher[k] * (params[k] - means[k])
-                                          ** 2) for k in params)
+        return importance * leaf_sum({
+            k: torch.sum(fisher[k] * (params[k] - means[k]) ** 2)
+            for k in params})
 
     def _task_step(self, state, batch, masks):
         if self._ewc is not None:

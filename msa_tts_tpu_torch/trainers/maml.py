@@ -37,11 +37,11 @@ class MAML(MetaTrainer):
             clip_thresh=clip)
         args = (self._meta_loss_fn(), self.inner_tx, self.outer_tx,
                 self.n_inner_train)
-        self._maml_step = make_maml_step(*args, **kw)
+        self._maml_step = self._in_tp_scope(make_maml_step(*args, **kw))
         # on a mesh: this rank's K/world tasks, the gradients summed
         self._maml_step_sharded = None if self.mesh is None else (
-            make_maml_step(*args, **kw,
-                           placement=task_placement(self.mesh)))
+            self._in_tp_scope(make_maml_step(
+                *args, **kw, placement=task_placement(self.mesh))))
 
     def run(self):
         self.step_global = 0

@@ -91,8 +91,9 @@ class MetaTrainer(TrainerBase):
         steps on the support set, the query loss, and the MCD of a
         teacher-forced forward with the adapted weights (logged as
         ``test/loss_{spk}`` and ``test/mcd_{spk}``).  It touches no
-        training state: on a mesh rank 0 runs it and the others wait."""
-        if not self.is_writer:
+        training state: on a mesh rank 0 runs it (with its tp group)
+        and the others wait."""
+        if not self._evaluates:
             self._barrier()
             return
         ts = self.train_state
@@ -106,7 +107,7 @@ class MetaTrainer(TrainerBase):
                 qry = {k: v[i] for k, v in query.items()}
                 qloss, adapted, ms, _ = self._metatest_fn(
                     ts.params, ts.model_state, sup, qry, masks[i][:n + 1])
-                with torch.no_grad():
+                with torch.no_grad(), self._tp_scope():
                     # float32 whatever compute_dtype, as the JAX package
                     outs, _ = torch.func.functional_call(
                         self.model, {**adapted, **ms},
@@ -118,7 +119,8 @@ class MetaTrainer(TrainerBase):
                 mcd = mcd_batch(outs[1].transpose(1, 2),
                                 qry["melspecs"].transpose(1, 2),
                                 qry["melspec_lengths"])
-                if self.params.get("plot_examples", True):
+                if (self.params.get("plot_examples", True)
+                        and self.is_writer):
                     from ..utils.plot import plot_spec_attn_example
 
                     idx = -1

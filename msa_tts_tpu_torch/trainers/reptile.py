@@ -34,13 +34,13 @@ class Reptile(MetaTrainer):
         mode = self.params.get("reptile_mode", "sequential")
         args = (self._meta_loss_fn(), self.inner_tx, self.outer_tx,
                 self.n_inner_train)
-        self._reptile_step = make_reptile_step(*args, mode=mode,
-                                               clip_thresh=clip)
+        self._reptile_step = self._in_tp_scope(make_reptile_step(
+            *args, mode=mode, clip_thresh=clip))
         self._reptile_step_sharded = None
         if self.mesh is not None and mode == "batched":
-            self._reptile_step_sharded = make_reptile_step(
+            self._reptile_step_sharded = self._in_tp_scope(make_reptile_step(
                 *args, mode=mode, clip_thresh=clip,
-                placement=task_placement(self.mesh))
+                placement=task_placement(self.mesh)))
         elif self.mesh is not None:
             print("[parallel] sequential Reptile takes its outer step "
                   "between tasks: every rank runs every task")

@@ -11,7 +11,9 @@ there every step is made reproducible (``utils/determinism.py``).  A
 acoustic trainers, from ``torchrun``'s variables when no group is up):
 every rank draws the same global batch and takes its rows, the ranks'
 gradients are averaged in one flat all-reduce, and rank 0 alone writes
-the params, logs and checkpoints.  ``tp`` raises ``NotImplementedError``.
+the params, logs and checkpoints.  ``tp`` raises ``NotImplementedError``
+through ``DpShard`` with the JAX package's text (the vocoders have no
+tensor parallelism).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 from ..config import save_params
 from ..dataloaders.loader_default import build_datasets
 from ..ops.audio import load_wav
-from ..parallel.mesh import TP_NOT_PORTED, init_from_env
+from ..parallel.mesh import init_from_env
 from ..parallel.sharding import DpShard
 from ..utils.backend import load_device
 from ..utils.determinism import make_reproducible
@@ -38,8 +40,6 @@ class VocoderTrainer:
         self.params = params
         device = params.get("device")
         if params.get("parallel"):
-            if int(params["parallel"].get("tp", 1)) > 1:
-                raise NotImplementedError(TP_NOT_PORTED)
             device = init_from_env(device) or device
         self.device = load_device(device or "cuda")
         make_reproducible(self.device)

@@ -271,8 +271,8 @@ def test_trainers_default_to_cuda_and_refuse_parallel(corpus, tmp_path,
     """Every trainer of the port loads onto ``cuda`` unless ``device:
     cpu`` is asked for, and raises where there is no CUDA device, before
     it reads any data; a ``parallel`` block larger than the world (one
-    process here) raises, and so does ``tp > 1``, naming ROADMAP item
-    22b."""
+    process here) raises, a tp axis too, and tp with a task axis raises
+    the JAX package's text."""
     import importlib
 
     mod, name = cls.rsplit(".", 1)
@@ -284,5 +284,8 @@ def test_trainers_default_to_cuda_and_refuse_parallel(corpus, tmp_path,
             trainer(**p)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         trainer(**dict(p, parallel={"dp": 2}, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 22b"):
+    with pytest.raises(ValueError, match="mesh 1x1x2 needs 2 devices"):
         trainer(**dict(p, parallel={"dp": 1, "tp": 2}, device="cpu"))
+    with pytest.raises(NotImplementedError,
+                       match="tp composes with dp, not with the task axis"):
+        trainer(**dict(p, parallel={"task": 2, "tp": 2}, device="cpu"))

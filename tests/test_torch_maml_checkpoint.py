@@ -12,7 +12,7 @@ tiny experiment of ``tests/torch_parity.py`` (CPU):
   other orders);
 - ``finetune`` from a ``.pt`` loads what fits; the entry point runs from
   a ``params.yml``; a ``parallel`` block larger than the world or with
-  ``tp > 1``, ``plot_examples`` without matplotlib and the default
+  tp with a task axis, ``plot_examples`` without matplotlib and the default
   device without CUDA raise.
 """
 
@@ -255,8 +255,13 @@ def test_what_raises(corpus, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         TM.MAML(**_params(corpus, tmp_path / "a",
                           parallel={"dp": 2, "task": 1}))
-    with pytest.raises(NotImplementedError, match="item 22b"):
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by task=1 x tp=2"):
         TM.MAML(**_params(corpus, tmp_path / "a", parallel={"tp": 2}))
+    with pytest.raises(NotImplementedError,
+                       match="tp composes with dp, not with the task axis"):
+        TM.MAML(**_params(corpus, tmp_path / "a",
+                          parallel={"task": 2, "tp": 2}))
     monkeypatch.setitem(__import__("sys").modules, "matplotlib", None)
     with pytest.raises(RuntimeError, match="plot_examples: false"):
         TM.MAML(**_params(corpus, tmp_path / "b", plot_examples=True))

@@ -12,7 +12,8 @@ trainers each take two steps and write their checkpoints, the inference
 CLI adapts to a speaker from the MAML checkpoint and writes its wav, the
 landscape, speaker-classifier and profiling utilities run, and two gloo
 ranks (``parallel/launch.py``), each blocking both imports first thing,
-take one data-parallel joint step of the tiny model and agree."""
+take one data-parallel joint step of the tiny model and one
+tensor-parallel one (``tp: 2``), and agree."""
 
 import os
 import subprocess
@@ -200,6 +201,9 @@ spawn(torch_parallel_ranks.joint_step_no_jax, 2, "par", store="par/store")
 p0, p1 = (torch.load(f"par/rank{r}.pt") for r in (0, 1))
 assert all(torch.equal(p0[k], p1[k]) for k in p0)
 assert not all(torch.equal(p0[k], model.state_dict()[k]) for k in p0)
+t0, t1 = (torch.load(f"par/rank{r}_tp.pt") for r in (0, 1))
+assert all(torch.equal(t0[k], t1[k]) for k in t0)
+assert all(torch.allclose(t0[k], p0[k], atol=3e-5) for k in t0)
 for blocked in ("jax", "msa_tts_tpu"):
     bad = sorted(m for m in sys.modules
                  if m == blocked or m.startswith(blocked + "."))

@@ -30,21 +30,28 @@ def _close(a, b, atol=ATOL):
     )
 
 
+def _holding(module, **tensors):
+    """``module`` with its tensors set to ``tensors`` (numpy arrays)."""
+    with torch.no_grad():
+        for k, v in tensors.items():
+            getattr(module, k).copy_(torch.from_numpy(v))
+    return module
+
+
 def test_linear():
     x, w, b = _r(0, 4, 7, 12), _r(1, 5, 12), _r(2, 5)
     ref = JN.linear({"weight": jnp.asarray(w), "bias": jnp.asarray(b)},
                     jnp.asarray(x))
-    _close(N.linear(torch.from_numpy(x), torch.from_numpy(w),
-                    torch.from_numpy(b)), ref)
+    lin = _holding(torch.nn.Linear(12, 5), weight=w, bias=b)
+    _close(N.linear_of(lin, torch.from_numpy(x)), ref)
 
 
 def test_conv1d_same_padding():
     x, w, b = _r(0, 3, 6, 11), _r(1, 4, 6, 5), _r(2, 4)
     ref = JN.conv1d({"weight": jnp.asarray(w), "bias": jnp.asarray(b)},
                     jnp.asarray(x), padding=2)
-    out = N.conv1d(torch.from_numpy(x), torch.from_numpy(w),
-                   torch.from_numpy(b), padding=2)
-    _close(out, ref)
+    conv = _holding(torch.nn.Conv1d(6, 4, 5), weight=w, bias=b)
+    _close(N.conv1d_of(conv, torch.from_numpy(x), padding=2), ref)
 
 
 def test_batchnorm_eval():
@@ -69,7 +76,8 @@ def test_embedding():
     w = _r(0, 11, 5)
     ids = np.array([[0, 3, 10], [7, 7, 1]], np.int64)
     ref = JN.embedding({"weight": jnp.asarray(w)}, jnp.asarray(ids))
-    _close(N.embedding(torch.from_numpy(ids), torch.from_numpy(w)), ref)
+    emb = _holding(torch.nn.Embedding(11, 5), weight=w)
+    _close(N.embedding_of(emb, torch.from_numpy(ids)), ref)
 
 
 def test_sequence_mask():

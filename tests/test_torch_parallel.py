@@ -5,7 +5,8 @@ lay out every (dp, task) mesh of worlds of 4, 2 and 1, and the tests
 hold what they computed against the JAX package on its virtual 8-device
 CPU mesh and against the port's unsharded steps.
 
-  * meshes: shapes, coordinates, ``dp=None``, JAX's error texts, tp;
+  * meshes: shapes, coordinates, ``dp=None``, JAX's error texts, a tp
+    axis;
   * layouts: a rank's rows of a batch and of an episode;
   * the 2-D MAML (second and first order) and batched Reptile steps on a
     quadratic loss against JAX's ``make_sharded_{maml,reptile}_step`` at
@@ -16,7 +17,8 @@ CPU mesh and against the port's unsharded steps.
     against JAX's ``shard_batch`` step on a (2, 1) mesh under the same
     masks (2e-5, JAX's own), and EWC's squared gradient of the batch;
   * in this process: the sharded serving decode on ``["cpu", "cpu"]``,
-    the divisibility fallback, ``DpShard`` and ``tp > 1`` at every site.
+    the divisibility fallback, ``DpShard`` and the tp combinations that
+    raise.
 """
 
 import os
@@ -103,8 +105,10 @@ def test_mesh_shapes_errors_and_layouts(ranks):
             "ValueError", "mesh 3x2x1 needs 6 devices, have 4")
         assert got["err[('task', 3)]"] == (
             "ValueError", "4 devices not divisible by task=3 x tp=1")
-        name, msg = got["err[('dp', 2), ('tp', 2)]"]
-        assert name == "NotImplementedError" and "22b" in msg
+        assert got["err[('dp', 3), ('tp', 2)]"] == (
+            "ValueError", "mesh 3x1x2 needs 6 devices, have 4")
+        assert got["mesh_tp"] == ({"dp": 2, "task": 1, "tp": 2},
+                                  (r // 2, 0, r % 2))
         x = torch.arange(24.0).reshape(8, 3)
         # P(("dp", "task")): rank r holds block r; P(("task", "dp")):
         # the rank at (d, t) holds block t * dp + d
@@ -401,21 +405,31 @@ def test_put_batch_divisibility_uses_data_axes():
 
 
 def test_tp_raises_at_every_site(tmp_path):
+    """The combinations the JAX package rejects raise with its texts: tp
+    with a task axis in a trainer, tp in a vocoder trainer (through
+    ``DpShard``), tp with dp in serving; an explicit kernel decode under
+    tp serving raises too; a tp mesh larger than the world raises."""
     from msa_tts_tpu_torch.parallel import make_mesh
     from msa_tts_tpu_torch.parallel.sharding import DpShard
     from msa_tts_tpu_torch.serving import AdaptiveTTS
     from msa_tts_tpu_torch.trainers.baseline import JointTrainer
     from msa_tts_tpu_torch.trainers.wavernn_train import WaveRNNTrainer
 
-    with pytest.raises(NotImplementedError, match="22b"):
+    with pytest.raises(ValueError, match="mesh 1x1x2 needs 2 devices"):
         make_mesh(dp=1, tp=2)
-    for cls in (JointTrainer, WaveRNNTrainer):
-        with pytest.raises(NotImplementedError, match="22b"):
-            cls(parallel={"dp": 1, "tp": 2}, device="cpu",
-                output_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="22b"):
-        AdaptiveTTS({"model": model_dict(), "audio_params": {"n_mels": 10},
-                     "parallel": {"tp": 2}}, None)
+    with pytest.raises(NotImplementedError,
+                       match="tp composes with dp, not with the task axis"):
+        JointTrainer(parallel={"task": 2, "tp": 2}, device="cpu",
+                     output_path=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="DpShard is dp/task"):
+        WaveRNNTrainer(parallel={"dp": 1, "tp": 2}, device="cpu",
+                       output_path=str(tmp_path))
+    base = {"model": model_dict(), "audio_params": {"n_mels": 10}}
+    with pytest.raises(NotImplementedError, match="not both"):
+        AdaptiveTTS(dict(base, parallel={"dp": 2, "tp": 2}), None)
+    with pytest.raises(NotImplementedError, match="single-device"):
+        AdaptiveTTS(dict(base, parallel={"tp": 2}, decode_backend="cuda"),
+                    _tts(1, model_dict()).model, device="cpu")
     # DpShard keeps the JAX package's text
     with pytest.raises(NotImplementedError, match="DpShard is dp/task"):
         DpShard.from_params({"parallel": {"dp": 1, "tp": 2}})

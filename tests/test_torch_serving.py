@@ -132,12 +132,25 @@ def test_not_ported_features_raise(both):
     _, tts = both
     base = {"model": dict(tts.params["model"]),
             "audio_params": dict(AP)}
-    # tensor parallelism is not ported (ROADMAP item 22b); dp serving is
-    # (tests/test_torch_parallel.py): on the CPU, two shards of it
-    with pytest.raises(NotImplementedError, match="item 22b"):
-        AdaptiveTTS(dict(base, parallel={"tp": 2}), tts.model)
+    # dp and tp serving are ported (tests/test_torch_parallel.py,
+    # tests/test_torch_tp.py): on the CPU, two shards of each, bfloat16
+    # under tp too; the rejections the JAX package keeps still raise,
+    # with its text, and so does an explicit kernel decode under tp
     dp2 = AdaptiveTTS(dict(base, parallel={"dp": 2}), tts.model)
     assert dp2._mesh.shape == {"dp": 2, "task": 1}
+    tp2 = AdaptiveTTS(dict(base, parallel={"tp": 2, "tp_min_dim": 8}),
+                      tts.model)
+    assert tp2._tp_mesh.shape == {"dp": 1, "task": 1, "tp": 2}
+    assert tp2.decode_backend == "torch"
+    with pytest.raises(NotImplementedError, match="not both"):
+        AdaptiveTTS(dict(base, parallel={"dp": 2, "tp": 2}), tts.model)
+    with pytest.raises(NotImplementedError, match="single-device"):
+        AdaptiveTTS(dict(base, parallel={"tp": 2}, decode_backend="cuda"),
+                    tts.model)
+    tp16 = AdaptiveTTS(dict(base, parallel={"tp": 2, "tp_min_dim": 8},
+                            infer_dtype="bfloat16"), tts.model)
+    assert tp16.model.embedding.weight.dtype == torch.bfloat16
+    assert tts.model.embedding.weight.dtype == torch.float32
     # infer_dtype: bfloat16 is served (tests/test_torch_bf16.py); a type
     # the package does not know still raises
     with pytest.raises(ValueError, match="infer_dtype"):

@@ -9,6 +9,13 @@ world-1 runs are this process's.  Also: a world-2 joint checkpoint
 resumed at world 1 equals the unbroken world-1 run; only rank 0 writes
 files; a SIGTERM to rank 1 stops both ranks at the same step.
 
+Tensor parallelism on the same 2 ranks (``parallel: {tp: 2}``, the
+trainers' smallest split axis set to 8 in the ranks so that the tiny
+widths split): the joint trainer,
+second-order MAML (its meta-test runs on both tp ranks) and EWC against
+world 1; a tp-2 checkpoint resumed at world 1, a world-1 checkpoint
+resumed at tp 2; ``{task: 2, tp: 2}`` raises the JAX package's text.
+
 Limits: weights and batch-norm statistics within 3e-5 absolute (the
 JAX package's limit); the ranks' weights equal bit for bit.
 """
@@ -61,6 +68,11 @@ def _cases(root: str, root3: str, out: str) -> dict:
         "reptile_sequential": (T + "reptile:Reptile", tiny_train_params(
             root, out + "/rs", "reptile", reptile_mode="sequential",
             **reptile)),
+        "ewc": (T + "continual_ewc:EWCTrainer", tiny_train_params(
+            root3, out + "/ewc", "continual_ewc", n_speakers=3,
+            speaker_seed=11, num_initial_speakers=0, n_max_epochs=1,
+            test_interval=1, early_stopping=False, buffer_sample_size=2,
+            buffer_batch_size=2, ewc_importance=1000.0, optim=SGD)),
         "er": (T + "continual_er:ExperienceReplayTrainer",
                tiny_train_params(
                    root3, out + "/er", "continual_er", n_speakers=3,
@@ -85,6 +97,12 @@ def _cases(root: str, root3: str, out: str) -> dict:
 
 
 _PARALLEL = {"maml": {"task": 2}}
+TP = {"tp": 2}
+# the tp ranks lay the tiny widths out at this smallest split axis (the
+# trainers fix 128; torch_parallel_ranks.trainer_cases sets it)
+TP_MIN_DIM = 8
+# the tp runs and the world-1 run each is held to
+_TP_REF = {"joint_tp": "joint", "maml_tp": "maml", "ewc_tp": "ewc"}
 
 
 def _run(cls: str, params: dict):
@@ -103,11 +121,23 @@ def runs(tmp_path_factory):
                                 "/w1/", "/w2/"),
                             parallel=_PARALLEL.get(name, {"dp": 2}),
                             device="cpu"))
-           for name, (cls, p) in one.items()}
-    # a world-2 joint run of one epoch, resumed below at world 1
+           for name, (cls, p) in one.items() if name != "ewc"}
+    for name, ref in _TP_REF.items():
+        cls, p = one[ref]
+        two[name] = (cls, dict(p, output_path=p["output_path"].replace(
+            "/w1/", f"/w2/{name}_"), parallel=TP, device="cpu"))
+    # a world-2 joint run of one epoch, resumed below at world 1; a tp-2
+    # one likewise; a world-1 one that the ranks resume at tp 2
     two["joint_half"] = (two["joint"][0],
                          dict(two["joint"][1], n_epochs=1,
                               output_path=os.path.join(tmp, "w2/half")))
+    two["joint_tp_half"] = (two["joint"][0],
+                            dict(two["joint_tp"][1], n_epochs=1,
+                                 output_path=os.path.join(tmp, "w2/tphalf")))
+    torch.save({"w1_half": dict(one["joint"][1], n_epochs=1, device="cpu",
+                                output_path=os.path.join(tmp, "w1/half")),
+                "tp": TP, "tp_min_dim": TP_MIN_DIM},
+               os.path.join(tmp, "resume_at_tp.pt"))
     torch.save(two, os.path.join(tmp, "cases.pt"))
     # the ranks run while this process takes the world-1 runs
     wait = spawn(R.trainer_cases, 2, tmp, store=os.path.join(tmp, "store"),
@@ -120,7 +150,11 @@ def runs(tmp_path_factory):
     resumed = _run(two["joint"][0], dict(
         one["joint"][1], device="cpu", resume=True,
         output_path=two["joint_half"][1]["output_path"]))
-    return dict(tmp=tmp, res=res, ref=ref, resumed=resumed, two=two)
+    resumed_tp = _run(two["joint"][0], dict(
+        one["joint"][1], device="cpu", resume=True,
+        output_path=two["joint_tp_half"][1]["output_path"]))
+    return dict(tmp=tmp, res=res, ref=ref, resumed=resumed,
+                resumed_tp=resumed_tp, two=two)
 
 
 def _close(got: dict, ref: dict, what: str):
@@ -132,10 +166,11 @@ def _close(got: dict, ref: dict, what: str):
 
 @pytest.mark.parametrize("name", ["joint", "maml", "reptile_batched",
                                   "reptile_sequential", "er", "wavernn",
-                                  "hifigan"])
+                                  "hifigan", "joint_tp", "maml_tp",
+                                  "ewc_tp"])
 def test_world2_matches_world1(runs, name):
     (w0, step0), (w1, step1) = runs["res"][0][name], runs["res"][1][name]
-    ref = runs["ref"][name]
+    ref = runs["ref"][_TP_REF.get(name, name)]
     assert step0 == step1 == ref.step_global
     for k in w0:
         assert torch.equal(w0[k], w1[k]), k
@@ -147,6 +182,28 @@ def test_world2_checkpoint_resumes_at_world1(runs):
     ref = runs["ref"]["joint"]
     assert t.step_global == ref.step_global
     _close(R.trained_weights(t), R.trained_weights(ref), "resumed")
+
+
+def test_tp_checkpoints_resume_across_tp(runs):
+    """A tp-2 run's checkpoint resumed at world 1, and a world-1 run's at
+    tp 2, each equal the unbroken world-1 run."""
+    ref = R.trained_weights(runs["ref"]["joint"])
+    t = runs["resumed_tp"]
+    assert t.step_global == runs["ref"]["joint"].step_global
+    _close(R.trained_weights(t), ref, "tp 2 -> world 1")
+    for r in (0, 1):
+        w, step = runs["res"][r]["resumed_at_tp"]
+        assert step == runs["ref"]["joint"].step_global
+        _close(w, ref, "world 1 -> tp 2")
+
+
+def test_tp_with_task_raises(tmp_path):
+    from msa_tts_tpu_torch.trainers.maml import MAML
+
+    with pytest.raises(NotImplementedError,
+                       match="tp composes with dp, not with the task axis"):
+        MAML(**tiny_maml_params(str(tmp_path), str(tmp_path / "o"),
+                                parallel={"task": 2, "tp": 2}, device="cpu"))
 
 
 def test_only_rank0_writes(runs):

@@ -128,11 +128,13 @@ def parallel_cases(rank: int, world: int, tmp: str) -> None:
     res["mesh_none"] = (dict(m.shape), m.coords, m.size)
     m22 = make_mesh(dp=2, task=2)
     res["coords22"] = m22.coords
-    for kw in ({"dp": 3, "task": 2}, {"task": 3}, {"dp": 2, "tp": 2}):
+    for kw in ({"dp": 3, "task": 2}, {"task": 3}, {"dp": 3, "tp": 2}):
         try:
             make_mesh(**kw)
         except (ValueError, NotImplementedError) as e:
             res[f"err{sorted(kw.items())}"] = (type(e).__name__, str(e))
+    mtp = make_mesh(dp=2, tp=2)
+    res["mesh_tp"] = (dict(mtp.shape), mtp.coords)
     x = torch.arange(24.0).reshape(8, 3)
     res["batch_rows"] = shard_batch({"x": x}, m22)["x"]
     res["task_rows"] = shard_task_batch({"x": x}, m22)["x"]
@@ -181,8 +183,9 @@ def parallel_cases(rank: int, world: int, tmp: str) -> None:
 
 def joint_step_no_jax(rank: int, world: int, tmp: str) -> None:
     """One 2-rank joint step with ``jax`` and ``msa_tts_tpu`` blocked
-    in the rank (tests/test_torch_no_jax.py); the rank's new weights go
-    to ``<tmp>/rank<r>.pt``."""
+    in the rank (tests/test_torch_no_jax.py), at dp 2 and at tp 2; the
+    rank's new weights go to ``<tmp>/rank<r>.pt`` and, whole, to
+    ``<tmp>/rank<r>_tp.pt``."""
     for blocked in ("jax", "msa_tts_tpu"):
         if blocked in sys.modules:
             raise AssertionError(f"{blocked} imported before the block")
@@ -211,10 +214,17 @@ def joint_step_no_jax(rank: int, world: int, tmp: str) -> None:
     masks = dropout_masks(t.cfg, B, T_in, T_mel, g, device="cpu")
     new, metrics, _ = t._grad_step(state, batch, masks)
     assert torch.isfinite(metrics["loss"])
+    tp = tp_step_trainer(TrainerBase, model["model"], model["sd"],
+                         make_mesh(dp=1, tp=2), 8)
+    tp.train_state, tp_metrics, _ = tp._grad_step(tp.train_state, batch,
+                                                  masks)
+    assert torch.isfinite(tp_metrics["loss"])
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "msa_tts_tpu"))
     assert bad == ["jax", "msa_tts_tpu"], bad
     torch.save(new.params, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.save(tp._whole_state().params,
+               os.path.join(tmp, f"rank{rank}_tp.pt"))
 
 
 def _load_class(path: str):
@@ -225,12 +235,14 @@ def _load_class(path: str):
 
 
 def trained_weights(t) -> dict:
-    """A trainer's weights after its run, by name."""
+    """A trainer's weights after its run, by name (whole: a tp trainer's
+    ranks gather them, so every one of its ranks must call this)."""
     if hasattr(t, "gen_params"):
         return {**{"g." + k: v for k, v in t.gen_params.items()},
                 **{"d." + k: v for k, v in t.disc_params.items()}}
     if hasattr(t, "train_state"):
-        return {**t.train_state.params, **t.train_state.model_state}
+        ts = t._whole_state()
+        return {**ts.params, **ts.model_state}
     return dict(t.model_params)
 
 
@@ -245,6 +257,12 @@ def trainer_cases(rank: int, world: int, tmp: str) -> None:
     import torch
 
     cases = torch.load(os.path.join(tmp, "cases.pt"), weights_only=False)
+    at_tp = torch.load(os.path.join(tmp, "resume_at_tp.pt"),
+                       weights_only=False)
+    # the tp runs lay the tiny widths out at a smaller axis than 128
+    from msa_tts_tpu_torch.trainers.base import TrainerBase
+
+    TrainerBase._TP_MIN_DIM = at_tp["tp_min_dim"]
     writes = []
     real_open = builtins.open
 
@@ -273,6 +291,18 @@ def trainer_cases(rank: int, world: int, tmp: str) -> None:
                 return out
 
         params = cases["joint"][1]
+        # a world-1 checkpoint (rank 0's run) resumed at tp 2
+        import torch.distributed as dist
+
+        if rank == 0:
+            base(**at_tp["w1_half"]).run()
+        dist.barrier()
+        t = base(**dict(at_tp["w1_half"], n_epochs=params["n_epochs"],
+                        resume=True, parallel=at_tp["tp"]))
+        t.run()
+        res["resumed_at_tp"] = (trained_weights(t), t.step_global)
+
+        # last: the SIGTERM stays with the process's preemption guard
         t = Preempted(**dict(params, output_path=params["output_path"]
                              + "_sigterm"))
         t.run()
@@ -280,4 +310,132 @@ def trainer_cases(rank: int, world: int, tmp: str) -> None:
     finally:
         builtins.open = real_open
     res["writes"] = writes
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def tp_step_trainer(cls, model: dict, sd: dict, mesh, min_dim: int,
+                    **params):
+    """A bare trainer of ``cls`` on ``mesh`` (tp layout at ``min_dim``)
+    whose train state is ``sd``, laid out as ``_reshard_state`` lays a
+    run's state out; ``params`` replace its step settings."""
+    t = bare_trainer(cls, model)
+    t.params = dict(t.params, **params)
+    t._TP_MIN_DIM = min_dim
+    if mesh is not None:
+        t._use_mesh(mesh)
+    t.train_state = tiny_state(t, sd)
+    t._reshard_state()
+    return t
+
+
+def maml_tp_step(t):
+    """The second-order MAML step (inner SGD 0.1, outer SGD 1.0, one
+    inner step) of a :func:`tp_step_trainer`, under its tp scope."""
+    from msa_tts_tpu_torch.meta.maml import make_maml_step
+    from msa_tts_tpu_torch.optim import make_optimizer
+
+    sgd = make_optimizer({"optimizer_type": "SGD", "lr": 0.1})
+    outer = make_optimizer({"optimizer_type": "SGD", "lr": 1.0})
+    return t._in_tp_scope(make_maml_step(t._meta_loss_fn(), sgd, outer, 1,
+                                         second_order=True))
+
+
+def tp_operators(group, inp: dict) -> dict:
+    """Megatron's four operators on ``group`` (the ranks' shards of
+    ``inp``'s ``w``): a column-parallel and a row-parallel product, their
+    gradients, and a second-order gradient through each."""
+    import torch
+
+    from msa_tts_tpu_torch.parallel import collectives as C
+
+    x0, w, c = (torch.as_tensor(inp[k]) for k in ("x", "w", "c"))
+    n, i = group.size, group.index
+    out = {}
+    for kind in ("col", "row"):
+        x = x0.clone().requires_grad_()
+        if kind == "col":
+            wr = w.chunk(n, 0)[i].clone().requires_grad_()
+            y = C.gather_from_tp(C.copy_to_tp(x, group) @ wr.T, -1, group)
+        else:
+            wr = w.chunk(n, 1)[i].clone().requires_grad_()
+            y = C.reduce_from_tp(C.scatter_to_tp(x, -1, group) @ wr.T,
+                                 group)
+        loss = (y * c).sum() + (y ** 3).sum() * 0.1
+        gx, gw = torch.autograd.grad(loss, [x, wr], create_graph=True)
+        (g2,) = torch.autograd.grad((gx ** 2).sum(), [wr])
+        out[kind] = {"y": y.detach(), "gx": gx.detach(), "gw": gw.detach(),
+                     "g2": g2}
+    return out
+
+
+def tp_cases(rank: int, world: int, tmp: str) -> None:
+    """tests/test_torch_tp.py's cases on a 4-rank world: meshes, the four
+    operators, a tp forward, joint and clipped steps at (dp 2, tp 2), a
+    second-order MAML step at tp 2."""
+    import torch
+
+    from msa_tts_tpu_torch.models.tacotron2nv import Tacotron2NV
+    from msa_tts_tpu_torch.parallel import make_mesh
+    from msa_tts_tpu_torch.parallel.mesh import ALL, AXES
+    from msa_tts_tpu_torch.parallel.tp import (
+        GroupTransport,
+        TensorParallel,
+        shard_tree_tp,
+        tp_products,
+        tp_shardings,
+    )
+    from msa_tts_tpu_torch.trainers.continual_ewc import EWCTrainer
+    from msa_tts_tpu_torch.trainers.metatrainer import MetaTrainer
+
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    md = inp["min_dim"]
+    res = {}
+    m212 = make_mesh(dp=2, task=1, tp=2)
+    m114 = make_mesh(dp=1, task=1, tp=4)
+    for name, m in (("212", m212), ("114", m114)):
+        res["mesh" + name] = (dict(m.shape), m.coords, {
+            a: m.group(a).ranks for a in ("dp", "task", "tp")},
+            m.group(AXES).ranks, m.group(ALL).ranks)
+    for kw in ({"dp": 2, "tp": 4}, {"task": 3, "tp": 2}):
+        try:
+            make_mesh(**kw)
+        except ValueError as e:
+            res[f"err{sorted(kw.items())}"] = str(e)
+    res["ops"] = tp_operators(m114.group("tp"), inp["ops"])
+
+    # a forward at tp 4 on this rank's shards
+    sd = inp["sd"]
+    with torch.device("meta"):
+        meta = Tacotron2NV(bare_trainer(EWCTrainer, inp["model"]).cfg)
+    tp = TensorParallel(GroupTransport(m114.group("tp")),
+                        tp_shardings(sd, m114, md), meta)
+    b = {k: torch.as_tensor(v) for k, v in inp["batch"].items()}
+    with torch.no_grad(), tp_products(tp):
+        outs, _ = torch.func.functional_call(
+            meta, shard_tree_tp(sd, m114, md),
+            (b["inputs"], b["input_lengths"], b["melspecs"],
+             b["melspec_lengths"], b["speaker_vecs"], inp["masks"]))
+    res["forward"] = outs[1]
+
+    # joint steps at (dp 2, tp 2): SGD, then with a clip that binds
+    for key, over in (("joint", {}), ("clipped", {
+            "clip_grad_norm": True, "grad_clip_thresh": inp["clip"]})):
+        t = tp_step_trainer(EWCTrainer, inp["model"], sd, m212, md, **over)
+        held = sum(v.numel() for v in t.train_state.params.values())
+        new, met, _ = t._grad_step(t.train_state, b, inp["masks"])
+        t.train_state = new
+        whole = t._whole_state()
+        res[key] = {"params": whole.params, "stats": whole.model_state,
+                    "loss": met["loss"], "grad_norm": met["grad_norm"],
+                    "held": held}
+
+    # a second-order MAML step at tp 2 on ranks 0 and 1
+    m112 = make_mesh(dp=1, task=1, tp=2)
+    if m112.member:
+        t = tp_step_trainer(MetaTrainer, inp["model"], sd, m112, md)
+        new, met = maml_tp_step(t)(t.train_state, inp["support"],
+                                   inp["query"], inp["meta_masks"])
+        t.train_state = new
+        res["maml"] = {"params": t._whole_state().params,
+                       "loss": met.loss, "grad_norm": met.grad_norm}
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
