@@ -35,6 +35,7 @@ import torch
 from ..kernels.build import load
 from ..kernels.mma import frag_index
 from ..ops.masking import sequence_mask
+from ..utils import profiling
 from .decoder import (
     Decoder,
     DecoderCarry,
@@ -534,9 +535,29 @@ def cuda_decoder_infer(decoder: Decoder, cfg: DecoderConfig,
     into row t at the start of step t (column 0), then for each of the
     step's phases when block 0 has done its work and when it has left
     the phase's barrier (``PHASES`` names the intervals), and after the
-    stop bookkeeping; rows from ``n_steps`` on are left as they were."""
+    stop bookkeeping; rows from ``n_steps`` on are left as they were.
+    Without it, while a profiler session runs, the launch stamps a
+    buffer of its own, which ``utils.profiling.RECORDER`` keeps
+    (:func:`phase_breakdown` reduces it)."""
     return _decoder_infer(decoder, cfg, encoder_outputs, input_lengths,
                           pre_masks, phase_ns, 0)
+
+
+def phase_breakdown(phase_ns: torch.Tensor) -> dict:
+    """Mean microseconds per step of one launch's clock stamps (the
+    ``phase_ns`` rows of its steps), by ``PHASES`` interval, with
+    ``barriers`` (the six grid barriers summed) and ``step`` (the first
+    stamp to the last).  Block 0's view, every stamped step (a row whose
+    first stamp is 0 was not stamped)."""
+    s = phase_ns.detach().cpu().double()
+    s = s[s[:, 0] > 0]
+    d = (s[:, 1:] - s[:, :-1]).mean(0) / 1e3 if len(s) else torch.zeros(
+        N_STAMPS - 1, dtype=torch.float64)
+    out = {ph: float(d[i]) for i, ph in enumerate(PHASES)}
+    out["barriers"] = sum(v for ph, v in out.items()
+                          if ph.startswith("barrier"))
+    out["step"] = float(d.sum())
+    return out
 
 
 def profile_decoder_infer(decoder: Decoder, cfg: DecoderConfig,
@@ -575,6 +596,10 @@ def _decoder_infer(decoder, cfg, encoder_outputs, input_lengths, pre_masks,
            torch.float32, device)
     if phase_ns is not None:
         _check("phase_ns", phase_ns, (S, N_STAMPS), torch.int64, device)
+    # while a profiler session runs, block 0 stamps the served launch
+    kept = phase_ns is None and profiling.on()
+    if kept:
+        phase_ns = torch.zeros(S, N_STAMPS, dtype=torch.int64, device=device)
 
     w, dims, fparams, lib = _prepare(decoder, cfg, B, T_in, S, device,
                                      stamp_block)
@@ -598,6 +623,8 @@ def _decoder_infer(decoder, cfg, encoder_outputs, input_lengths, pre_masks,
     _launch(lib, lib.decoder_loop_launch, tensors, dims, fparams, device,
             "decoder_loop")
     LAUNCHES += 1
+    if kept:
+        profiling.RECORDER.stamp("k1", phase_ns, n_steps, phase_breakdown)
     return (*parse_decoder_outputs(cfg, mels, gates, aligns),
             mel_lengths, n_steps[0])
 

@@ -20,6 +20,7 @@ from torch import nn
 from ..ops import nn as N
 from ..ops.masking import sequence_mask
 from ..utils.backend import resolve_kernel_backend
+from ..utils.profiling import annotate
 from .cuda_decoder import check_supported, cuda_decoder_infer
 from .decoder import (
     Decoder,
@@ -252,19 +253,22 @@ def tacotron2nv_infer(model: Tacotron2NV, cfg: ModelConfig, inputs,
     Returns ``(mel_outputs_postnet (B, n_mel, S·r), mel_lengths (B,),
     alignments (B, S, T_in))``; ``mel_lengths`` is in decoder steps and
     the buffer past it is padding."""
-    enc_cond = _encode(model, cfg, inputs, input_lengths, speaker_vecs,
-                       mask_pad=mask_pad)
+    with annotate("tts.encode"):
+        enc_cond = _encode(model, cfg, inputs, input_lengths, speaker_vecs,
+                           mask_pad=mask_pad)
     dcfg = cfg.decoder_config()
     decode = decoder_infer
     if resolve_kernel_backend(decode_backend, enc_cond.device) == "cuda":
         check_supported(dcfg)
         decode = cuda_decoder_infer
-    mel_outputs, _gates, alignments, mel_lengths, _n = decode(
-        model.decoder, dcfg, enc_cond.contiguous(), input_lengths,
-        pre_masks,
-    )
-    mel_outputs_postnet = mel_outputs + postnet_residual(model.postnet,
-                                                         mel_outputs)
+    with annotate("tts.decode"):
+        mel_outputs, _gates, alignments, mel_lengths, _n = decode(
+            model.decoder, dcfg, enc_cond.contiguous(), input_lengths,
+            pre_masks,
+        )
+    with annotate("tts.postnet"):
+        mel_outputs_postnet = mel_outputs + postnet_residual(model.postnet,
+                                                             mel_outputs)
     return mel_outputs_postnet, mel_lengths, alignments
 
 

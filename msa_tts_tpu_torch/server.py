@@ -18,11 +18,21 @@
 Latency/throughput knob: ``window_ms=0`` degenerates to per-request
 execution (lowest latency); larger windows trade tail latency for
 aggregate throughput under load.
+
+While a ``torch.profiler`` session runs, the batcher records spans
+(``utils/profiling.py``): ``serve.submit`` on the caller's thread,
+``serve.idle`` (waiting for a first request), ``serve.window`` (holding
+the window open after it), ``serve.batch`` (one group's device call,
+with its id and rows; the ``tts.*`` spans nest in it) and one
+``serve.queue`` per request, from its submit to the start of the batch
+that serves it, with the request's id.  ``/stats`` reports the same
+queue waits (``queue_wait_p50_s``, ``queue_wait_p95_s``) at all times.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import queue
 import ssl
@@ -37,6 +47,8 @@ from typing import Sequence
 import numpy as np
 
 from .serving import AdaptiveTTS, Voice
+from .utils import profiling
+from .utils.profiling import annotate
 
 
 class _QuietThreadingHTTPServer(ThreadingHTTPServer):
@@ -64,6 +76,8 @@ class _Request:
     vocoder: str
     future: Future = field(default_factory=Future)
     t_enqueue: float = field(default_factory=time.monotonic)
+    t_enqueue_ns: int = field(default_factory=time.time_ns)  # trace clock
+    ident: int = 0
 
 
 class ServerStats:
@@ -80,6 +94,12 @@ class ServerStats:
         self.batches_total = 0
         self.batched_requests_total = 0
         self._latencies = deque(maxlen=window)
+        self._queue_waits = deque(maxlen=window)
+
+    def record_queue_waits(self, waits_s) -> None:
+        """Each request's wait from submit to the start of its batch."""
+        with self._lock:
+            self._queue_waits.extend(waits_s)
 
     def record_batch(self, n: int) -> None:
         with self._lock:
@@ -100,10 +120,11 @@ class ServerStats:
     def snapshot(self) -> dict:
         with self._lock:
             lat = sorted(self._latencies)
-            pct = (
-                lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
-                if lat else None
-            )
+            waits = sorted(self._queue_waits)
+
+            def pct(p, v=lat):
+                return v[min(len(v) - 1, int(p * len(v)))] if v else None
+
             mean_batch = (
                 self.batched_requests_total / self.batches_total
                 if self.batches_total else None
@@ -116,6 +137,8 @@ class ServerStats:
                 "mean_batch_size": mean_batch,
                 "latency_p50_s": pct(0.50),
                 "latency_p95_s": pct(0.95),
+                "queue_wait_p50_s": pct(0.50, waits),
+                "queue_wait_p95_s": pct(0.95, waits),
             }
 
 
@@ -147,6 +170,8 @@ class DynamicBatcher:
         self._q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        self._request_ids = itertools.count(1)
+        self._batch_ids = itertools.count(1)
 
     # ------------------------------------------------------------- api
     def start(self) -> "DynamicBatcher":
@@ -176,14 +201,17 @@ class DynamicBatcher:
 
     def submit(self, text: str, voice: str | None = None,
                vocoder: str = "griffinlim") -> Future:
-        req = _Request(text=text, voice=voice, vocoder=vocoder)
-        if self._stop.is_set():
-            # the worker is gone — a queued request would never resolve
-            # and its client would wait out the full timeout
-            req.future.set_exception(RuntimeError("server shutting down"))
+        with annotate("serve.submit"):
+            req = _Request(text=text, voice=voice, vocoder=vocoder,
+                           ident=next(self._request_ids))
+            if self._stop.is_set():
+                # the worker is gone — a queued request would never
+                # resolve and its client would wait out the full timeout
+                req.future.set_exception(
+                    RuntimeError("server shutting down"))
+                return req.future
+            self._q.put(req)
             return req.future
-        self._q.put(req)
-        return req.future
 
     def bucket(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -193,22 +221,24 @@ class DynamicBatcher:
 
     # ---------------------------------------------------------- worker
     def _collect(self) -> list[_Request]:
-        first = self._q.get()
+        with annotate("serve.idle"):
+            first = self._q.get()
         if first is None:
             return []
         batch = [first]
         deadline = time.monotonic() + self.window_s
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                break
-            batch.append(nxt)
+        with annotate("serve.window"):
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    break
+                batch.append(nxt)
         return batch
 
     def _loop(self) -> None:
@@ -224,6 +254,16 @@ class DynamicBatcher:
                 self._run_group(voice, vocoder, reqs)
 
     def _run_group(self, voice, vocoder, reqs: list[_Request]) -> None:
+        t, t_ns = time.monotonic(), time.time_ns()
+        self.stats.record_queue_waits([t - r.t_enqueue for r in reqs])
+        if profiling.on():
+            for r in reqs:
+                profiling.RECORDER.add("serve.queue", r.t_enqueue_ns, t_ns,
+                                       ident=r.ident)
+        with annotate("serve.batch", next(self._batch_ids), len(reqs)):
+            self._run_batch(voice, vocoder, reqs)
+
+    def _run_batch(self, voice, vocoder, reqs: list[_Request]) -> None:
         try:
             wavs = self._synth(
                 [r.text for r in reqs], voice, vocoder,
@@ -293,6 +333,7 @@ class TTSServer:
             if default_spk_emb is not None else None
         )
         self.stats = ServerStats()
+        self.recorder = tts.recorder
         self._device_lock = threading.Lock()
         self.batcher = DynamicBatcher(
             self._synth_group, max_batch=max_batch, window_ms=window_ms,

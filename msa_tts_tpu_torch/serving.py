@@ -61,6 +61,15 @@ is then a weightless meta-device template; a voice is sharded when it
 is first served.  ``infer_dtype: bfloat16`` casts the shards, as the
 one-device model is cast.  ``{dp, tp}`` together raises, as in the JAX
 package.
+
+While a ``torch.profiler`` session runs, ``synthesize`` and
+``synthesize_batch`` record their stages as spans
+(``utils/profiling.py``, reachable as ``AdaptiveTTS.recorder``):
+``tts.g2p``, ``tts.inputs`` (padding, the prenet masks drawn where none
+are given, the copies to the device), ``tts.encode``, ``tts.decode``,
+``tts.postnet``, ``tts.sync`` (the wait for the mel lengths),
+``tts.vocode.<vocoder>`` and ``tts.to_host`` (the wait for the
+waveforms).
 """
 
 from __future__ import annotations
@@ -112,6 +121,7 @@ from .utils.checkpoint import (
 )
 from .utils.convert import jax_from_state_dict, state_dict_from_jax
 from .utils.g2p import N_SYMBOLS, Grapheme2Phoneme
+from .utils.profiling import RECORDER, annotate
 
 
 @dataclass(eq=False)
@@ -162,6 +172,10 @@ TP_WITH_DP = ("serving parallel: use {dp: N} (batch throughput) or {tp: M} "
 
 
 class AdaptiveTTS:
+    # the spans and kernel stamps of the calls made while a profiler
+    # session runs (utils/profiling.py)
+    recorder = RECORDER
+
     def __init__(self, params: dict, model: Tacotron2NV, *, device=None,
                  mesh_devices=None):
         self.params = params
@@ -488,27 +502,41 @@ class AdaptiveTTS:
         host mel_lengths (B,) in decoder steps; with ``shard`` and a
         ``parallel: {dp: N}`` mesh, over its devices (B a multiple of
         N)."""
+        with annotate("tts.inputs"):
+            args = self._inputs(inputs, in_len, emb, generator, pre_masks,
+                                shard)
+        return self._decode_inputs(model, args, shard)
+
+    def _inputs(self, inputs, in_len, emb, generator, pre_masks, shard):
+        """The decode's inputs: the prenet masks drawn from
+        ``generator`` where none are given, and everything copied to the
+        device (kept on the host for a ``parallel: {dp: N}`` mesh, which
+        copies each device's rows)."""
         dev = self.device
         if pre_masks is None:
             dcfg = self.cfg.decoder_config()
             pre_masks = prenet_masks(dcfg, dcfg.max_decoder_steps,
                                      inputs.shape[0], generator, device=dev)
         if shard and self._mesh is not None:
-            mel, mel_len = decode_sharded(
-                self._mesh, self._replicas_of(model), self.cfg, inputs,
-                in_len, emb, pre_masks, decode_backend=self.decode_backend,
-                out_device=dev)
-            return mel, mel_len.cpu().numpy()
-        with self._tp_scope(model):
-            mel, mel_len, _ = tacotron2nv_infer(
-                model, self.cfg,
-                torch.as_tensor(inputs, dtype=torch.int64, device=dev),
+            return inputs, in_len, emb, pre_masks
+        return (torch.as_tensor(inputs, dtype=torch.int64, device=dev),
                 torch.as_tensor(in_len, dtype=torch.int64, device=dev),
                 torch.as_tensor(emb, dtype=torch.float32, device=dev),
-                torch.as_tensor(pre_masks, dtype=torch.float32, device=dev),
-                mask_pad=True, decode_backend=self.decode_backend,
-            )
-        return mel, mel_len.cpu().numpy()
+                torch.as_tensor(pre_masks, dtype=torch.float32, device=dev))
+
+    def _decode_inputs(self, model, args, shard: bool):
+        """:meth:`_decode` from :meth:`_inputs`' ``args``."""
+        if shard and self._mesh is not None:
+            mel, mel_len = decode_sharded(
+                self._mesh, self._replicas_of(model), self.cfg, *args,
+                decode_backend=self.decode_backend, out_device=self.device)
+        else:
+            with self._tp_scope(model):
+                mel, mel_len, _ = tacotron2nv_infer(
+                    model, self.cfg, *args, mask_pad=True,
+                    decode_backend=self.decode_backend)
+        with annotate("tts.sync"):
+            return mel, mel_len.cpu().numpy()
 
     def synthesize(self, text: str, voice: Voice | None = None, *,
                    vocoder: str = "griffinlim", seed: int = 0,
@@ -520,7 +548,8 @@ class AdaptiveTTS:
         ``(noise1, noise2)`` pair) inject the noise a request would
         otherwise draw from a generator seeded with ``seed``."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
-        seq = self._phonemes(text)
+        with annotate("tts.g2p"):
+            seq = self._phonemes(text)
         g = torch.Generator().manual_seed(seed)
         mel, mel_len = self._decode(
             self._voice_model(voice), np.asarray(seq, np.int64)[None],
@@ -547,24 +576,27 @@ class AdaptiveTTS:
         ``voc_noise`` (WaveRNN: one ``(noise1, noise2)`` pair per text)
         inject the request's noise."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
-        seqs = [self._phonemes(t) for t in texts]
+        with annotate("tts.g2p"):
+            seqs = [self._phonemes(t) for t in texts]
         B = len(seqs)
-        Bp = max(B, pad_batch_to or B)
-        Bp = -(-Bp // self._dp) * self._dp
-        m = max(int(text_pad_multiple), 1)
-        T = -(-max(len(s) for s in seqs) // m) * m
-        inputs = np.zeros((Bp, T), np.int64)
-        in_len = np.empty((Bp,), np.int64)
-        for i, s in enumerate(seqs):
-            inputs[i, : len(s)] = s
-            in_len[i] = len(s)
-        inputs[B:], in_len[B:] = inputs[0], in_len[0]   # filler rows
         g = torch.Generator().manual_seed(seed)
-        mel, mel_len = self._decode(
-            self._voice_model(voice), inputs, in_len,
-            np.tile(np.asarray(emb, np.float32)[None], (Bp, 1)), g,
-            pre_masks, shard=True,
-        )
+        with annotate("tts.inputs"):
+            Bp = max(B, pad_batch_to or B)
+            Bp = -(-Bp // self._dp) * self._dp
+            m = max(int(text_pad_multiple), 1)
+            T = -(-max(len(s) for s in seqs) // m) * m
+            inputs = np.zeros((Bp, T), np.int64)
+            in_len = np.empty((Bp,), np.int64)
+            for i, s in enumerate(seqs):
+                inputs[i, : len(s)] = s
+                in_len[i] = len(s)
+            inputs[B:], in_len[B:] = inputs[0], in_len[0]   # filler rows
+            args = self._inputs(
+                inputs, in_len,
+                np.tile(np.asarray(emb, np.float32)[None], (Bp, 1)), g,
+                pre_masks, True)
+        mel, mel_len = self._decode_inputs(self._voice_model(voice), args,
+                                           True)
         r = self.cfg.n_frames_per_step
         mels = [mel[i, :, : max(int(mel_len[i]), 1) * r] for i in range(B)]
         return self._vocode(mels, vocoder, g, gl_phase, voc_noise)
@@ -592,16 +624,21 @@ class AdaptiveTTS:
         """Device mels (n_mel, T_i) → host waveforms (or host mels for
         ``vocoder="none"``)."""
         if vocoder == "none":
-            return [m.cpu().numpy() for m in mels]
+            with annotate("tts.to_host"):
+                return [m.cpu().numpy() for m in mels]
         if vocoder == "wavernn":
             # one sample loop over every fold of every mel
-            return self._attached("wavernn").generate_batch(
-                mels, generator=generator, noises=voc_noise, verbose=False)
+            with annotate("tts.vocode.wavernn"):
+                return self._attached("wavernn").generate_batch(
+                    mels, generator=generator, noises=voc_noise,
+                    verbose=False)
         if vocoder == "hifigan":
             voc = self._attached("hifigan")
-            wavs = (voc.inference_batch(mels) if len(mels) > 1
-                    else [voc.inference(m) for m in mels])
-            return [w.cpu().numpy() for w in wavs]
+            with annotate("tts.vocode.hifigan"):
+                wavs = (voc.inference_batch(mels) if len(mels) > 1
+                        else [voc.inference(m) for m in mels])
+            with annotate("tts.to_host"):
+                return [w.cpu().numpy() for w in wavs]
         if vocoder != "griffinlim":
             raise ValueError(f"unknown vocoder: {vocoder}")
         ap = self.params["audio_params"]
@@ -609,23 +646,28 @@ class AdaptiveTTS:
                  torch.as_tensor(init_phase, dtype=torch.float32,
                                  device=self.device))
         if len(mels) == 1:
-            wav = griffinlim_logmelspec(
-                mels[0], ap, init_phase=phase, generator=generator,
-            )
-            return [wav.cpu().numpy()]
+            with annotate("tts.vocode.griffinlim"):
+                wav = griffinlim_logmelspec(
+                    mels[0], ap, init_phase=phase, generator=generator,
+                )
+            with annotate("tts.to_host"):
+                return [wav.cpu().numpy()]
         # one batched inversion: pad every mel with its own silence floor
         # to a common frame count (a multiple of 32, as the JAX package
         # does), then cut each wav to hop·(T−1) samples — the length the
         # single-mel path produces
-        t_max = -(-max(m.shape[1] for m in mels) // 32) * 32
-        batch = torch.stack([
-            torch.cat([m, m.min().expand(m.shape[0], t_max - m.shape[1])],
-                      dim=1)
-            for m in mels
-        ])
-        wavs = griffinlim_logmelspec(
-            batch, ap, init_phase=phase, generator=generator,
-        ).cpu().numpy()
+        with annotate("tts.vocode.griffinlim"):
+            t_max = -(-max(m.shape[1] for m in mels) // 32) * 32
+            batch = torch.stack([
+                torch.cat([m, m.min().expand(m.shape[0],
+                                             t_max - m.shape[1])], dim=1)
+                for m in mels
+            ])
+            wavs = griffinlim_logmelspec(
+                batch, ap, init_phase=phase, generator=generator,
+            )
+        with annotate("tts.to_host"):
+            wavs = wavs.cpu().numpy()
         hop = _hop(ap)
         return [wavs[i][: (m.shape[1] - 1) * hop]
                 for i, m in enumerate(mels)]

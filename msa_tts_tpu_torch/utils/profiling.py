@@ -1,5 +1,5 @@
-"""Profiling hooks (counterpart of ``msa_tts_tpu/utils/profiling.py``;
-the reference has none).
+"""Profiling hooks and the port's span recorder (counterpart of
+``msa_tts_tpu/utils/profiling.py``; the reference has none).
 
 Usage:
   * ``with trace("outdir", device):`` — capture a ``torch.profiler``
@@ -8,20 +8,43 @@ Usage:
     (``tensorboard_trace_handler``).
   * the joint trainer takes ``profile_dir`` in its params: epoch
     ``profile_epoch`` runs under :func:`trace`.
-  * ``with annotate("name"):`` — a named region in that trace
-    (``torch.profiler.record_function``).
-  * :class:`StepTimer` — a wall-clock accumulator whose ``stop`` can force
-    a device→host read (``float()``) first, so a time covers the
-    device's asynchronous work.
+  * ``with annotate("name"):`` — a span of the program, kept by
+    :data:`RECORDER` while a ``torch.profiler`` session runs and a
+    no-op otherwise.
+
+The recorder is on exactly while ``torch.autograd.profiler`` says a
+session is active (its process-wide flag, which every thread reads).
+Off, :func:`annotate` reads that flag and returns a shared null context:
+no ``record_function``, nothing kept.  On, each span keeps its name,
+start and end on the trace's host clock (``time.time_ns``: Unix-epoch
+nanoseconds, as the profiler's events), its thread, its parent (the
+innermost span open on that thread when it opened) and an optional
+request or batch id and row count.  On the thread that runs the
+profiler a span also opens a ``record_function`` range of its name: the
+profiler keeps the ranges of that thread only, so a worker thread's
+spans live in the recorder alone.  A span that crosses threads (a
+request's wait in a queue) is added with its start and end
+(:meth:`Recorder.add`).  While it is on, the decoder-loop and sample-loop
+kernels also pass their clock-stamp buffers to :meth:`Recorder.stamp`;
+they stay on the device until a reader asks for them
+(:meth:`Recorder.stamps`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# stamp buffers kept at most, so that a long session cannot fill the
+# device (a decoder launch's is 18 int64 a step)
+MAX_STAMPED = 4096
 
 
 @contextlib.contextmanager
@@ -40,42 +63,111 @@ def trace(log_dir: str, device):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named trace region (shows up in the profiler timeline)."""
-    with torch.profiler.record_function(name):
-        yield
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int | None          # None: a span that crosses threads
+    sid: int
+    parent: int | None          # the enclosing span's sid on its thread
+    ident: int | None = None    # a request's or a batch's id
+    rows: int | None = None     # a batch's requests
 
 
-class StepTimer:
-    """Wall-clock timer with an optional forced sync; keeps a running
-    summary."""
+class Stamps(NamedTuple):
+    kind: str                   # "k1" (decoder loop) or "k3" (sample loop)
+    t_ns: int                   # the launch, on the trace's clock
+    steps: int                  # the steps the launch stamped
+    us: dict                    # the kernel's phase breakdown, µs a step
+
+
+def on() -> bool:
+    """True while a ``torch.profiler`` session is active (any thread)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class Recorder:
+    """The spans and kernel stamps of the sessions so far (see the
+    module's docstring); ``clear`` drops them."""
 
     def __init__(self):
-        self.times: list[float] = []
-        self._t0: float | None = None
+        self.spans: list[Span] = []
+        self._stamped: list = []
+        self._reduced: list[Stamps] = []
+        self._ids = itertools.count(1)
+        self._local = threading.local()
 
-    def start(self):
-        self._t0 = time.perf_counter()
+    def clear(self) -> None:
+        self.spans, self._stamped, self._reduced = [], [], []
 
-    def stop(self, sync_value=None) -> float:
-        if sync_value is not None:
-            float(sync_value)  # a device→host read waits for the device
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
+    def add(self, name: str, start_ns: int, end_ns: int, *,
+            ident: int | None = None) -> None:
+        """A span that crosses threads, with its own start and end."""
+        self.spans.append(Span(name, start_ns, end_ns, None,
+                               next(self._ids), None, ident))
 
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
+    def stamp(self, kind: str, buf: torch.Tensor, steps, reduce) -> None:
+        """Keep a launch's clock-stamp buffer ``buf`` (left on the
+        device) with its step count (an int or a one-element device
+        tensor) and the kernel's ``reduce(stamps) -> dict``."""
+        if len(self._stamped) < MAX_STAMPED:
+            self._stamped.append((kind, time.time_ns(), buf, steps, reduce))
 
-    def summary(self) -> dict:
-        import numpy as np
+    def stamps(self, kind: str) -> list[Stamps]:
+        """The kept launches of ``kind``, reduced (this reads the
+        device, once per launch)."""
+        for k, t, buf, steps, reduce in self._stamped:
+            n = int(steps)
+            self._reduced.append(Stamps(k, t, n, reduce(buf[:n])))
+        self._stamped = []
+        return [s for s in self._reduced if s.kind == kind]
 
-        arr = np.asarray(self.times or [0.0])
-        return {
-            "n": len(self.times),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-        }
+    def _stack(self) -> list:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+
+class _Open:
+    __slots__ = ("rec", "name", "ident", "rows", "sid", "parent", "t0",
+                 "rf")
+
+    def __init__(self, rec: Recorder, name: str, ident, rows):
+        self.rec, self.name, self.ident, self.rows = rec, name, ident, rows
+
+    def __enter__(self):
+        st = self.rec._stack()
+        self.parent = st[-1] if st else None
+        self.sid = next(self.rec._ids)
+        st.append(self.sid)
+        self.rf = None
+        # the profiler's own thread-local state: True on its thread only
+        if torch._C._autograd._profiler_enabled():
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        self.rec._stack().pop()
+        self.rec.spans.append(Span(self.name, self.t0, t1,
+                                   threading.get_ident(), self.sid,
+                                   self.parent, self.ident, self.rows))
+        return False
+
+
+RECORDER = Recorder()
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str, ident: int | None = None, rows: int | None = None):
+    """A span of the program named ``name`` (see the module's
+    docstring): kept by :data:`RECORDER` while a profiler session runs,
+    else a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Open(RECORDER, name, ident, rows)

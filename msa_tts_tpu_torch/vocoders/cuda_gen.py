@@ -33,6 +33,7 @@ import torch
 
 from ..kernels.build import load
 from ..kernels.mma import frag_index as _frag_index
+from ..utils import profiling
 from .wavernn import WaveRNNConfig
 
 # Incremented once per launch of the sample-loop kernel, and nowhere
@@ -431,7 +432,9 @@ def cuda_generate(w: dict, cfg: WaveRNNConfig, i_static, a_rest, noise1,
     the kernel then writes the device clock (ns) four times per phase of
     block 0 (GRU 1, GRU 2, fc1, fc2, fc3 + sample): inputs staged,
     products done, arrived at the phase's barrier, left it
-    (:func:`phase_breakdown` reads them).
+    (:func:`phase_breakdown` reads them).  Without it, while a profiler
+    session runs, the launch stamps a buffer of its own, which
+    ``utils.profiling.RECORDER`` keeps.
 
     Takes contiguous CUDA float32 tensors (weight matrices f32 or bf16)
     and raises on anything else, also for widths whose resident weights
@@ -483,6 +486,9 @@ def cuda_generate(w: dict, cfg: WaveRNNConfig, i_static, a_rest, noise1,
            wdt, device)
     if phase_ns is not None:
         _check("phase_ns", phase_ns, (T, N_STAMPS), torch.int64, device)
+    kept = phase_ns is None and profiling.on()
+    if kept:
+        phase_ns = torch.zeros(T, N_STAMPS, dtype=torch.int64, device=device)
 
     lib = _lib()
     dims = (ctypes.c_int * 10)(T, B, R, F_, D, NC, K, int(gauss),
@@ -513,6 +519,8 @@ def cuda_generate(w: dict, cfg: WaveRNNConfig, i_static, a_rest, noise1,
         rc = lib.wavernn_loop_launch(ptrs, dims, ctypes.c_void_p(stream))
     _rc(lib, rc, "launch")
     GEN_LAUNCHES += 1
+    if kept:
+        profiling.RECORDER.stamp("k3", phase_ns, T, phase_breakdown)
     return out
 
 

@@ -41,6 +41,7 @@ from torch import nn
 from ..ops.nn import batchnorm1d, batchnorm1d_train, uniform_
 from ..ops.rnn import init_gru_
 from ..utils.backend import load_device, resolve_kernel_backend
+from ..utils.profiling import annotate
 
 LOG_SCALE_MIN = float(np.log(1e-14))
 LOG_STD_MIN = -7.0
@@ -735,24 +736,27 @@ class WaveRNN:
         one ``(noise1 (L, n_pad[, K]), noise2 (L, n_pad))`` pair per
         utterance."""
         cfg = self.cfg
-        mels_up, aux = upsample_apply(self.model.upsample, cfg, mels)
-        num_folds, _ = _fold_counts(mels_up.shape[1], target, overlap)
-        folded = torch.stack(
-            [_fold_device(m, target, overlap)[0] for m in mels_up])
-        B, n_pad, L, F_ = folded.shape
-        aux_flat = None
-        if aux is not None:
-            aux_flat = torch.stack(
-                [_fold_device(a, target, overlap)[0] for a in aux]
-            ).reshape(B * n_pad, L, -1)
-        # (B, L, n_pad, ...) → (L, B·n_pad, ...): time-major, the batch
-        # axis in the folds' concatenation order
-        n1 = torch.stack([n[0] for n in noises]).movedim(0, 1)
-        n2 = torch.stack([n[1] for n in noises]).movedim(0, 1)
-        n1 = n1.reshape((L, B * n_pad) + tuple(n1.shape[3:]))
-        n2 = n2.reshape((L, B * n_pad))
-        samples = self._samples(folded.reshape(B * n_pad, L, F_), aux_flat,
-                                n1, n2)
+        with annotate("wavernn.condition"):
+            mels_up, aux = upsample_apply(self.model.upsample, cfg, mels)
+        with annotate("wavernn.fold"):
+            num_folds, _ = _fold_counts(mels_up.shape[1], target, overlap)
+            folded = torch.stack(
+                [_fold_device(m, target, overlap)[0] for m in mels_up])
+            B, n_pad, L, F_ = folded.shape
+            aux_flat = None
+            if aux is not None:
+                aux_flat = torch.stack(
+                    [_fold_device(a, target, overlap)[0] for a in aux]
+                ).reshape(B * n_pad, L, -1)
+            # (B, L, n_pad, ...) → (L, B·n_pad, ...): time-major, the
+            # batch axis in the folds' concatenation order
+            n1 = torch.stack([n[0] for n in noises]).movedim(0, 1)
+            n2 = torch.stack([n[1] for n in noises]).movedim(0, 1)
+            n1 = n1.reshape((L, B * n_pad) + tuple(n1.shape[3:]))
+            n2 = n2.reshape((L, B * n_pad))
+        with annotate("wavernn.loop"):
+            samples = self._samples(folded.reshape(B * n_pad, L, F_),
+                                    aux_flat, n1, n2)
         return samples.reshape(B, n_pad, L), num_folds
 
     def _pad_batch(self, mels_list, bucket_frames: int = 32):
@@ -803,13 +807,16 @@ class WaveRNN:
                   for g, n in zip(generators, noises)]
         t0 = time.time()
         samples, n_folds = self._run_folded(mels, target, overlap, noises)
-        samples = samples.cpu().numpy().astype(np.float64)
-        outs = []
-        for i in range(B):
-            # at least one hop of output even for a 1-frame mel
-            wave_len = max(t_lens[i] - 1, 1) * cfg.hop_length
-            out = xfade_and_unfold(samples[i, :n_folds], target, overlap)
-            outs.append(out[:wave_len])
+        with annotate("tts.to_host"):
+            samples = samples.cpu().numpy()
+        with annotate("wavernn.unfold"):
+            samples = samples.astype(np.float64)
+            outs = []
+            for i in range(B):
+                # at least one hop of output even for a 1-frame mel
+                wave_len = max(t_lens[i] - 1, 1) * cfg.hop_length
+                out = xfade_and_unfold(samples[i, :n_folds], target, overlap)
+                outs.append(out[:wave_len])
         if verbose:
             n = sum(len(o) for o in outs)
             rate_khz = n / max(time.time() - t0, 1e-9) / 1000.0

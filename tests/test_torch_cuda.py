@@ -853,16 +853,14 @@ def test_lstm_scan_and_refusals(device):
         C.cuda_lstm_cell(xs[0], h0, c0, w.t().contiguous().t())
 
 
-def test_serving_vocodes_through_the_gen_kernel(device):
-    """``AdaptiveTTS`` with an attached WaveRNN and HiFi-GAN on the card:
-    one sample-loop launch per vocoded request or batch, wav lengths
-    (T-1)·hop and T·hop."""
+def _vocoding_tts(device):
+    """A tiny ``AdaptiveTTS`` on the card that decodes every row to its
+    12 steps, with a WaveRNN and a HiFi-GAN attached."""
     from msa_tts_tpu_torch.models.tacotron2nv import (
         Tacotron2NV,
         config_from_params,
     )
     from msa_tts_tpu_torch.serving import AdaptiveTTS
-    from msa_tts_tpu_torch.vocoders import cuda_gen as G
     from msa_tts_tpu_torch.vocoders.hifigan import Generator, HiFiGAN
     from msa_tts_tpu_torch.vocoders.wavernn import WaveRNN, WaveRNNConfig
 
@@ -897,6 +895,16 @@ def test_serving_vocodes_through_the_gen_kernel(device):
              resblock_dilation_sizes=[[1, 3], [1, 2]])
     tts.attach_vocoder("hifigan", HiFiGAN.from_params(
         Generator(h, 10, g), h))
+    return tts
+
+
+def test_serving_vocodes_through_the_gen_kernel(device):
+    """``AdaptiveTTS`` with an attached WaveRNN and HiFi-GAN on the card:
+    one sample-loop launch per vocoded request or batch, wav lengths
+    (T-1)·hop and T·hop."""
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+
+    tts = _vocoding_tts(device)
     emb = torch.zeros(8).numpy()
     before = G.GEN_LAUNCHES
     one = tts.synthesize("hello world", spk_emb=emb, vocoder="wavernn")
@@ -912,6 +920,39 @@ def test_serving_vocodes_through_the_gen_kernel(device):
         chunk_frames=8, vocode_ctx_frames=2))
     assert n == 23 * 128
     assert G.GEN_LAUNCHES > before + 2
+
+
+def test_served_launches_stamped_under_a_profiler(device):
+    """While a profiler session runs, the served decoder-loop and
+    sample-loop launches stamp block 0's clock into buffers the recorder
+    keeps; the waveforms are the unstamped launches' bit for bit, and
+    the stamps reduce to per-step times whose parts sum to the step."""
+    from msa_tts_tpu_torch.utils.profiling import RECORDER
+
+    tts = _vocoding_tts(device)
+    emb = torch.zeros(8).numpy()
+
+    def run():
+        return tts.synthesize_batch(["hello", "hello world"], spk_emb=emb,
+                                    vocoder="wavernn", seed=5)
+
+    plain = run()
+    RECORDER.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        stamped = run()
+    for a, b in zip(stamped, plain):
+        assert (a == b).all()
+    (k1,) = RECORDER.stamps("k1")
+    (k3,) = RECORDER.stamps("k3")
+    RECORDER.clear()
+    assert k1.steps == 12 and 0 < k1.us["barriers"] < k1.us["step"]
+    assert k1.us["step"] == pytest.approx(
+        sum(k1.us[ph] for ph in CD.PHASES))
+    assert k3.steps == 2750 + 2 * 550
+    parts = [v for p in k3.us.values() for v in p.values()]
+    assert all(v >= 0 for v in parts) and 0 < sum(parts) < 1e4
 
 
 # ---------------------------------------------------------------------

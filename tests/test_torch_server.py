@@ -182,6 +182,48 @@ def test_batcher_stop_fails_queued_requests():
         b.submit("too late").result(timeout=5)
 
 
+def test_queue_wait_spans_match_stats(tts):
+    """Under a profiler, a tiny server's batcher records one
+    ``serve.queue`` span a request and one ``serve.batch`` a group (the
+    parent of the ``tts.*`` spans on its thread); the spans' p95 queue
+    wait is the one ``/stats`` reports, within 1 ms."""
+    from msa_tts_tpu_torch.utils.profiling import RECORDER
+
+    server = TTSServer(tts, default_spk_emb=ZERO, window_ms=5.0,
+                       max_batch=4)
+    assert server.recorder is RECORDER is tts.recorder
+    RECORDER.clear()
+    server.batcher.start()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            futs = []
+            for i in range(24):
+                futs.append(server.batcher.submit(f"hello {i % 5}"))
+                time.sleep(0.002 * (i % 3))
+            for f in futs:
+                f.result(timeout=TIMEOUT)
+    finally:
+        server.batcher.stop()
+    spans = list(RECORDER.spans)
+    RECORDER.clear()
+    queue = [s for s in spans if s.name == "serve.queue"]
+    batches = {s.sid: s for s in spans if s.name == "serve.batch"}
+    assert len(queue) == 24 and len({s.ident for s in queue}) == 24
+    assert sum(s.rows for s in batches.values()) == 24
+    assert sum(s.name == "serve.submit" for s in spans) == 24
+    decodes = [s for s in spans if s.name == "tts.decode"]
+    assert len(decodes) == len(batches)
+    for s in spans:
+        if s.name in ("tts.g2p", "tts.inputs", "tts.sync", "tts.to_host"):
+            assert s.parent in batches
+    waits = sorted((s.end_ns - s.start_ns) * 1e-9 for s in queue)
+    p95 = waits[min(len(waits) - 1, int(0.95 * len(waits)))]
+    snap = server.stats.snapshot()
+    assert abs(p95 - snap["queue_wait_p95_s"]) < 1e-3
+    assert snap["queue_wait_p50_s"] <= snap["queue_wait_p95_s"]
+
+
 # --------------------------------------------------------- http end-to-end
 def test_http_server_end_to_end(tts):
     server = TTSServer(tts, default_spk_emb=ZERO, window_ms=10.0)

@@ -1,6 +1,7 @@
 """The port's small utilities against the JAX package's: the padding
 helpers of ``ops/masking.py``, the profiling hooks of
-``utils/profiling.py`` (``torch.profiler`` in place of ``jax.profiler``),
+``utils/profiling.py`` (``torch.profiler`` in place of ``jax.profiler``;
+its span recorder is held in ``test_torch_profiling.py``),
 ``utils/limit_threads.py``, the inference plots of ``utils/plot.py`` and
 the one Tacotron checkpoint loader ``utils/checkpoint.py::
 load_model_checkpoint``."""
@@ -15,7 +16,6 @@ import pytest
 import torch
 
 from msa_tts_tpu.ops import masking as JM
-from msa_tts_tpu.utils import profiling as JP
 from msa_tts_tpu_torch.ops import masking as TM
 from msa_tts_tpu_torch.utils import profiling as TP
 
@@ -40,19 +40,12 @@ def test_padding_matches_jax(shape, axis, arg):
 
 def test_profiling_hooks(tmp_path):
     """``trace`` writes a trace into its directory with an ``annotate``d
-    region in it; ``StepTimer`` keeps the JAX package's summary."""
+    region in it."""
     with TP.trace(str(tmp_path / "t"), device="cpu") as prof:
         with TP.annotate("the_region"):
             torch.ones(8).add_(1)
     assert os.listdir(tmp_path / "t")
     assert any(e.key == "the_region" for e in prof.key_averages())
-    tt, jt = TP.StepTimer(), JP.StepTimer()
-    for t in (tt, jt):
-        for _ in range(3):
-            t.start()
-            t.stop(sync_value=torch.ones(()))
-    assert set(tt.summary()) == set(jt.summary())
-    assert tt.summary()["n"] == 3 and tt.mean >= 0.0
 
 
 def test_limit_threads_sets_what_is_unset():
