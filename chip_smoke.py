@@ -1002,6 +1002,23 @@ def gen_kernel_vs_plain(device, seed: int = 0) -> dict:
               + ", ".join(f"{ph} " + "/".join(f"{v:.2f}" for v in d.values())
                           for ph, d in bd.items())
               + f"; sum {total:.1f}")
+    # the main path's fold rows (16 requests x 78 folds), MOL, both types,
+    # distinct rows held against the plain loop over the first steps: there
+    # bf16 copies a phase's weights in by phase, and past 1,056 rows the
+    # sample groups hold 9 or 10 rows
+    B3, T3 = 16 * 78, 200
+    g = torch.Generator().manual_seed(seed + 1)
+    mels3 = torch.randn(B3, T3, cfg.n_mels, generator=g).to(device)
+    aux3 = torch.randn(B3, T3, cfg.res_out_dims, generator=g).to(device)
+    noise3 = W.generation_noise(cfg, g, T3, B3, device=device)
+    for tag, ww, pp in (("f32", w, gp), ("bf16", wb, gpb)):
+        ins = (*W.hoisted_inputs(pp, cfg, mels3, aux3), *noise3)
+        kern = G.cuda_generate(ww, cfg, *ins)
+        plain = W.sample_loop(pp, cfg, *ins)
+        head = _judge_gen(kern, plain, "MOL", tag, f"MOL {tag} B={B3}")
+        key = "max_abs_err" if tag == "f32" else "max_abs_err_bf16"
+        res[key] = max(res[key], head)
+        del ins, kern, plain
     # the step barrier alone: a launch of grid barriers and nothing else
     res["barrier_us"] = G.barrier_us(device=device)
     print(f"  one grid barrier (grid.sync(), one block of 512 threads per "

@@ -22,27 +22,33 @@
 // the latency of five dependent exchanges a step (a grid barrier, a trip
 // to L2, a short product, gate math on a few threads) and, at many rows,
 // the all-to-all staging: every block needs every row's activations in
-// every phase, 6 KB a row and step in bf16, which arrive at ~18 bytes
-// per nanosecond and SM.  What the design does about it:
+// every phase, 6.4 KB a row and step in bf16, 8 MB a block and step at
+// 1,248 rows.  Not L2's bandwidth: 132 blocks copying the same rows with
+// cp.async drew 9.5 TB/s from it.  A block's own intake is the bound, and
+// per chunk it pays a fixed cost (a wait, a block barrier, the issue of
+// the next copies, the products' latency chain), so it grows with the
+// rows a chunk holds; the Tensor Memory Accelerator's bulk copies, and
+// their multicast to a cluster (which halves the reads from L2), drew
+// less than cp.async at every chunk size.  What the design does about it:
 //
 //   - Output units go round-robin over the blocks (unit u of a layer
-//     belongs to block u % G), and with bf16 weights a block keeps its
-//     rows of all five layers in shared memory for the whole launch
-//     (114 KB at the default width on 132 blocks), laid out in the
-//     fragment order of mma.sync.m16n8k16 so that a warp loads one
-//     16 x 16 weight tile as 32 consecutive 16-byte words.  The
-//     products run on the tensor cores: A = 16 weight rows (a GRU tile
-//     holds 5 units x 3 gates, an fc tile 8 outputs and skips the upper
-//     half), B = 16 inputs x 8 batch rows, f32 sums.  Inside the step
-//     loop no weight matrix is read from global memory.
-//   - f32 weights (15 MB) do not fit beside the staging for the whole
-//     launch; a block copies its rows of the coming phase from L2 into
-//     one shared-memory buffer (cp.async, started when the previous
-//     phase's products are done, so it runs under that phase's gate math
-//     and barrier).  A lane owns a whole weight row and up to 4 batch
-//     rows of one K slice (an fc layer's few rows: 2 batch rows) and sums
-//     with fmaf in ascending k; there is no shuffle reduction in either
-//     type.
+//     belongs to block u % G).  A block's rows of all five layers, in
+//     bf16 laid out in the fragment order of mma.sync.m16n8k16 (a warp
+//     loads one 16 x 16 weight tile as 32 consecutive 16-byte words), f32
+//     as padded rows, are packed as one slice.  bf16 below a row count
+//     the wrapper picks (the card's crossover) keeps the whole slice in
+//     shared memory for the launch (114 KB at the default width on 132
+//     blocks).  f32, and bf16 above it, keep one phase's rows: a block
+//     copies its rows of the coming phase from L2 into one buffer
+//     (cp.async, started when the previous phase's products are done, so
+//     it runs under that phase's gate math and barrier), which leaves
+//     bf16 83 KB more for staging.  The bf16 products run on the tensor
+//     cores: A = 16 weight rows (a GRU tile holds 5 units x 3 gates, an
+//     fc tile 8 outputs and skips the upper half), B = 16 inputs x 8 batch
+//     rows, f32 sums.  In f32 a lane owns a whole weight row and up to 4
+//     batch rows of one K slice (an fc layer's few rows: 2 batch rows)
+//     and sums with fmaf in ascending k; there is no shuffle reduction in
+//     either type.
 //   - Activations are exchanged once, in the type the next product
 //     reads (bf16-rounded for bf16 weights), beside the f32 state that
 //     only the owning block needs for its gate update.  The exchange
@@ -52,17 +58,28 @@
 //     layers' aux columns after their z columns, written a step ahead
 //     by the row's owner), so a chunk of rows is one contiguous piece
 //     and staging is a flat cp.async copy (16 bytes a thread, L2 only)
-//     into a ring of two buffers of up to 24 rows: the next chunk's
-//     loads run under a chunk's products.  Blocks take the chunks in
+//     into two buffers: the next chunk's loads run under a chunk's
+//     products.  The plan gives a GRU chunk the most rows of input and
+//     hidden state that fit (24 beside the resident bf16 slice, 40 beside
+//     one phase's), and an fc chunk, whose rows hold no hidden state,
+//     more rows in the same bytes (72).  Blocks take the chunks in
 //     rotated orders, so that the grid does not ask L2 for the same rows
 //     at once.  With bf16 weights a chunk's gate math runs on the
 //     block's last warps, out of a second partial-sum buffer, while the
 //     first warps are at the next chunk's products: one block barrier a
 //     chunk.
+//   - With bf16 weights by phase the last four warps (six in an fc
+//     phase) issue the copies and hold no product task, so that no warp's
+//     products wait behind its copies; where a chunk's tasks of one 8-row
+//     batch tile would outnumber the warps left, a task takes two batch
+//     tiles and loads each weight fragment once for both.
 //   - K is split over warps in a way fixed by the widths alone (2
 //     halves on the tensor cores, 8 slices in f32); partial sums meet in
 //     shared memory and are added in slice order.  A row's sums thus
-//     never depend on B or the grid: a batch row equals its solo run.
+//     never depend on B, the grid, the chunk, the task or where the
+//     weights live: a batch row equals its solo run, bit for bit.
+//   - The sample phase takes groups of 8 rows, or up to 10 where that
+//     gives every block one group and none two.
 //   - The step barrier is cooperative_groups' grid.sync(): 1.0 us on
 //     132 blocks, what a hand-written one (a release add on a monotone
 //     counter per block, an acquire spin) measured too.
@@ -99,8 +116,11 @@ constexpr int FC_PER_TILE = 8;     // fc outputs per (half) tile
 constexpr int KSPLIT_BF16 = 2;     // K halves per tile on the tensor cores
 constexpr int KSPLIT_F32 = 8;      // K slices per weight row in f32
 constexpr int NB = 2;              // staging buffers
+constexpr int COPY_NT = 128;       // threads that copy, where not all
+constexpr int COPY_NT_FC = 192;    // the same in an fc phase
 constexpr int N_STAMPS = 20;       // 4 stamps x 5 phases a step
-constexpr int N_SECTIONS = 7;      // resident weight sections (bf16)
+constexpr int GR_MAX = 10;         // most rows of a sample group
+constexpr int N_SECTIONS = 7;      // weight sections of a block's slice
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;   // log(1e-14)
 constexpr float LOG_STD_MIN = -7.0f;
 
@@ -115,13 +135,14 @@ enum Ptr {
 };
 
 enum Dim {
-  D_T, D_B, D_R, D_F, D_D, D_NC, D_K, D_GAUSS, D_BF16, D_G,
+  D_T, D_B, D_R, D_F, D_D, D_NC, D_K, D_GAUSS, D_BF16, D_G, D_BY_PHASE,
   N_DIMS
 };
 
 enum PlanField {
   PL_SLG, PL_SLF, PL_TG, PL_TF, PL_T3, PL_KS_R, PL_KS_RD, PL_KS_F,
-  PL_KS_FD, PL_W_BYTES, PL_W_SMEM, PL_M_ROWS, PL_KSPLIT, PL_CH, PL_PS,
+  PL_KS_FD, PL_W_BYTES, PL_BY_PHASE, PL_W_SMEM, PL_M_ROWS, PL_KSPLIT, PL_CH,
+  PL_PS, PL_CH_FC, PL_PS_FC,
   PL_P_R, PL_P_RD, PL_P_F, PL_P_FD, PL_STRIDE_A, PL_STRIDE_H, PL_OFF_STAGE, PL_OFF_PART, PL_OFF_MISC, PL_TOTAL,
   N_PLAN
 };
@@ -134,12 +155,17 @@ struct Plan {
   int ks_r, ks_rd, ks_f, ks_fd; // 16-wide k-steps of R, R + D, F, F + D
   int w_off[N_SECTIONS + 1];    // a block's slice: rnn1 ih, hh, rnn2 ih,
                                 // hh, fc1, fc2, fc3 (byte offsets)
-  int w_smem;                   // shared memory for weights: the slice
-                                // (bf16) or its largest phase (f32)
+  int by_phase;                 // 1: one phase's weights in shared
+                                // memory at a time, copied in phase by
+                                // phase (always in f32); 0: the slice
+  int w_smem;                   // shared memory for weights: the
+                                // slice or its largest phase
   int m_rows;                   // rows of the partial-sum buffer
   int ksplit;
   int ch;                       // rows staged at a time (0: none fits)
   int ps;                       // partial-sum row pitch, floats
+  int ch_fc, ps_fc;             // the same for an fc phase, which stages
+                                // no hidden state: more rows
   int p_r, p_rd, p_f, p_fd;     // row pitch of an exchange buffer whose
                                 // rows hold R, R + D, F, F + D values
   int stride_a, stride_h;       // room per staged row: A part, H part
@@ -152,7 +178,7 @@ int round16(int a) { return (a + 15) & ~15; }
 
 // Partial-sum pitch for ch staged rows: >= ch and 8 or 24 mod 32 floats,
 // so a half-warp's 8-byte fragment stores hit 32 different banks.
-int part_pitch(int ch) { return ch <= 8 ? 8 : (ch <= 24 ? 24 : 40); }
+int part_pitch(int ch) { return (ch + 7) / 16 * 16 + 8; }
 
 bool make_plan(const int* d, Plan& pl) {
   const int R = d[D_R], F = d[D_F], D = d[D_D], NC = d[D_NC], K = d[D_K];
@@ -185,12 +211,13 @@ bool make_plan(const int* d, Plan& pl) {
     off += bf ? bf_sizes[i] : f32_sizes[i];
   }
   pl.w_off[N_SECTIONS] = off;
-  if (bf) {
-    pl.w_smem = off;
-  } else {
+  pl.by_phase = !bf || d[D_BY_PHASE] != 0;
+  if (pl.by_phase) {
     pl.w_smem = imax(pl.w_off[2], pl.w_off[4] - pl.w_off[2]);
     for (int i = 4; i < N_SECTIONS; ++i)
       pl.w_smem = imax(pl.w_smem, pl.w_off[i + 1] - pl.w_off[i]);
+  } else {
+    pl.w_smem = off;
   }
   pl.m_rows = 16 * imax(2 * pl.tg, imax(pl.tf, pl.t3));
   pl.ksplit = bf ? KSPLIT_BF16 : KSPLIT_F32;
@@ -209,11 +236,11 @@ bool make_plan(const int* d, Plan& pl) {
   }
   pl.stride_a = imax(imax(pl.p_r, pl.p_rd), imax(pl.p_f, pl.p_fd));
   pl.stride_h = pl.p_r;
-  // 8 samples and their noise
-  const int misc = round16(32 + 8 * (K + 1) * 4);
+  // a sample group's samples and their noise
+  const int misc = round16(4 * GR_MAX + GR_MAX * (K + 1) * 4);
   pl.off_stage = pl.w_smem;
   pl.ch = 0;
-  for (int ch = 32; ch >= 8; ch -= 8) {
+  for (int ch = 40; ch >= 8; ch -= 8) {
     pl.ps = part_pitch(ch);
     const int stage = NB * ch * (pl.stride_a + pl.stride_h);
     // bf16, two: a chunk's sums are finished while the next chunk's are
@@ -224,9 +251,21 @@ bool make_plan(const int* d, Plan& pl) {
     pl.total = pl.off_misc + misc;
     if (pl.total <= SMEM_MAX) {
       pl.ch = ch;
+      // an fc phase, with weights by phase: the most rows (of 8 more at
+      // a time) whose input alone fits the two buffers, and whose
+      // partial sums fit theirs
+      pl.ch_fc = ch;
+      pl.ps_fc = pl.ps;
+      for (int c = ch + 8; pl.by_phase && NB * c * pl.stride_a <= stage;
+           c += 8) {
+        if (16 * pl.tf * part_pitch(c) > pl.m_rows * pl.ps) break;
+        pl.ch_fc = c;
+        pl.ps_fc = part_pitch(c);
+      }
       return true;
     }
   }
+  pl.ch_fc = pl.ps_fc = 0;
   return false;                 // total holds the need at 8 rows
 }
 
@@ -235,9 +274,10 @@ void plan_fields(const Plan& pl, int* out) {
   out[PL_TF] = pl.tf; out[PL_T3] = pl.t3; out[PL_KS_R] = pl.ks_r;
   out[PL_KS_RD] = pl.ks_rd; out[PL_KS_F] = pl.ks_f;
   out[PL_KS_FD] = pl.ks_fd; out[PL_W_BYTES] = pl.w_off[N_SECTIONS];
+  out[PL_BY_PHASE] = pl.by_phase;
   out[PL_W_SMEM] = pl.w_smem; out[PL_M_ROWS] = pl.m_rows; out[PL_KSPLIT] = pl.ksplit;
-
-  out[PL_CH] = pl.ch; out[PL_PS] = pl.ps; out[PL_P_R] = pl.p_r;
+  out[PL_CH] = pl.ch; out[PL_PS] = pl.ps; out[PL_CH_FC] = pl.ch_fc;
+  out[PL_PS_FC] = pl.ps_fc; out[PL_P_R] = pl.p_r;
   out[PL_P_RD] = pl.p_rd; out[PL_P_F] = pl.p_f; out[PL_P_FD] = pl.p_fd;
   out[PL_STRIDE_A] = pl.stride_a;
   out[PL_STRIDE_H] = pl.stride_h; out[PL_OFF_STAGE] = pl.off_stage;
@@ -388,34 +428,46 @@ struct Rows {
   int rI, rH;
   int kI, kH;
   int pA, pH;              // row pitch of the staged A and H inputs, bytes
+  int mr, ps;              // partial sums: rows of a K slice, row pitch
+  int pw;                  // warps that multiply (bf16 tasks)
 };
 
 // One phase's products for ``rows`` staged rows on the tensor cores.
 // A task is (tile, 8 batch rows, half of the k-steps); its 16 x 8 sums
-// go to part[half][tile row][batch row].
-__device__ void product_bf16(const Rows& rw, const unsigned char* bufA,
-                             const unsigned char* bufH, const Plan& pl,
-                             int rows, float* part) {
+// go to part[half][tile row][batch row].  PAIR: a task takes two 8-row
+// batch tiles (the second may be absent) and loads each weight fragment
+// once for both.  A batch tile's sums are taken in the same order either
+// way.
+template <bool PAIR>
+__device__ __forceinline__ void product_bf16_tiles(
+    const Rows& rw, const unsigned char* bufA, const unsigned char* bufH,
+    int rows, float* part) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int ntl = (rows + 7) >> 3;
-  const int ntask = (rw.nI + rw.nH) * ntl * KSPLIT_BF16;
+  const int nb = PAIR ? (ntl + 1) >> 1 : ntl;     // batch tasks a tile
+  const int ntask = (rw.nI + rw.nH) * nb * KSPLIT_BF16;
   const bool half = rw.kind == 1;
   for (int task = warp; task < ntask; task += NW) {
     const int kh = task & 1, rest = task >> 1;
-    const int nt = rest % ntl, tt = rest / ntl;
+    const int nt = (PAIR ? 2 : 1) * (rest % nb), tt = rest / nb;
+    const bool two = PAIR && nt + 1 < ntl;
     const bool isH = tt >= rw.nI;
     const int ti = isH ? tt - rw.nI : tt;
     const int ks = isH ? rw.ksH : rw.ksI;
+    const int pitch = isH ? rw.pH : rw.pA;
     const unsigned char* wt = (isH ? rw.tH : rw.tI)
         + (size_t)ti * ks * (half ? 256 : 512);
     const unsigned char* xb = (isH ? bufH : bufA)
-        + (nt * 8 + g) * (isH ? rw.pH : rw.pA) + tig * 4;
+        + (nt * 8 + g) * pitch + tig * 4;
+    const unsigned char* xc = xb + 8 * pitch;     // the second batch tile
     const int kper = (ks + 1) >> 1;
     const int k0 = kh * kper;
     const int k1 = (k0 + kper < ks) ? k0 + kper : ks;
     float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (half) {
       const uint2* a = reinterpret_cast<const uint2*>(wt) + lane;
       int k = k0;
@@ -425,11 +477,20 @@ __device__ void product_bf16(const Rows& rw, const unsigned char* bufA,
         const uint4 bv = ld_bfrag2(xb + k * 32);
         mma_bf16(c0, av.x, 0u, av.y, 0u, bv.x, bv.y);
         mma_bf16(c1, aw.x, 0u, aw.y, 0u, bv.z, bv.w);
+        if (two) {
+          const uint4 bu = ld_bfrag2(xc + k * 32);
+          mma_bf16(d0, av.x, 0u, av.y, 0u, bu.x, bu.y);
+          mma_bf16(d1, aw.x, 0u, aw.y, 0u, bu.z, bu.w);
+        }
       }
       if (k < k1) {
         const uint2 av = a[k * 32];
         const uint2 bv = ld_bfrag(xb + k * 32);
         mma_bf16(c0, av.x, 0u, av.y, 0u, bv.x, bv.y);
+        if (two) {
+          const uint2 bu = ld_bfrag(xc + k * 32);
+          mma_bf16(d0, av.x, 0u, av.y, 0u, bu.x, bu.y);
+        }
       }
     } else {
       const uint4* a = reinterpret_cast<const uint4*>(wt) + lane;
@@ -440,21 +501,49 @@ __device__ void product_bf16(const Rows& rw, const unsigned char* bufA,
         const uint4 bv = ld_bfrag2(xb + k * 32);
         mma_bf16(c0, av.x, av.y, av.z, av.w, bv.x, bv.y);
         mma_bf16(c1, aw.x, aw.y, aw.z, aw.w, bv.z, bv.w);
+        if (two) {
+          const uint4 bu = ld_bfrag2(xc + k * 32);
+          mma_bf16(d0, av.x, av.y, av.z, av.w, bu.x, bu.y);
+          mma_bf16(d1, aw.x, aw.y, aw.z, aw.w, bu.z, bu.w);
+        }
       }
       if (k < k1) {
         const uint4 av = a[k * 32];
         const uint2 bv = ld_bfrag(xb + k * 32);
         mma_bf16(c0, av.x, av.y, av.z, av.w, bv.x, bv.y);
+        if (two) {
+          const uint2 bu = ld_bfrag(xc + k * 32);
+          mma_bf16(d0, av.x, av.y, av.z, av.w, bu.x, bu.y);
+        }
       }
     }
     const int m0 = (isH ? rw.mH : 0) + ti * 16 + g;
-    float* o = part + ((size_t)kh * pl.m_rows + m0) * pl.ps + nt * 8
+    float* o = part + ((size_t)kh * rw.mr + m0) * rw.ps + nt * 8
         + 2 * tig;
     *reinterpret_cast<float2*>(o) = make_float2(c0[0] + c1[0], c0[1] + c1[1]);
     if (!half)
-      *reinterpret_cast<float2*>(o + 8 * pl.ps) =
+      *reinterpret_cast<float2*>(o + 8 * rw.ps) =
           make_float2(c0[2] + c1[2], c0[3] + c1[3]);
+    if (two) {
+      *reinterpret_cast<float2*>(o + 8) =
+          make_float2(d0[0] + d1[0], d0[1] + d1[1]);
+      if (!half)
+        *reinterpret_cast<float2*>(o + 8 + 8 * rw.ps) =
+            make_float2(d0[2] + d1[2], d0[3] + d1[3]);
+    }
   }
+}
+
+// With bf16 weights by phase, whose last warps copy: tasks of two batch
+// tiles where tasks of one would outnumber the warps that multiply
+// (``pw``); two instantiations of one loop.
+__device__ void product_bf16(const Rows& rw, const unsigned char* bufA,
+                             const unsigned char* bufH, int rows,
+                             float* part) {
+  if ((rw.nI + rw.nH) * ((rows + 7) >> 3) * KSPLIT_BF16 > rw.pw)
+    product_bf16_tiles<true>(rw, bufA, bufH, rows, part);
+  else
+    product_bf16_tiles<false>(rw, bufA, bufH, rows, part);
 }
 
 // One weight row's slice (n float4 at wp) against up to NV staged rows
@@ -487,8 +576,8 @@ __device__ __forceinline__ void f32_rows(const float4* wp,
 // task is (8 weight rows, 8 batch rows, a K slice), lane 8 q + j owns
 // weight row j and batch rows 2 q, 2 q + 1.
 __device__ void product_f32(const Rows& rw, const unsigned char* bufA,
-                            const unsigned char* bufH, const Plan& pl,
-                            int rows, float* part) {
+                            const unsigned char* bufH, int rows,
+                            float* part) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (rw.kind == 1) {
     const int ntl = (rows + 7) >> 3;
@@ -505,8 +594,8 @@ __device__ void product_f32(const Rows& rw, const unsigned char* bufA,
       const float4* wp = reinterpret_cast<const float4*>(
           rw.tI + (size_t)jj * (rw.kI + 4) * 4) + k0;
       const unsigned char* xb = bufA + b * rw.pA + k0 * 16;
-      float* o = part + ((size_t)kq * pl.m_rows
-                         + (jj / FC_PER_TILE) * 16 + jj % FC_PER_TILE) * pl.ps
+      float* o = part + ((size_t)kq * rw.mr
+                         + (jj / FC_PER_TILE) * 16 + jj % FC_PER_TILE) * rw.ps
           + b;
       if (b + 1 < rows) f32_rows<2>(wp, xb, rw.pA, n, 2, o);
       else f32_rows<1>(wp, xb, rw.pA, n, 1, o);
@@ -543,20 +632,29 @@ __device__ void product_f32(const Rows& rw, const unsigned char* bufA,
     const unsigned char* xb = (isH ? bufH : bufA) + (nt * 4) * pitch
         + k0 * 16;
     const int nv = rows - nt * 4;       // valid rows of this group
-    float* o = part + ((size_t)kq * pl.m_rows + m) * pl.ps + nt * 4;
+    float* o = part + ((size_t)kq * rw.mr + m) * rw.ps + nt * 4;
     if (nv == 1) f32_rows<1>(wp, xb, pitch, n, nv, o);
     else if (nv == 2) f32_rows<2>(wp, xb, pitch, n, nv, o);
     else f32_rows<4>(wp, xb, pitch, n, nv, o);
   }
 }
 
-// f32 only: which phases this block has rows in, the next such phase
-// after q, and the copy of a phase's weight rows into the buffer.
+// Rows of a sample group: 8, or where 8-row groups would give some
+// blocks two, up to GR_MAX, so that each block takes one (rows past 8 need
+// partial-sum rows of 16 columns).
+__device__ __forceinline__ int group_rows(const Params& p) {
+  const int gr = (p.B + (int)gridDim.x - 1) / (int)gridDim.x;
+  if (gr <= 8 || p.pl.ps < 16) return 8;
+  return gr < GR_MAX ? gr : GR_MAX;
+}
+
+// Which phases this block has rows in, the next such phase after q, and
+// the copy of a phase's weight rows into the buffer.
 __device__ __forceinline__ bool has_rows(const Params& p, int q) {
   const int bid = blockIdx.x;
   if (q <= PH_GRU2) return bid < p.R;
   if (q <= PH_FC2) return bid < p.F;
-  return bid * 8 < p.B;
+  return bid * group_rows(p) < p.B;
 }
 __device__ __forceinline__ void load_weights(const Params& p,
                                              unsigned char* smem, int q) {
@@ -589,11 +687,11 @@ __device__ __forceinline__ void next_weights(const Params& p,
 
 // Partial row m, batch row bl: the K slices added in slice order.
 template <bool BF>
-__device__ __forceinline__ float psum(const float* part, const Plan& pl,
+__device__ __forceinline__ float psum(const float* part, const Rows& rw,
                                       int m, int bl) {
   constexpr int KS = BF ? KSPLIT_BF16 : KSPLIT_F32;
-  const float* q = part + m * pl.ps + bl;
-  const int step = pl.m_rows * pl.ps;
+  const float* q = part + m * rw.ps + bl;
+  const int step = rw.mr * rw.ps;
   float s = q[0];
 #pragma unroll
   for (int k = 1; k < KS; ++k) s += q[k * step];
@@ -607,22 +705,37 @@ __device__ __forceinline__ unsigned char* ring_buf(unsigned char* smem,
 }
 
 // Start the copy of ``bytes`` contiguous bytes (a multiple of 16) from
-// global src to shared dst, 16 bytes a thread at a time.
+// global src to shared dst, 16 bytes a thread at a time, on the block's
+// last n threads.
 __device__ __forceinline__ void stage_flat(unsigned char* dst,
                                            const unsigned char* src,
-                                           int bytes) {
-  for (int i = threadIdx.x * 16; i < bytes; i += NT * 16)
+                                           int bytes, int n = NT) {
+  const int t = (int)threadIdx.x - (NT - n);
+  if (t < 0) return;
+  for (int i = t * 16; i < bytes; i += n * 16)
     cp_async16(dst + i, src + i);
+}
+
+// The threads that copy a GRU or fc phase's chunks: with bf16 weights
+// copied in by phase (many rows, large chunks) the last four warps (an fc
+// phase's larger input chunks: six), which then hold no product task, so
+// that no warp's products wait behind its copies; else all.  And the
+// warps that multiply.
+__device__ __forceinline__ int copy_threads(const Plan& pl, bool bf,
+                                            bool fc = false) {
+  return bf && pl.by_phase ? (fc ? COPY_NT_FC : COPY_NT) : NT;
+}
+__device__ __forceinline__ int product_warps(int copy_nt) {
+  return copy_nt == NT ? NW : NW - copy_nt / 32;
 }
 
 template <bool BF>
 __device__ __forceinline__ void product(const Rows& rw,
                                         const unsigned char* bufA,
-                                        const unsigned char* bufH,
-                                        const Plan& pl, int rows,
+                                        const unsigned char* bufH, int rows,
                                         float* part) {
-  if (BF) product_bf16(rw, bufA, bufH, pl, rows, part);
-  else product_f32(rw, bufA, bufH, pl, rows, part);
+  if (BF) product_bf16(rw, bufA, bufH, rows, part);
+  else product_f32(rw, bufA, bufH, rows, part);
 }
 
 // One GRU layer for every row (torch gate order r, z, n).  layer 0:
@@ -643,7 +756,7 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
   rw.nI = rw.nH = (slots + GRU_PER_TILE - 1) / GRU_PER_TILE;
   rw.mH = 16 * pl.tg;
   rw.slots = slots;
-  rw.tI = smem + (BF ? pl.w_off[2 * layer] : 0);
+  rw.tI = smem + (pl.by_phase ? 0 : pl.w_off[2 * layer]);
   rw.tH = rw.tI + pl.w_off[2 * layer + 1] - pl.w_off[2 * layer];
   rw.ksI = layer ? pl.ks_rd : pl.ks_r;
   rw.ksH = pl.ks_r;
@@ -652,6 +765,10 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
   rw.kH = R;
   rw.pA = layer ? pl.p_rd : pl.p_r;
   rw.pH = pl.p_r;
+  rw.mr = pl.m_rows;
+  rw.ps = pl.ps;
+  const int copy_nt = copy_threads(pl, BF);
+  rw.pw = product_warps(copy_nt);
   const int ea = rw.pA / es, eh = rw.pH / es;   // pitches in elements
   const XT* zin_x = static_cast<const XT*>(layer ? p.z1x : p.zx);
   const float* zin_f = layer ? p.z1f : p.zf;
@@ -678,10 +795,10 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
       const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
       unsigned char* bufA = ring_buf(smem, pl, c & 1);
       stage_flat(bufA, reinterpret_cast<const unsigned char*>(
-                     zin_x + (size_t)b0 * ea), rows * rw.pA);
+                     zin_x + (size_t)b0 * ea), rows * rw.pA, copy_nt);
       stage_flat(bufA + pl.ch * pl.stride_a,
                  reinterpret_cast<const unsigned char*>(
-                     h_in + (size_t)b0 * eh), rows * rw.pH);
+                     h_in + (size_t)b0 * eh), rows * rw.pH, copy_nt);
     }
     cp_async_commit();
   };
@@ -696,7 +813,7 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
   // under its staging.
   const bool lap = BF && nch > 1;
   const int e0 = lap ? NT - 1 - (int)threadIdx.x : (int)threadIdx.x;
-  const int part_n = pl.ksplit * pl.m_rows * pl.ps;
+  const int part_n = pl.ksplit * rw.mr * rw.ps;
   // the last chunk's first item of this thread: old h, z, the six biases
   float a_hp = 0.0f, a_zi = 0.0f, a_ir = 0.0f, a_iz = 0.0f, a_in = 0.0f;
   float a_hr = 0.0f, a_hz = 0.0f, a_hn = 0.0f;
@@ -713,17 +830,17 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
       const bool got = pre && it == e0;
       const float hp = got ? a_hp : __ldcg(hf + o);
       const float zi = got ? a_zi : __ldcg(zin_f + o);
-      const float i_r = psum<BF>(pc, pl, mI, bl)
+      const float i_r = psum<BF>(pc, rw, mI, bl)
           + (got ? a_ir : __ldg(b_ih + u));
-      const float i_z = psum<BF>(pc, pl, mI + 1, bl)
+      const float i_z = psum<BF>(pc, rw, mI + 1, bl)
           + (got ? a_iz : __ldg(b_ih + R + u));
-      const float i_n = psum<BF>(pc, pl, mI + 2, bl)
+      const float i_n = psum<BF>(pc, rw, mI + 2, bl)
           + (got ? a_in : __ldg(b_ih + 2 * R + u));
-      const float h_r = psum<BF>(pc, pl, mH, bl)
+      const float h_r = psum<BF>(pc, rw, mH, bl)
           + (got ? a_hr : __ldg(b_hh + u));
-      const float h_z = psum<BF>(pc, pl, mH + 1, bl)
+      const float h_z = psum<BF>(pc, rw, mH + 1, bl)
           + (got ? a_hz : __ldg(b_hh + R + u));
-      const float h_n = psum<BF>(pc, pl, mH + 2, bl)
+      const float h_n = psum<BF>(pc, rw, mH + 2, bl)
           + (got ? a_hn : __ldg(b_hh + 2 * R + u));
       const float r = sigmoidf_(i_r + h_r);
       const float zg = sigmoidf_(i_z + h_z);
@@ -737,7 +854,7 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
     }
   };
 
-  if (!BF) want_weights(p, smem, layer, held);
+  if (pl.by_phase) want_weights(p, smem, layer, held);
   stage(0);
   for (int c = 0; c < nch; ++c) {
     const int b0 = chunk_b0(c);
@@ -760,7 +877,7 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
     stage(c + 1);
     if (c + 1 == nch) stamp(st, 0);
     const unsigned char* bufA = ring_buf(smem, pl, c & 1);
-    product<BF>(rw, bufA, bufA + pl.ch * pl.stride_a, pl, rows,
+    product<BF>(rw, bufA, bufA + pl.ch * pl.stride_a, rows,
                 part + (lap ? c & 1 : 0) * part_n);
     if (lap) {
       if (c > 0) gates(c - 1, false);
@@ -769,7 +886,7 @@ __device__ void gru_phase(const Params& p, unsigned char* smem, int layer,
     __syncthreads();
     if (c + 1 == nch) {
       stamp(st, 1);
-      if (!BF) next_weights(p, smem, layer, held);
+      if (pl.by_phase) next_weights(p, smem, layer, held);
     }
     gates(c, c + 1 == nch);
   }
@@ -795,7 +912,7 @@ __device__ void fc_phase(const Params& p, unsigned char* smem, int which,
   rw.nH = 0;
   rw.mH = 0;
   rw.slots = slots;
-  rw.tI = smem + (BF ? pl.w_off[4 + which] : 0);
+  rw.tI = smem + (pl.by_phase ? 0 : pl.w_off[4 + which]);
   rw.tH = nullptr;
   rw.ksI = which ? pl.ks_fd : pl.ks_rd;
   rw.ksH = 0;
@@ -805,6 +922,10 @@ __device__ void fc_phase(const Params& p, unsigned char* smem, int which,
   rw.kH = 0;
   rw.pA = which ? pl.p_fd : pl.p_rd;
   rw.pH = 0;
+  rw.mr = 16 * pl.tf;
+  rw.ps = pl.ps_fc;
+  const int copy_nt = copy_threads(pl, BF, true);
+  rw.pw = product_warps(copy_nt);
   const int ea = rw.pA / es;                       // pitches in elements
   const int eo = (which ? pl.p_f : pl.p_fd) / es;  // f2 and f1 rows
   const XT* in = static_cast<const XT*>(which ? p.f1x : p.z2x);
@@ -812,50 +933,52 @@ __device__ void fc_phase(const Params& p, unsigned char* smem, int which,
   const float* bias = which ? p.bf2 : p.bf1;
   float* part = reinterpret_cast<float*>(smem + pl.off_part);
 
-  const int nch = (B + pl.ch - 1) / pl.ch;
+  // chunks of ch_fc input rows, in two buffers in the GRUs' bytes
+  const int ch = pl.ch_fc;
+  const int nch = (B + ch - 1) / ch;
   const int c_first = bid % nch;
   auto chunk_b0 = [&](int c) {
     const int cc = c + c_first;
-    return (cc < nch ? cc : cc - nch) * pl.ch;
+    return (cc < nch ? cc : cc - nch) * ch;
   };
   auto stage = [&](int c) {
     if (c < nch) {
       const int b0 = chunk_b0(c);
-      const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
-      stage_flat(ring_buf(smem, pl, c & 1),
+      const int rows = B - b0 < ch ? B - b0 : ch;
+      stage_flat(smem + pl.off_stage + (c & 1) * ch * pl.stride_a,
                  reinterpret_cast<const unsigned char*>(
-                     in + (size_t)b0 * ea), rows * rw.pA);
+                     in + (size_t)b0 * ea), rows * rw.pA, copy_nt);
     }
     cp_async_commit();
   };
   // bias and ReLU of a chunk, on the threads a GRU's gate math takes
   const bool lap = BF && nch > 1;
   const int e0 = lap ? NT - 1 - (int)threadIdx.x : (int)threadIdx.x;
-  const int part_n = pl.ksplit * pl.m_rows * pl.ps;
+  const int part_n = pl.ksplit * rw.mr * rw.ps;
   auto relu = [&](int c) {
     const int b0 = chunk_b0(c);
-    const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+    const int rows = B - b0 < ch ? B - b0 : ch;
     const float* pc = part + (lap ? c & 1 : 0) * part_n;
     for (int it = e0; it < slots * rows; it += NT) {
       const int s = it / rows, bl = it - s * rows;
       const int j = bid + s * G;
       const int m = (s / FC_PER_TILE) * 16 + s % FC_PER_TILE;
       store_x(out, (size_t)(b0 + bl) * eo + j,
-              fmaxf(psum<BF>(pc, pl, m, bl) + __ldg(bias + j), 0.0f));
+              fmaxf(psum<BF>(pc, rw, m, bl) + __ldg(bias + j), 0.0f));
     }
   };
 
-  if (!BF) want_weights(p, smem, PH_FC1 + which, held);
+  if (pl.by_phase) want_weights(p, smem, PH_FC1 + which, held);
   stage(0);
   for (int c = 0; c < nch; ++c) {
     cp_async_wait<0>();
     __syncthreads();
     stage(c + 1);
     const int b0 = chunk_b0(c);
-    const int rows = B - b0 < pl.ch ? B - b0 : pl.ch;
+    const int rows = B - b0 < ch ? B - b0 : ch;
     if (c + 1 == nch) stamp(st, 0);
-    const unsigned char* bufA = ring_buf(smem, pl, c & 1);
-    product<BF>(rw, bufA, bufA, pl, rows,
+    const unsigned char* bufA = smem + pl.off_stage + (c & 1) * ch * pl.stride_a;
+    product<BF>(rw, bufA, bufA, rows,
                 part + (lap ? c & 1 : 0) * part_n);
     if (lap) {
       if (c > 0) relu(c - 1);
@@ -864,7 +987,7 @@ __device__ void fc_phase(const Params& p, unsigned char* smem, int which,
     __syncthreads();
     if (c + 1 == nch) {
       stamp(st, 1);
-      if (!BF) next_weights(p, smem, PH_FC1 + which, held);
+      if (pl.by_phase) next_weights(p, smem, PH_FC1 + which, held);
     }
     relu(c);
   }
@@ -902,8 +1025,9 @@ __device__ __forceinline__ float4 ld_istatic(const Params& p, int tn, int b,
       p.i_static + ((size_t)tn * p.B + b) * p.R) + c4);
 }
 
-// fc3 and the sample.  A block owns groups of 8 rows (group n belongs to
-// block n % G): logits = w3 . f2[b] + b3, then by one warp per row the
+// fc3 and the sample.  A block owns groups of gr rows (group_rows: 8 to
+// GR_MAX; group n belongs to block n % G): logits = w3 . f2[b] + b3, then
+// by one warp per row the
 // mixture-of-logistics sample (first argmax of logits[:K] + gumbel, the
 // selected mean and log-scale clamped at log 1e-14) or the Gaussian
 // sample (log-std clamped at -7), clipped to [-1, 1]; then the whole
@@ -925,7 +1049,7 @@ __device__ void sample_phase(const Params& p, unsigned char* smem, int t,
   rw.nH = 0;
   rw.mH = 0;
   rw.slots = 0;
-  rw.tI = smem + (BF ? pl.w_off[6] : 0);
+  rw.tI = smem + (pl.by_phase ? 0 : pl.w_off[6]);
   rw.tH = nullptr;
   rw.ksI = pl.ks_f;
   rw.ksH = 0;
@@ -935,19 +1059,23 @@ __device__ void sample_phase(const Params& p, unsigned char* smem, int t,
   rw.kH = 0;
   rw.pA = pl.p_f;
   rw.pH = 0;
+  rw.mr = pl.m_rows;
+  rw.ps = pl.ps;
+  rw.pw = NW;
   unsigned char* bufA = smem + pl.off_stage;
   float* part = reinterpret_cast<float*>(smem + pl.off_part);
   float* xs = reinterpret_cast<float*>(smem + pl.off_misc);
-  float* noise = xs + 8;
+  float* noise = xs + GR_MAX;
   const bool next = t + 1 < p.T;
   const int r4 = p.R >> 2;
-  for (int grp = blockIdx.x; grp * 8 < B; grp += G) {
-    const int b0 = grp * 8;
-    const int rows = B - b0 < 8 ? B - b0 : 8;
+  const int gr = group_rows(p);
+  for (int grp = blockIdx.x; grp * gr < B; grp += G) {
+    const int b0 = grp * gr;
+    const int rows = B - b0 < gr ? B - b0 : gr;
     const int nz = next ? rows * r4 : 0;
     if (t >= 0) {
       __syncthreads();             // the previous group is done with smem
-      if (!BF) want_weights(p, smem, PH_SAMPLE, held);
+      if (pl.by_phase) want_weights(p, smem, PH_SAMPLE, held);
       stage_flat(bufA, static_cast<const unsigned char*>(p.f2x)
                      + (size_t)b0 * pl.p_f, rows * pl.p_f);
       cp_async_commit();
@@ -982,17 +1110,18 @@ __device__ void sample_phase(const Params& p, unsigned char* smem, int t,
       cp_async_wait<0>();
       __syncthreads();
       stamp(st, 0);
-      product<BF>(rw, bufA, bufA, pl, rows, part);
+      product<BF>(rw, bufA, bufA, rows, part);
       __syncthreads();
       stamp(st, 1);
-      if (!BF && (grp + G) * 8 >= B) next_weights(p, smem, PH_SAMPLE, held);
+      if (pl.by_phase && (grp + G) * gr >= B)
+        next_weights(p, smem, PH_SAMPLE, held);
       if ((tid >> 5) < rows) {     // one warp a row, a lane a mixture
         const int bl = tid >> 5, lane = tid & 31;
         const float* nz_row = noise + bl * (K + 1);
         float mean, log_scale;
         if (p.gauss) {
-          mean = psum<BF>(part, pl, 0, bl) + __ldg(p.b3);
-          log_scale = fmaxf(psum<BF>(part, pl, 1, bl) + __ldg(p.b3 + 1),
+          mean = psum<BF>(part, rw, 0, bl) + __ldg(p.b3);
+          log_scale = fmaxf(psum<BF>(part, rw, 1, bl) + __ldg(p.b3 + 1),
                             LOG_STD_MIN);
         } else {
           // the first maximum of logits[:K] + gumbel: ties keep the
@@ -1000,7 +1129,7 @@ __device__ void sample_phase(const Params& p, unsigned char* smem, int t,
           int sel = 0x7fffffff;
           float best = -INFINITY;
           for (int k = lane; k < K; k += 32) {
-            const float v = (psum<BF>(part, pl, k, bl) + __ldg(p.b3 + k))
+            const float v = (psum<BF>(part, rw, k, bl) + __ldg(p.b3 + k))
                 + nz_row[k];
             if (v > best || sel > K) { best = v; sel = k; }
           }
@@ -1012,8 +1141,8 @@ __device__ void sample_phase(const Params& p, unsigned char* smem, int t,
           }
           sel = __shfl_sync(0xffffffffu, sel, 0);
           sel = sel < K ? sel : K - 1;
-          mean = psum<BF>(part, pl, K + sel, bl) + __ldg(p.b3 + K + sel);
-          log_scale = fmaxf(psum<BF>(part, pl, 2 * K + sel, bl)
+          mean = psum<BF>(part, rw, K + sel, bl) + __ldg(p.b3 + K + sel);
+          log_scale = fmaxf(psum<BF>(part, rw, 2 * K + sel, bl)
                             + __ldg(p.b3 + 2 * K + sel), LOG_SCALE_MIN);
         }
         const float s = fminf(fmaxf(__fadd_rn(
@@ -1060,14 +1189,15 @@ __global__ void __launch_bounds__(NT, 1) wavernn_loop_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const Plan& pl = p.pl;
-  if (BF) {
+  if (!pl.by_phase) {             // bf16: the whole slice, for the launch
     const int n16 = pl.w_off[N_SECTIONS] >> 4;
     const uint4* src = reinterpret_cast<const uint4*>(p.packed)
         + (size_t)blockIdx.x * n16;
     uint4* dst = reinterpret_cast<uint4*>(smem);
     for (int i = threadIdx.x; i < n16; i += NT) dst[i] = __ldg(src + i);
   }
-  int held = -1;                  // f32: the phase whose rows are in smem
+  int held = -1;                  // by phase: the phase whose rows are in
+                                  // smem
   long long* st = (p.stamps != nullptr && blockIdx.x == 0) ? p.stamps
                                                            : nullptr;
   sample_phase<BF>(p, smem, -1, nullptr, held);   // z of step 0

@@ -13,9 +13,12 @@ scratch for the previous sample, the VMEM limit and the 1,536-row gate.
 Any B and T are served; rows are tiled inside the kernel.
 
 Every block of the launch owns a fixed set of output rows of all five
-layers.  With bf16 weights it keeps them in shared memory for the whole
-launch, in the fragment order of the tensor-core instruction; with f32
-weights it copies the coming phase's rows into one shared-memory buffer.
+layers.  With bf16 weights and few fold rows it keeps them in shared
+memory for the whole launch, in the fragment order of the tensor-core
+instruction; with f32 weights, and with bf16 from
+``WEIGHTS_BY_PHASE_ROWS`` rows on, it copies the coming phase's rows
+into one shared-memory buffer, so that the rest stages the rows'
+activations in larger chunks.
 :func:`kernel_weights` packs the rows so (one slice per block, so the
 packing names the grid), :func:`unpack_kernel_weights` is its inverse,
 and :func:`smem_plan` mirrors the kernel's shared-memory layout, so a
@@ -107,12 +110,17 @@ GRU_PER_TILE = 5            # units (3 gate rows each) in a 16-row tile
 FC_PER_TILE = 8             # fc outputs in a tile's lower half
 N_BUFFERS = 2               # the kernel's staging buffers
 N_STAMPS = 20               # 4 clock stamps x 5 phases a step
+GR_MAX = 10                 # most rows of the kernel's sample groups
 _PLAN_FIELDS = (
     "slg", "slf", "tg", "tf", "t3", "ks_r", "ks_rd", "ks_f", "ks_fd",
-    "w_bytes", "w_smem", "m_rows", "ksplit", "ch", "ps", "p_r", "p_rd",
-    "p_f", "p_fd", "stride_a", "stride_h",
+    "w_bytes", "by_phase", "w_smem", "m_rows", "ksplit", "ch", "ps",
+    "ch_fc", "ps_fc", "p_r", "p_rd", "p_f", "p_fd", "stride_a", "stride_h",
     "off_stage", "off_part", "off_misc", "total",
 )
+# bf16 weights are copied in phase by phase from this many fold rows on
+# (below it the resident slice's smaller chunks are faster: the H100's
+# crossover, PERF.md); f32 weights always are.
+WEIGHTS_BY_PHASE_ROWS = 64
 # the seven matrices: (key in kernel_weights, layer, parameter, tile kind)
 _MATS = (
     ("rnn1_ih", "rnn1", "weight_ih", "gru"),
@@ -135,15 +143,24 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _part_pitch(ch: int) -> int:
+    """Partial-sum row pitch for ch staged rows (>= ch, 8 mod 16)."""
+    return (ch + 7) // 16 * 16 + 8
+
+
 def smem_plan(R: int, F_: int, D: int, NC: int, K: int, n_blocks: int,
-              bf16: bool) -> dict:
+              bf16: bool, by_phase: bool = True) -> dict:
     """The kernel's shared-memory layout for these widths on a grid of
     ``n_blocks``: tile counts, the byte ``sections`` of a block's slice
     of the seven matrices (``w_bytes`` in all), the shared memory they
-    take (``w_smem``: the whole slice in bf16, the largest phase's rows
-    in f32), the row pitches of the exchange buffers, the staged chunk
-    ``ch`` (the most rows of 32, 24, 16, 8 whose two staging buffers fit
-    beside the weights), byte offsets and the ``total``.
+    take (``w_smem``: with ``by_phase``, always so in f32, the largest
+    phase's rows, which the kernel copies in phase by phase, else the
+    whole slice), the row pitches of the exchange buffers, the staged
+    chunk ``ch`` (the most rows of 40, 32, 24, 16, 8 whose two staging
+    buffers fit beside the weights), ``ch_fc`` (an fc phase's chunk; by
+    phase, since its rows hold no hidden state, the same two buffers hold
+    more, as far as the partial sums' room allows) with the partial-sum
+    pitches ``ps`` and ``ps_fc``, byte offsets and the ``total``.
     ``fits`` is false when not even 8 rows fit; ``total`` is then the
     need at 8.  The library's ``wavernn_loop_plan`` computes the same
     numbers; the wrapper holds the two equal before a launch."""
@@ -166,8 +183,9 @@ def smem_plan(R: int, F_: int, D: int, NC: int, K: int, n_blocks: int,
                sf * (F_ + D + 4) * 4, NC * (F_ + 4) * 4]
     pl["sections"] = sec
     pl["w_bytes"] = sum(sec)
-    pl["w_smem"] = pl["w_bytes"] if bf16 else max(
-        sec[0] + sec[1], sec[2] + sec[3], sec[4], sec[5], sec[6])
+    pl["by_phase"] = int(by_phase or not bf16)
+    pl["w_smem"] = max(sec[0] + sec[1], sec[2] + sec[3], sec[4], sec[5],
+                       sec[6]) if pl["by_phase"] else pl["w_bytes"]
     pl["m_rows"] = 16 * max(2 * tg, tf, t3)
     pl["ksplit"] = 2 if bf16 else 8
     # row pitches of the exchange buffers, in global and shared memory
@@ -176,11 +194,11 @@ def smem_plan(R: int, F_: int, D: int, NC: int, K: int, n_blocks: int,
         pl[key] = 32 * pl[ks] + 16 if bf16 else 4 * k
     pl["stride_a"] = max(pl["p_r"], pl["p_rd"], pl["p_f"], pl["p_fd"])
     pl["stride_h"] = pl["p_r"]
-    misc = (32 + 8 * (K + 1) * 4 + 15) & ~15
+    misc = (4 * GR_MAX + GR_MAX * (K + 1) * 4 + 15) & ~15
     pl["off_stage"] = pl["w_smem"]
     pl["ch"] = 0
-    for ch in (32, 24, 16, 8):
-        pl["ps"] = 8 if ch <= 8 else (24 if ch <= 24 else 40)
+    for ch in (40, 32, 24, 16, 8):
+        pl["ps"] = _part_pitch(ch)
         stage = N_BUFFERS * ch * (pl["stride_a"] + pl["stride_h"])
         part = (2 if bf16 else 1) * pl["ksplit"] * pl["m_rows"] * pl["ps"] * 4
         pl["off_part"] = pl["off_stage"] + stage
@@ -188,7 +206,15 @@ def smem_plan(R: int, F_: int, D: int, NC: int, K: int, n_blocks: int,
         pl["total"] = pl["off_misc"] + misc
         if pl["total"] <= SMEM_MAX:
             pl["ch"] = ch
+            pl["ch_fc"], pl["ps_fc"] = ch, pl["ps"]
+            c = ch + 8
+            while (pl["by_phase"] and N_BUFFERS * c * pl["stride_a"] <= stage
+                   and 16 * tf * _part_pitch(c) <= pl["m_rows"] * pl["ps"]):
+                pl["ch_fc"], pl["ps_fc"] = c, _part_pitch(c)
+                c += 8
             break
+    else:
+        pl["ch_fc"] = pl["ps_fc"] = 0
     pl["fits"] = pl["ch"] > 0
     return pl
 
@@ -201,17 +227,20 @@ def _cfg_dims(cfg: WaveRNNConfig):
             0 if gauss else cfg.n_classes // 3)
 
 
-def kernel_plan(cfg: WaveRNNConfig, n_blocks: int, bf16: bool) -> dict:
+def kernel_plan(cfg: WaveRNNConfig, n_blocks: int, bf16: bool,
+                by_phase: bool = True) -> dict:
     """:func:`smem_plan` for ``cfg``; raises, with the numbers, for
-    widths whose resident weights and smallest staging do not fit a
-    block's shared memory."""
+    widths whose weights in shared memory and smallest staging do not
+    fit a block's shared memory."""
     R, F_, D, NC, K = _cfg_dims(cfg)
-    pl = smem_plan(R, F_, D, NC, K, n_blocks, bf16)
+    pl = smem_plan(R, F_, D, NC, K, n_blocks, bf16, by_phase)
     if not pl["fits"]:
         raise ValueError(
             f"rnn_dims {R}, fc_dims {F_}, aux_dims {D}, {NC} classes on "
             f"{n_blocks} blocks need {pl['total']} bytes of shared memory "
-            f"per block ({pl['w_smem']} of resident weights, the rest "
+            f"per block ({pl['w_smem']} of "
+            f"{'one phase' if pl['by_phase'] else 'every phase'}'s "
+            "weights, the rest "
             f"staging for 8 rows), more than the {SMEM_MAX} a Hopper "
             "block can use")
     return pl
@@ -437,7 +466,7 @@ def cuda_generate(w: dict, cfg: WaveRNNConfig, i_static, a_rest, noise1,
     ``utils.profiling.RECORDER`` keeps.
 
     Takes contiguous CUDA float32 tensors (weight matrices f32 or bf16)
-    and raises on anything else, also for widths whose resident weights
+    and raises on anything else, also for widths whose weights of a phase
     and staging do not fit a block's shared memory: there is no fallback
     to the plain version."""
     global GEN_LAUNCHES
@@ -476,7 +505,10 @@ def cuda_generate(w: dict, cfg: WaveRNNConfig, i_static, a_rest, noise1,
         _check("noise2", noise2, (T, B), f32, device)
         n1, n2 = noise1, noise2
     G = int(w["n_blocks"])
-    pl = kernel_plan(cfg, G, bf16)
+    # bf16 few rows: the whole slice in shared memory, where it fits
+    by_phase = not bf16 or B >= WEIGHTS_BY_PHASE_ROWS or not smem_plan(
+        R, F_, D, NC, K, G, bf16, by_phase=False)["fits"]
+    pl = kernel_plan(cfg, G, bf16, by_phase)
     shapes = {"rnn1_bih": (3 * R,), "rnn1_bhh": (3 * R,),
               "rnn2_bih": (3 * R,), "rnn2_bhh": (3 * R,), "fc1_b": (F_,),
               "fc2_b": (F_,), "fc3_b": (NC,), "w_x": (R,)}
@@ -491,8 +523,8 @@ def cuda_generate(w: dict, cfg: WaveRNNConfig, i_static, a_rest, noise1,
         phase_ns = torch.zeros(T, N_STAMPS, dtype=torch.int64, device=device)
 
     lib = _lib()
-    dims = (ctypes.c_int * 10)(T, B, R, F_, D, NC, K, int(gauss),
-                               int(bf16), G)
+    dims = (ctypes.c_int * 11)(T, B, R, F_, D, NC, K, int(gauss),
+                               int(bf16), G, int(by_phase))
     theirs = (ctypes.c_int * len(_PLAN_FIELDS))()
     if (len(dims) != lib.wavernn_loop_n_dims()
             or len(theirs) != lib.wavernn_loop_n_plan()

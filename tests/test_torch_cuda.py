@@ -648,6 +648,68 @@ def test_gen_kernel_rows_independent_of_batch(device, dtype):
     assert 0.0 < G.barrier_us(n=50) < 100.0
 
 
+@pytest.mark.parametrize("B", [8, 37, 200, 1193])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gen_kernel_default_width_rows_stand_alone(device, dtype, B):
+    """At the default width over 300 steps, through the staging as the
+    card runs it there (bf16 below WEIGHTS_BY_PHASE_ROWS rows: the slice
+    resident, chunks of 24 rows copied by every thread; from there on
+    one phase's weights at a time, GRU chunks of 40 rows and fc chunks of
+    72 copied by the last four warps, products over two 8-row tiles at
+    once; f32: by phase, GRU 16 rows, fc 24): a row gives the bits it
+    gives alone, whatever chunk, buffer and tile pair it passed through.
+    8 rows: one chunk; 37: a partial one, an odd tile; 200: many, both
+    buffers refilled; 1,193: sample groups of 10 rows, one a block, the
+    last of 3."""
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    T = 300
+    cfg = W.WaveRNNConfig()
+    g = torch.Generator().manual_seed(B)
+    model = W.WaveRNNModel(cfg, g).to(device)
+    gp = W.cast_generation_params(model, dtype)
+    mels_up = torch.randn(B, T, cfg.n_mels, generator=g).to(device)
+    aux = torch.randn(B, T, cfg.res_out_dims, generator=g).to(device)
+    n1, n2 = W.generation_noise(cfg, g, T, B, device=device)
+    w = G.kernel_weights(gp, cfg)
+    pl = G.kernel_plan(cfg, w["n_blocks"], dtype is not None,
+                       by_phase=B >= G.WEIGHTS_BY_PHASE_ROWS)
+    ist, ar = W.hoisted_inputs(gp, cfg, mels_up, aux)
+    full = G.cuda_generate(w, cfg, ist, ar, n1, n2)
+    assert torch.isfinite(full).all() and full.abs().max() <= 1.0
+    for b in sorted(b for b in {0, pl["ch"] - 1, pl["ch"], B // 2, B - 1}
+                    if b < B):
+        one = G.cuda_generate(w, cfg, *(x[:, b:b + 1].contiguous()
+                                        for x in (ist, ar, n1, n2)))
+        assert torch.equal(one[0], full[b]), b
+
+
+def test_gen_kernel_serves_rnn_and_fc_1024_in_bf16(device):
+    """With one phase's weights in shared memory at a time, rnn and fc
+    1,024 fit in bf16 (8 rows a chunk, two partial-sum tiles a GRU), so
+    the wrapper copies them in by phase even at 19 rows: the kernel
+    against the plain loop over 12 steps at the bf16 tolerance, and a
+    row alone gives its bits in the batch."""
+    from msa_tts_tpu_torch.vocoders import cuda_gen as G
+    from msa_tts_tpu_torch.vocoders import wavernn as W
+
+    B, T = 19, 12
+    cfg, gp, mels_up, aux, n1, n2 = _gen_case(
+        device, B, T, torch.bfloat16, rnn_dims=1024, fc_dims=1024)
+    assert G.kernel_plan(cfg, G._default_blocks(mels_up), True)["ch"] == 8
+    ref = W.generate_samples(gp, cfg, mels_up, aux, n1, n2, backend="torch")
+    w = G.kernel_weights(gp, cfg)
+    ist, ar = W.hoisted_inputs(gp, cfg, mels_up, aux)
+    out = G.cuda_generate(w, cfg, ist, ar, n1, n2)
+    err = float((out - ref).abs().max())
+    assert err <= 2e-2, err
+    one = G.cuda_generate(w, cfg, *(x[:, 11:12].contiguous()
+                                    for x in (ist, ar, n1, n2)))
+    assert torch.equal(one[0], out[11])
+
+
 def test_gen_kernel_rejects_what_it_does_not_take(device):
     from msa_tts_tpu_torch.vocoders import cuda_gen as G
     from msa_tts_tpu_torch.vocoders import wavernn as W
@@ -671,10 +733,11 @@ def test_gen_kernel_rejects_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="shape"):
         G.cuda_generate(w, cfg, ist, ar, n1, n2, phase_ns=torch.zeros(
             9, 3, dtype=torch.int64, device=device))
-    # a width whose bf16 slices outgrow a block's shared memory
-    wide = W.WaveRNNConfig(**dict(GEN_CFG, rnn_dims=1024, fc_dims=1024))
+    # a width whose bf16 weights of one phase outgrow a block's shared
+    # memory
+    wide = W.WaveRNNConfig(**dict(GEN_CFG, rnn_dims=1536, fc_dims=1536))
     model = W.WaveRNNModel(wide, torch.Generator().manual_seed(0)).to(device)
-    with pytest.raises(ValueError, match="of resident weights"):
+    with pytest.raises(ValueError, match="of one phase's weights"):
         G.kernel_weights(W.cast_generation_params(model, torch.bfloat16),
                          wide)
     assert G.GEN_LAUNCHES == before

@@ -115,25 +115,95 @@ def test_product_from_packed_slices_is_the_plain_product():
 
 def test_smem_budget_accepts_the_default_width_and_refuses_a_wide_one():
     cfg = W.WaveRNNConfig()
-    pl = G.kernel_plan(cfg, G.H100_SMS, True)
-    assert pl["fits"] and pl["total"] <= G.SMEM_MAX
-    # the resident slices: 4 units x 6 gate rows (padded to two 16-row
+    # a block's slices: 4 units x 6 gate rows (padded to two 16-row
     # tiles) per GRU, 4 outputs (8-row tiles) per fc, fc3 whole
-    assert pl["sections"] == [16384, 16384, 17408, 16384, 8704, 8704, 32768]
-    assert pl["w_bytes"] == pl["w_smem"] == 116736 and pl["ch"] >= 16
-    assert pl["off_misc"] < pl["total"]
+    res = G.kernel_plan(cfg, G.H100_SMS, True, by_phase=False)
+    assert res["sections"] == [16384, 16384, 17408, 16384, 8704, 8704,
+                               32768]
+    # few rows: the whole slice stays in shared memory, two buffers of 24
+    # rows of 1,104 input and 1,040 hidden-state bytes beside it
+    assert res["w_bytes"] == res["w_smem"] == 116736 and not res["by_phase"]
+    assert (res["stride_a"], res["stride_h"]) == (1104, 1040)
+    assert (res["ch"], res["ch_fc"]) == (24, 24)
+    assert res["off_misc"] < res["total"] == 232416 <= G.SMEM_MAX
+    # many rows: one phase's weights at a time (GRU 2's two matrices the
+    # most), 40-row GRU chunks and 72-row fc chunks
+    pl = G.kernel_plan(cfg, G.H100_SMS, True)
+    assert pl["by_phase"] and pl["w_smem"] == 17408 + 16384
+    assert (pl["ch"], pl["ps"], pl["ch_fc"], pl["ps_fc"]) == (40, 40, 72, 72)
+    assert pl["off_part"] - pl["off_stage"] == 2 * 40 * 2144
+    assert pl["total"] == 226272 <= G.SMEM_MAX
     # f32: one buffer for the largest phase (fc3: 30 rows of 516 floats)
-    pf = G.kernel_plan(cfg, G.H100_SMS, False)
-    assert pf["w_smem"] == 30 * 516 * 4 and pf["ch"] >= 8
+    pf = G.kernel_plan(cfg, G.H100_SMS, False, by_phase=False)
+    assert pf["by_phase"] and pf["w_smem"] == 30 * 516 * 4
+    assert (pf["ch"], pf["ch_fc"]) == (16, 24)
+    # rnn and fc 1,024 fit in bf16 by phase (8 rows a chunk) only
     wide = W.WaveRNNConfig(rnn_dims=1024, fc_dims=1024)
-    with pytest.raises(ValueError, match=r"363520 of resident weights"):
-        G.kernel_plan(wide, G.H100_SMS, True)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        G.kernel_weights(_params(torch.bfloat16, rnn_dims=1024,
-                                 fc_dims=1024)[1], wide, G.H100_SMS)
-    # in f32 a block's rows of one phase already outgrow the buffer
+    assert G.kernel_plan(wide, G.H100_SMS, True)["ch"] == 8
+    with pytest.raises(ValueError, match=r"\(363520 of every phase's "
+                       r"weights, the rest staging for 8 rows\)"):
+        G.kernel_plan(wide, G.H100_SMS, True, by_phase=False)
     with pytest.raises(ValueError, match="bytes of shared memory"):
         G.kernel_plan(wide, G.H100_SMS, False)
+    wider = W.WaveRNNConfig(rnn_dims=1536, fc_dims=1536)
+    with pytest.raises(ValueError, match=r"need 410592 bytes .* \(297984 "
+                       r"of one phase's weights, the rest staging for 8 "
+                       r"rows\)"):
+        G.kernel_plan(wider, G.H100_SMS, True)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        G.kernel_weights(_params(torch.bfloat16, rnn_dims=1536,
+                                 fc_dims=1536)[1], wider, G.H100_SMS)
+
+
+@pytest.mark.parametrize("bf16,by_phase", [(False, True), (True, True),
+                                           (True, False)],
+                         ids=["f32", "bf16", "bf16-resident"])
+@pytest.mark.parametrize("R,F_,D,n_blocks", [
+    (512, 512, 32, 132), (512, 512, 0, 132), (64, 64, 8, 132),
+    (64, 64, 8, 7), (384, 768, 32, 132), (576, 512, 32, 132),
+    (256, 256, 32, 132),
+], ids=["default", "default-noaux", "tiny", "tiny-7", "fc-wide",
+        "rnn-wide", "narrow"])
+def test_staging_takes_the_largest_chunks(R, F_, D, n_blocks, bf16,
+                                          by_phase):
+    """Beside the weights in shared memory (one phase's, the largest
+    phase's room, or bf16's whole slice), the staging takes the most rows
+    of 40, 32, 24, 16, 8 that fit; with weights by phase an fc phase,
+    whose rows hold no hidden state, takes 8 more at a time while its
+    input rows fit the same two buffers and its partial sums the same
+    room; every pitch has a column for every staged row and every buffer
+    starts where a 16-byte copy may land."""
+    pl = G.smem_plan(R, F_, D, 30, 10, n_blocks, bf16, by_phase)
+    sec = pl["sections"]
+    if pl["by_phase"]:
+        assert pl["w_smem"] == max(sec[0] + sec[1], sec[2] + sec[3],
+                                   *sec[4:]) < pl["w_bytes"]
+    else:
+        assert pl["w_smem"] == pl["w_bytes"]
+    assert pl["off_stage"] == pl["w_smem"]
+    assert pl["fits"] and pl["total"] <= G.SMEM_MAX
+    ch, ps, mr = pl["ch"], pl["ps"], pl["m_rows"]
+    assert ch in (8, 16, 24, 32, 40) and ps >= ch and ps % 16 == 8
+    stage = G.N_BUFFERS * ch * (pl["stride_a"] + pl["stride_h"])
+    assert pl["off_part"] - pl["off_stage"] == stage
+    if ch < 40:                     # 8 more rows do not fit
+        part = (2 if bf16 else 1) * pl["ksplit"] * mr * G._part_pitch(
+            ch + 8) * 4
+        misc = pl["total"] - pl["off_misc"]
+        more = G.N_BUFFERS * (ch + 8) * (pl["stride_a"] + pl["stride_h"])
+        assert pl["off_stage"] + more + part + misc > G.SMEM_MAX
+    cf, pf, fc_rows = pl["ch_fc"], pl["ps_fc"], 16 * pl["tf"]
+    assert cf >= ch and cf % 8 == 0 and pf >= cf and pf % 16 == 8
+    assert G.N_BUFFERS * cf * pl["stride_a"] <= stage
+    assert fc_rows * pf <= mr * ps
+    if pl["by_phase"]:
+        assert (G.N_BUFFERS * (cf + 8) * pl["stride_a"] > stage
+                or fc_rows * G._part_pitch(cf + 8) > mr * ps)
+    else:
+        assert (cf, pf) == (ch, ps)
+    for key in ("off_stage", "off_part", "off_misc", "stride_a",
+                "stride_h"):
+        assert pl[key] % 16 == 0, key
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):

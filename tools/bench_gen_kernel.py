@@ -2,7 +2,8 @@
 """Time the WaveRNN sample-loop kernel (K3) on one CUDA GPU.
 
     python3 tools/bench_gen_kernel.py [--rows 1,8,44,80,320] [--steps 3850]
-        [--root DIR] [--out build/bench_gen_kernel.json]
+        [--types f32,bf16] [--root DIR] [--out build/bench_gen_kernel.json]
+        [--save build/k3_samples.pt] [--compare build/k3_samples.pt]
 
 At the default WaveRNN width, from seeded random weights, conditioning
 and noise: microseconds per sample step for f32 and bf16 weight
@@ -19,6 +20,9 @@ example the parent commit unpacked under ``build/``), so that two
 versions of the kernel are timed in one run on one card; only what
 both versions offer is measured there.  ``--check N`` also holds the
 first N steps of each launch against the plain PyTorch loop.
+``--save`` keeps every launch's samples; ``--compare`` holds each launch
+bit for bit to the samples another run saved (for example the parent
+commit's, with ``--root``) and exits 1 if any differ.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3850)
     ap.add_argument("--root", default=None)
     ap.add_argument("--check", type=int, default=0)
+    ap.add_argument("--types", default="f32,bf16")
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--compare", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root or os.path.join(
@@ -63,6 +70,7 @@ def main(argv=None) -> int:
     has_stamps = "phase_ns" in inspect.signature(G.cuda_generate).parameters
     res = {"gpu": gpu, "root": root, "steps": T, "us_per_step": {},
            "phase_us": {}, "barrier_us": None}
+    saved, theirs = {}, (torch.load(args.compare) if args.compare else {})
 
     def timed(fn):
         fn()
@@ -85,6 +93,8 @@ def main(argv=None) -> int:
         aux = torch.randn(b_max, T, cfg.res_out_dims, generator=g).to(device)
         n1, n2 = W.generation_noise(cfg, g, T, b_max, device=device)
         for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            if tag not in args.types.split(","):
+                continue
             gp = W.cast_generation_params(model, dtype)
             w = G.kernel_weights(gp, cfg)
             ist, ar = W.hoisted_inputs(gp, cfg, mels_up, aux)
@@ -96,6 +106,12 @@ def main(argv=None) -> int:
                 out, us = timed(lambda: G.cuda_generate(w, cfg, *inp))
                 line = f"{key}: {us:.2f} us/step"
                 res["us_per_step"][key] = us
+                saved[key] = out.cpu()
+                if key in theirs:
+                    same = torch.equal(saved[key], theirs[key])
+                    line += "; bit for bit as compared" if same else \
+                        "; DIFFERS from the compared samples"
+                    res.setdefault("compared", {})[key] = same
                 if has_stamps and mode == "MOL":
                     st = torch.zeros(T, G.N_STAMPS, dtype=torch.int64,
                                      device=device)
@@ -122,12 +138,14 @@ def main(argv=None) -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print("   ", ln.strip())
+    if args.save:
+        torch.save(saved, args.save)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
-    return 0
+    return 0 if all(res.get("compared", {}).values()) else 1
 
 
 if __name__ == "__main__":
