@@ -1,8 +1,9 @@
 """What decides ``correct``: a sample of the requests that the window
 completed, drawn from the seed with the longest among them, is worked out
 again by the plain reference from the same inputs (text, speaker vector,
-prenet masks, WaveRNN noise, weights made again from the seed), and each
-waveform the served system returned is held against the reference's:
+prenet masks, the vocoder's own inputs, weights made again from the
+seed), and each waveform the served system returned is held against the
+reference's:
 
 - ``wave_rel_err``: the largest relative L2 distance of a sampled
   request's waveform from the reference's, ‖w − w_ref‖ / ‖w_ref‖;
@@ -19,19 +20,22 @@ waveform the served system returned is held against the reference's:
   that the served vocoder was given (kept in the window, see
   :class:`Keeper`), so that the acoustic model's rounding does not hide
   the vocoder's;
-- ``wavernn_step_miss``: with WaveRNN, the share of the sample steps of
-  ``followed_requests`` requests whose mixture choice the noise does not
-  pin at which the served sample departs by more than ``STEP_TOL`` from
-  the sample the reference draws after the served stream's previous
-  samples (the reference teacher-forced on the sample loop's raw folds,
-  kept in the window, from the mel the served vocoder was given): the
-  mixture choice, and so the mixture logits, judged step by step;
 - ``len_diff``: the summed difference in samples of their lengths
-  (the stop steps and the trim, worked out again), exactly 0.
+  (the stop steps and the trim, worked out again), exactly 0;
+- the vocoder part's own numbers (``parts/<vocoder>.py``: ``readings``).
+  With WaveRNN, ``wavernn_step_miss``: the share of the sample steps of
+  ``followed_requests`` requests whose mixture choice the noise does not
+  pin at which the served sample departs by more than
+  ``parts.wavernn.STEP_TOL`` from the sample the reference draws after
+  the served stream's previous samples (the reference teacher-forced on
+  the sample loop's raw folds, kept in the window, from the mel the
+  served vocoder was given): the mixture choice, and so the mixture
+  logits, judged step by step.
 
-With WaveRNN the waveform numbers sample only requests whose mixture
-choice the noise pins (see ``inputs.PIN``): two free-running streams
-part for good at a near tie of the choice.
+The part decides which requests the waveform numbers sample: with
+WaveRNN only those whose mixture choice the noise pins
+(``parts.wavernn.PIN``), since two free-running streams part for good at
+a near tie of the choice.
 
 The controls put the reference in the served system's place, one
 precision step below what the configuration states: the whole model
@@ -48,37 +52,28 @@ import torch
 
 import inputs
 import weights as W
-from reference import hifigan as RH
 from reference import tacotron2 as RT
-from reference import wavernn as RW
 from reference.g2p import phoneme_ids
-from reference.precision import Precision, no_tf32
+from reference.precision import LOWER, Precision, no_tf32
 from traffic.text import quantile_counts, sub_seed
 
-LOWER = {"float32": "bfloat16", "bfloat16": "float8"}
-# a sample step departs where the served sample and the reference's draw
-# differ by more than this: ~10 x their rounding, below the distance
-# between two mixture components' samples
-STEP_TOL = 0.02
 HIGHER = {v: k for k, v in LOWER.items()}
 
 
-def stated(cfg: dict, vocoder: str) -> dict:
+def stated(cfg: dict, part) -> dict:
     """The precisions the configuration states: the acoustic model's
-    ``infer_dtype``, the sample loop's ``gen_dtype``, HiFi-GAN's
-    float32."""
-    voc = {"hifigan": "float32"}
-    if "wavernn" in cfg["vocoders"]:
-        voc["wavernn"] = cfg["vocoders"]["wavernn"]["gen_dtype"]
-    return {"acoustic": cfg["infer_dtype"], "vocoder": voc[vocoder]}
+    ``infer_dtype`` and the vocoder's, as its part states it."""
+    return {"acoustic": cfg["infer_dtype"], "vocoder": part.stated()}
 
 
-def controls(prec: dict) -> dict:
-    """The controls' precisions: every stage one step below, and each
-    stage alone one step below with the other as stated."""
-    return {"control": {k: LOWER[v] for k, v in prec.items()},
-            "control_acoustic": dict(prec, acoustic=LOWER[prec["acoustic"]]),
-            "control_vocoder": dict(prec, vocoder=LOWER[prec["vocoder"]])}
+def controls(prec: dict, part) -> dict:
+    """The controls' precisions: every stage one step below (the
+    vocoder's as its part says), and each stage alone one step below with
+    the other as stated."""
+    low = {"acoustic": LOWER[prec["acoustic"]], "vocoder": part.lower()}
+    return {"control": low,
+            "control_acoustic": dict(prec, acoustic=low["acoustic"]),
+            "control_vocoder": dict(prec, vocoder=low["vocoder"])}
 
 
 def passes(numbers: dict) -> bool:
@@ -91,9 +86,10 @@ class Keeper:
     alone: each of the mix's longest phoneme count, and a share
     ``keep_share`` of the rest drawn from the request's seed.  The window
     keeps a device copy of the vocoder's input mel of each (for
-    ``voc_rel_err``), and with WaveRNN of the sample loop's raw folds of
-    each unpinned one (for ``wavernn_step_miss``); the share keeps the
-    copies to a few per cent of the cell's memory."""
+    ``voc_rel_err``), and whatever the vocoder's part keeps (WaveRNN: the
+    sample loop's raw folds of each unpinned one, for
+    ``wavernn_step_miss``); the share keeps the copies to a few per cent
+    of the cell's memory."""
 
     def __init__(self, traffic: dict, limits: dict):
         self.share = float(limits.get("keep_share", 1.0))
@@ -122,33 +118,40 @@ def sample(requests: list, keeper: Keeper, n: int, seed: int,
     return [longest] + [rest[i] for i in sorted(pick)]
 
 
-def request_masks(cfg: dict, r, calls: list, device) -> torch.Tensor:
-    """(S, 2, P) masks of request ``r``: its row of its call's masks."""
+def request_call(r, calls: list) -> tuple:
+    """(call, row) of request ``r`` among the recorded ``calls``."""
     for c in calls:
         for row, q in enumerate(c.requests):
             if q is r:
-                if c.mask_seed is None:
-                    m = inputs.server_masks(cfg, c.rows).to(device)
-                else:
-                    m = inputs.prenet_masks(cfg, c.mask_seed, c.rows, device)
-                return m[:, :, row]
+                return c, row
     raise RuntimeError(f"request {r.idx} is in no recorded call")
+
+
+def request_masks(cfg: dict, r, calls: list, device) -> torch.Tensor:
+    """(S, 2, P) masks of request ``r``: its row of its call's masks."""
+    c, row = request_call(r, calls)
+    if c.mask_seed is None:
+        m = inputs.server_masks(cfg, c.rows).to(device)
+    else:
+        m = inputs.prenet_masks(cfg, c.mask_seed, c.rows, device)
+    return m[:, :, row]
 
 
 class Reference:
     """The plain reference over the sampled requests: ``reqs``, whose
-    waveforms are compared, then ``followed``, whose sample streams are
-    followed step by step (WaveRNN); ``masks`` their (S, 2, P) prenet
-    masks.  The acoustic model's mels at a precision, and a vocoder's
-    waveforms (float64 arrays) or raw folds from given mels at a
-    precision; each worked out once."""
+    waveforms are compared, then ``followed``, which the vocoder's part
+    follows by readings of its own; ``masks`` their (S, 2, P) prenet
+    masks, ``calls`` the window's calls.  The acoustic model's mels at a
+    precision, and the vocoder's waveforms (float64 arrays) from given
+    mels at a precision (``part.waves``); each worked out once, and
+    ``memo`` keeps what the part works out."""
 
-    def __init__(self, cfg: dict, traffic: dict, seed: int, reqs: list,
-                 followed: list, masks: list, device,
+    def __init__(self, cfg: dict, part, seed: int, reqs: list,
+                 followed: list, masks: list, calls: list, device,
                  backend: str = "rules"):
-        self.cfg, self.traffic, self.device = cfg, traffic, device
+        self.cfg, self.part, self.device = cfg, part, device
         self.reqs, self.n = reqs + followed, len(reqs)
-        self.masks = masks
+        self.masks, self.calls = masks, calls
         with torch.no_grad():
             self.wts = W.all_weights(cfg, sub_seed(seed, "weights"), device)
         self.ids = [phoneme_ids(r.text, backend) for r in self.reqs]
@@ -158,13 +161,10 @@ class Reference:
         self._mels: dict = {"served": [None if r.mel is None else
                                        r.mel.float() for r in self.reqs]}
         self._waves: dict = {}
-        self._raw: dict = {}
-        if "wavernn" in cfg["vocoders"]:
-            self.v = dict(cfg["vocoders"]["wavernn"],
-                          upsample_factors=list(
-                              cfg["vocoders"]["wavernn"]["upsample_factors"]))
+        self.memo: dict = {}
 
-    def _rows(self, which: str) -> slice:
+    def rows(self, which: str) -> slice:
+        """The ``"compared"`` or the ``"followed"`` requests' rows."""
         return slice(0, self.n) if which == "compared" else slice(self.n, None)
 
     @torch.no_grad()
@@ -188,58 +188,8 @@ class Reference:
         mels ``self.mels(mels)``."""
         key = (prec, mels)
         if key not in self._waves:
-            m = self.mels(mels)[: self.n]
-            if self.traffic["vocoder"] == "hifigan":
-                h = self.cfg["vocoders"]["hifigan"]
-                self._waves[key] = [
-                    RH.generate(Precision(prec), self.wts["hifigan"], h,
-                                x[None])[0].double().cpu().numpy() for x in m]
-            else:
-                samples, n_folds = self.raw(prec, mels, "compared")
-                self._waves[key] = RW.unfold(self.v, samples, n_folds,
-                                             [x.shape[-1] for x in m])
+            self._waves[key] = self.part.waves(self, prec, mels)
         return self._waves[key]
-
-    def _noises(self, reqs: list, mels: list) -> list:
-        hop = self.cfg["audio_params"]["hop_length"]
-        bucket = -(-max(m.shape[-1] for m in mels) // 32) * 32
-        _, n_pad = inputs.fold_rows(bucket, hop, self.v["target"],
-                                    self.v["overlap"])
-        L = self.v["target"] + 2 * self.v["overlap"]
-        return [inputs.wavernn_noise(sub_seed(r.seed, "noise"), L, n_pad,
-                                     self.device, pinned=r.pinned)
-                for r in reqs]
-
-    @torch.no_grad()
-    @no_tf32()
-    def raw(self, prec: str, mels: str, which: str) -> tuple:
-        """WaveRNN's raw folds (B, n_pad, L) at ``prec`` from the mels
-        ``self.mels(mels)`` of the ``"compared"`` or ``"followed"``
-        requests, and the real fold count."""
-        key = (prec, mels, which)
-        if key not in self._raw:
-            rows = self._rows(which)
-            m = self.mels(mels)[rows]
-            self._raw[key] = RW.raw_samples(
-                Precision(prec), self.wts["wavernn"], self.v, m,
-                self._noises(self.reqs[rows], m))
-        return self._raw[key]
-
-    @torch.no_grad()
-    @no_tf32()
-    def steps_missed(self, stream, prec: str, mels: str) -> float:
-        """The share of the followed requests' sample steps (real folds)
-        at which ``stream`` (B, n_pad, L) departs by more than
-        ``STEP_TOL`` (or is not a number) from the sample the reference
-        at ``prec`` draws, from the mels ``self.mels(mels)``, after the
-        stream's previous samples."""
-        rows = self._rows("followed")
-        m = self.mels(mels)[rows]
-        drawn, n_folds = RW.raw_samples(
-            Precision(prec), self.wts["wavernn"], self.v, m,
-            self._noises(self.reqs[rows], m), forced=stream)
-        d = (drawn[:, :n_folds] - stream[:, :n_folds].float()).abs()
-        return float((~(d <= STEP_TOL)).float().mean())
 
 
 def compare(waves: list, refs: list) -> dict:
@@ -261,27 +211,24 @@ def compare(waves: list, refs: list) -> dict:
             "len_diff": float(dlen)}
 
 
-def judge(cfg, traffic, limits, seed, requests, calls, device, *,
+def judge(cfg, traffic, limits, seed, requests, calls, device, part, *,
           backend: str = "rules", log=print, control: bool = False) -> tuple:
     """(readings, controls): name → value for the sampled requests, every
     number the check works out; with ``control``, each control's name →
-    its readings in the served system's place.  An empty sample reads
-    ``sampled_requests`` 0, which fails."""
+    its readings in the served system's place.  ``part``: the mix's
+    vocoder's.  An empty sample reads ``sampled_requests`` 0, which
+    fails."""
     keeper = Keeper(traffic, limits)
-    n = int(limits["requests"])
-    followed = []
-    if traffic["vocoder"] == "wavernn":
-        reqs = sample(requests, keeper, n, seed, pinned=True)
-        followed = sample(requests, keeper,
-                          int(limits.get("followed_requests", 0)), seed,
-                          pinned=False)
-    else:
-        reqs = sample(requests, keeper, n, seed)
+
+    def draw(n: int, pinned: bool | None = None) -> list:
+        return sample(requests, keeper, n, seed, pinned)
+
+    reqs, followed = part.sample(draw, limits)
     if not reqs:
         return {"sampled_requests": 0.0}, {}
     masks = [request_masks(cfg, r, calls, device) for r in reqs + followed]
-    prec = stated(cfg, traffic["vocoder"])
-    ref = Reference(cfg, traffic, seed, reqs, followed, masks, device,
+    prec = stated(cfg, part)
+    ref = Reference(cfg, part, seed, reqs, followed, masks, calls, device,
                     backend)
     refs = ref.waves(prec["vocoder"], prec["acoustic"])
     log(f"check: {len(reqs)} requests ({', '.join(str(r.idx) for r in reqs)}"
@@ -294,33 +241,28 @@ def judge(cfg, traffic, limits, seed, requests, calls, device, *,
         unit = max(compare(ref.waves(prec["vocoder"], higher),
                            refs)["wave_rel_err_pooled"], 1e-300)
 
-    def readings(waves: list, mels: str, stream) -> dict:
+    def readings(waves: list, mels: str, vocoder: str | None) -> dict:
         """The numbers of ``waves``, which a vocoder made from the mels
-        ``ref.mels(mels)``, and of the followed requests' raw folds
-        ``stream`` (None: missing)."""
+        ``ref.mels(mels)``: the served one (``vocoder`` None) or the
+        reference at ``vocoder``."""
         out = compare(waves, refs)
         out["voc_rel_err"] = (
             float("inf") if any(m is None for m in ref.mels(mels)) else
             compare(waves, ref.waves(prec["vocoder"], mels))["wave_rel_err"])
         if unit is not None:
             out["wave_err_per_rounding"] = out["wave_rel_err_pooled"] / unit
-        if "followed_requests" in limits:
-            out["wavernn_step_miss"] = (
-                float("inf") if stream is None or not followed else
-                ref.steps_missed(stream, prec["vocoder"], mels))
+        with torch.no_grad(), no_tf32():
+            out.update(part.readings(ref, limits, prec["vocoder"], mels,
+                                     vocoder))
         return out
 
-    served = (None if any(r.folds is None for r in followed) or not followed
-              else torch.stack([r.folds for r in followed]))
-    got = readings([r.wav for r in reqs], "served", served)
+    got = readings([r.wav for r in reqs], "served", None)
     if not control:
         return got, {}
     ctl = {}
-    for name, p in controls(prec).items():
-        stream = (ref.raw(p["vocoder"], p["acoustic"], "followed")[0]
-                  if followed else None)
+    for name, p in controls(prec, part).items():
         ctl[name] = readings(ref.waves(p["vocoder"], p["acoustic"]),
-                             p["acoustic"], stream)
+                             p["acoustic"], p["vocoder"])
     return got, ctl
 
 

@@ -78,8 +78,10 @@ def forbidden_modules() -> list:
 class Ctx:
     """What a traffic generator drives and records into.  A generator
     sets ``current`` to the call it is about to make into the system, so
-    that the vocoder's input mels (and WaveRNN's raw folds) of the
-    requests the check may sample are kept (``check.Keeper``)."""
+    that the vocoder's input mels of the requests the check may sample
+    (``check.Keeper``) are kept, and whatever the mix's vocoder part keeps
+    besides (``part.hook``); ``part.call_inputs`` gives a call's inputs of
+    the vocoder's own."""
 
     def __init__(self, cfg, traffic, seed, system, device, keeper):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
@@ -88,6 +90,11 @@ class Ctx:
         self.spk_emb = inputs.speaker_vector(cfg, seed)
         self.current = None
         self.keeper = keeper
+        if traffic["vocoder"] not in system.parts:
+            raise SystemExit(f"the mix's vocoder {traffic['vocoder']!r} is "
+                             f"not among the configuration's "
+                             f"{sorted(system.parts)}")
+        self.part = system.parts[traffic["vocoder"]]
         inner = self.tts._vocode
 
         def keep(mels, *a, **kw):
@@ -99,35 +106,12 @@ class Ctx:
             return inner(mels, *a, **kw)
 
         self.tts._vocode = keep
-        if traffic["vocoder"] == "wavernn":
-            voc = self.tts._attached("wavernn")
-            run_folded = voc._run_folded
-
-            def keep_folds(*a, **kw):
-                # a device copy of each wanted unpinned row's raw folds
-                samples, n_folds = run_folded(*a, **kw)
-                call = self.current
-                for r, x in zip(call.requests if call else [], samples):
-                    if self.keeper.wants(r) and not r.pinned:
-                        r.folds = x.clone()
-                return samples, n_folds
-
-            voc._run_folded = keep_folds
+        self.part.hook(self)
 
     def pinned(self, s: int) -> bool:
         share = float(self.traffic.get("pinned_share", 0.0))
         return (s % 10_000) < share * 10_000
 
-    def voc_noise(self, reqs) -> list:
-        v = self.cfg["vocoders"]["wavernn"]
-        hop = self.cfg["audio_params"]["hop_length"]
-        m = self.cfg["model"]
-        frames = -(-m["max_decoder_steps"] * m["n_frames_per_step"] // 32) * 32
-        _, n_pad = inputs.fold_rows(frames, hop, v["target"], v["overlap"])
-        L = v["target"] + 2 * v["overlap"]
-        return [inputs.wavernn_noise(sub_seed(r.seed, "noise"), L, n_pad,
-                                     self.device, pinned=r.pinned)
-                for r in reqs]
 
 
 def percentile(values, q: float) -> float:
@@ -209,9 +193,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
         prof.__exit__(None, None, None)
     c1 = sysm.counters()
     counts = {k: c1[k] - c0[k] for k in c0}
-    log(f"launches in the window: K1 {counts['k1_launches']}, "
-        f"K3 {counts['k3_launches']}; requests {len(requests)}, "
-        f"device calls {len(calls)}")
+    log(f"launches in the window: "
+        f"{', '.join(f'{k} {v}' for k, v in counts.items())}; "
+        f"requests {len(requests)}, device calls {len(calls)}")
     metrics = {}
     units = {m["name"]: m["unit"] for m in bench["end_to_end"] + bench["per_layer"]}
     if not trace:
@@ -228,7 +212,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
         # what the metric readers read
         run = SimpleNamespace(
             trace=tr, calls=calls, requests=requests, cfg=cfg,
-            traffic=traffic, gen=gen, t0=t0, t1=t1,
+            traffic=traffic, part=ctx.part, gen=gen, t0=t0, t1=t1,
             cudnn_tf32=torch.backends.cudnn.allow_tf32,
             matmul_tf32=torch.backends.cuda.matmul.allow_tf32)
         for m in bench["per_layer"]:
@@ -243,6 +227,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
         del prof
     # the served system's state is freed before the reference runs
     late = getattr(gen, "late_s", None)
+    part = ctx.part
     ctx.tts = ctx.system = None
     del gen, sysm
     gc.collect()
@@ -251,7 +236,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
     attempted = len(requests)
     failed = sum(r.error is not None or r.wav is None for r in requests)
     got, ctl = check.judge(cfg, traffic, limits, seed, requests, calls,
-                           device, log=log,
+                           device, part, log=log,
                            backend="espeak" if g2p == "espeak" else "rules",
                            control=control)
     numbers = check.limited(got, limits)

@@ -13,13 +13,13 @@ class Request:
     idx: int
     text: str
     n_phonemes: int
-    seed: int                   # its masks' and noise's seed
-    pinned: bool = False        # its WaveRNN mixture choice pinned
+    seed: int                   # its masks' and vocoder inputs' seed
+    pinned: bool = False        # its sampling pinned by its noise (WaveRNN)
     t_due: float = 0.0          # host clock, s
     t_done: float | None = None
     wav: np.ndarray | None = None
     mel: torch.Tensor | None = None   # its vocoder's input, where kept
-    folds: torch.Tensor | None = None  # WaveRNN's raw folds, where kept
+    kept: dict = field(default_factory=dict)  # the vocoder part's copies
     error: str | None = None
 
     @property

@@ -7,8 +7,11 @@ Everything between the products (biases, normalisations,
 nonlinearities, the recurrent state) stays float32.
 
 - ``float32``: no rounding (the products run with TF32 off).
+- ``tf32``: both operands rounded to TF32's 10-bit significand, the
+  type one step below float32 with TF32 off.
 - ``bfloat16``: both operands rounded to bfloat16, the type a served
-  bfloat16 model's products take.
+  bfloat16 model's products take, and one step below float32 where TF32
+  is on.
 - ``float8``: both operands scaled by their largest magnitude to the
   range of float8 e4m3 and rounded to it (one scale per tensor), the
   type one step below bfloat16.  This is the control's precision.
@@ -21,6 +24,9 @@ import contextlib
 import torch
 
 E4M3_MAX = 448.0
+# the nearest precision below each stated one, where TF32 is on (cuDNN's
+# convolutions by PyTorch's default) or the type is not float32
+LOWER = {"float32": "bfloat16", "bfloat16": "float8"}
 
 
 def _round_fp8(x: torch.Tensor) -> torch.Tensor:
@@ -33,13 +39,20 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """To the nearest TF32 value (13 low significand bits dropped, ties
+    away from zero)."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 class Precision:
     def __init__(self, name: str):
-        if name not in ("float32", "bfloat16", "float8"):
+        if name not in ("float32", "tf32", "bfloat16", "float8"):
             raise ValueError(f"unknown precision {name!r}")
         self.name = name
-        self._round = {"float32": lambda x: x, "bfloat16": _round_bf16,
-                       "float8": _round_fp8}[name]
+        self._round = {"float32": lambda x: x, "tf32": _round_tf32,
+                       "bfloat16": _round_bf16, "float8": _round_fp8}[name]
         self._cache: dict = {}
 
     def w(self, t: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     import torch
 
+    import check
     import harness
     import system as S
     import weights as W
@@ -41,6 +42,7 @@ def main(argv=None) -> int:
     c = harness.cell(bench, a.workload)
     cfg = harness.load_json(harness.config_file(bench, c["config"]))
     base = harness.load_json(HERE, "traffic", f"{c['traffic']}.json")
+    limits = harness.load_json(HERE, "checks", f"{a.workload}.json")
     dev = torch.device("cuda:0")
     with torch.no_grad():
         sysm = S.System(cfg, W.all_weights(cfg, sub_seed(a.seed, "weights"),
@@ -49,7 +51,8 @@ def main(argv=None) -> int:
     for rate in [float(x) for x in a.rates.split(",")]:
         traffic = copy.deepcopy(base)
         traffic["rate_per_s"] = rate
-        ctx = harness.Ctx(cfg, traffic, a.seed, sysm, dev)
+        ctx = harness.Ctx(cfg, traffic, a.seed, sysm, dev,
+                          check.Keeper(traffic, limits))
         gen = harness.module(path, "pb_sweep").Workload(ctx)
         gen.warmup()
         reqs, calls, t0, t1 = gen.run(a.seconds)

@@ -174,3 +174,86 @@ def test_rounding_units_separate_sound_control_and_fault(monkeypatch):
     _answer_altered(monkeypatch)
     res = tiny.run(cell, SEED + 1, infer_dtype="bfloat16", limits=lim)
     assert not res["correct"], res["compared"]
+
+
+# the readings of each closed-loop cell"s tiny run with a window of 1 ms
+# (one call), the served system"s and each control"s, read on the CPU
+# before the vocoders moved into their parts (``parts/``); a reading of
+# another CPU"s rounding would differ in its own last digits
+BEFORE = {
+    "t2nv_lsa_r1.offline_hifigan_b16": {
+        "served": {"wave_rel_err": 9.897490823990923e-07,
+            "wave_rel_err_pooled": 9.439352119579934e-07, "len_diff": 0.0,
+            "voc_rel_err": 7.541234019238999e-07},
+        "control": {"wave_rel_err": 0.019044252766454235,
+            "wave_rel_err_pooled": 0.01785090446273581, "len_diff": 0.0,
+            "voc_rel_err": 0.01309128816521903},
+        "control_acoustic": {"wave_rel_err": 0.013850935041123431,
+            "wave_rel_err_pooled": 0.012860880071267212, "len_diff": 0.0,
+            "voc_rel_err": 0.0},
+        "control_vocoder": {"wave_rel_err": 0.012528232338684536,
+            "wave_rel_err_pooled": 0.012448903445695103, "len_diff": 0.0,
+            "voc_rel_err": 0.012528232338684536},
+    },
+    "t2nv_lsa_r1.single_hifigan": {
+        "served": {"wave_rel_err": 9.482220275119539e-07,
+            "wave_rel_err_pooled": 9.482220275119539e-07, "len_diff": 0.0,
+            "voc_rel_err": 0.0},
+        "control": {"wave_rel_err": 0.017558981912860226,
+            "wave_rel_err_pooled": 0.017558981912860226, "len_diff": 0.0,
+            "voc_rel_err": 0.012328395721701213},
+        "control_acoustic": {"wave_rel_err": 0.012014544022384452,
+            "wave_rel_err_pooled": 0.012014544022384452, "len_diff": 0.0,
+            "voc_rel_err": 0.0},
+        "control_vocoder": {"wave_rel_err": 0.011944464945181697,
+            "wave_rel_err_pooled": 0.011944464945181697, "len_diff": 0.0,
+            "voc_rel_err": 0.011944464945181697},
+    },
+    "msa_t2nv_fa_r2.offline_wavernn_b16": {
+        "served": {"wave_rel_err": 1.5589262556113097e-07,
+            "wave_rel_err_pooled": 1.5118566493631156e-07, "len_diff": 0.0,
+            "voc_rel_err": 0.0},
+        "control": {"wave_rel_err": 0.002817914556518568,
+            "wave_rel_err_pooled": 0.0027202998265693098, "len_diff": 0.0,
+            "voc_rel_err": 0.0024574332690202217},
+        "control_acoustic": {"wave_rel_err": 0.0012503023179516327,
+            "wave_rel_err_pooled": 0.0011234815360825696, "len_diff": 0.0,
+            "voc_rel_err": 0.0},
+        "control_vocoder": {"wave_rel_err": 0.002464871521112846,
+            "wave_rel_err_pooled": 0.002414129377379554, "len_diff": 0.0,
+            "voc_rel_err": 0.002464871521112846},
+    },
+    "msa_t2nv_fa_r2.offline_wavernn_b16.followed": {
+        "served": {"wave_rel_err": 1.5589262556113097e-07,
+            "wave_rel_err_pooled": 1.5283582075274051e-07, "len_diff": 0.0,
+            "voc_rel_err": 0.0, "wavernn_step_miss": 0.0},
+        "control": {"wave_rel_err": 0.002817914556518568,
+            "wave_rel_err_pooled": 0.002733227996558558, "len_diff": 0.0,
+            "voc_rel_err": 0.0024574332690202217,
+            "wavernn_step_miss": 8.658008300699294e-05},
+        "control_acoustic": {"wave_rel_err": 0.0012503023179516327,
+            "wave_rel_err_pooled": 0.001126765579264794, "len_diff": 0.0,
+            "voc_rel_err": 0.0, "wavernn_step_miss": 0.0},
+        "control_vocoder": {"wave_rel_err": 0.0024391788758946187,
+            "wave_rel_err_pooled": 0.002397036878173813, "len_diff": 0.0,
+            "voc_rel_err": 0.0024391788758946187,
+            "wavernn_step_miss": 0.0002597402490209788},
+    },
+}
+
+
+@pytest.mark.parametrize("case", sorted(BEFORE))
+def test_readings_as_before(case):
+    """The served system's readings and the controls' are what they were
+    before the vocoders moved into their parts."""
+    cell, kw = case.removesuffix(".followed"), {}
+    if case.endswith(".followed"):
+        kw = dict(limits=dict(tiny.LIMITS["wavernn"], followed_requests=2,
+                              wavernn_step_miss=1e-3),
+                  traffic_over={"pinned_share": 0.5})
+    res = tiny.run(cell, SEED, seconds=1e-3, control=True, **kw)
+    got = {"served": res["readings"],
+           **{k: c["readings"] for k, c in res["controls"].items()}}
+    assert set(got) == set(BEFORE[case])
+    for name, r in BEFORE[case].items():
+        assert got[name] == pytest.approx(r, rel=1e-6, abs=0.0), name

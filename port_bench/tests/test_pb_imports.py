@@ -35,8 +35,13 @@ def test_cell_setup_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_port():
+    """Nor do the vocoders' parts until they build a vocoder or read its
+    counters."""
     mods = _modules(
         "import sys, json, check, inputs, weights\n"
-        "from reference import g2p, hifigan, precision, tacotron2, wavernn\n"
+        "from reference import (g2p, griffinlim, hifigan, precision,"
+        " tacotron2, wavernn)\n"
+        "import parts\n"
+        "from parts import griffinlim, hifigan, wavernn\n"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     assert not mods & (FORBIDDEN | {"msa_tts_tpu_torch"})

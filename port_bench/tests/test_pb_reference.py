@@ -8,12 +8,15 @@ import torch
 import inputs
 import tiny
 import weights as W
+from parts import wavernn as PW
+from reference import griffinlim as RG
 from reference import hifigan as RH
 from reference import tacotron2 as RT
 from reference import wavernn as RW
 from reference.g2p import phoneme_ids
 from reference.precision import Precision
 from traffic import text
+from work import wavernn as WW
 
 SEED = 2 ** 35 + 3
 
@@ -106,12 +109,41 @@ def test_wavernn_against_the_port(dtype, atol):
     voc = WaveRNN(wm, wcfg, gen_dtype=dtype, device="cpu")
     g = torch.Generator().manual_seed(2)
     mels = [0.3 * torch.randn(80, 9, generator=g) - 1.0 for _ in range(2)]
-    _, n_pad = inputs.fold_rows(32, 256, v["target"], v["overlap"])
+    _, n_pad = WW.fold_rows(32, 256, v["target"], v["overlap"])
     L = v["target"] + 2 * v["overlap"]
-    noises = [inputs.wavernn_noise(s, L, n_pad, "cpu", pinned=True)
-              for s in (3, 4)]
+    noises = [PW.noise(s, L, n_pad, "cpu", pinned=True) for s in (3, 4)]
     got = voc.generate_batch(mels, noises=noises, verbose=False)
     ref = RW.generate(Precision(dtype), sd, v, mels, noises)
     for a, b in zip(got, ref):
         assert len(a) == len(b) == 8 * 256
         assert float(np.abs(a - b).max()) < atol
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_griffinlim_against_the_port(batched):
+    """The same phase and mels alone and as a batch padded to 32 frames:
+    the reference (its pseudo-inverse in float64) against the port (in
+    float32) reads 1e-4 to 4e-3 here; the reference in TF32, the
+    control's step, 0.07 to 0.38."""
+    from msa_tts_tpu_torch.ops.audio import griffinlim_logmelspec
+
+    ap = tiny.config("t2nv_lsa_r1")["audio_params"]
+    g = torch.Generator().manual_seed(1)
+    T, F, n = 24, 32 if batched else 24, 3 if batched else 1
+    mels = [0.5 * torch.randn(80, T, generator=g) - 2.0 for _ in range(n)]
+    phase = torch.rand((n, 513, F), generator=g) * 2 * np.pi - np.pi
+    if batched:
+        port = griffinlim_logmelspec(
+            torch.stack([torch.cat([m, m.min().expand(80, F - T)], 1)
+                         for m in mels]), ap, init_phase=phase)
+        port = [w[: (T - 1) * 256] for w in port.double().numpy()]
+    else:
+        port = [griffinlim_logmelspec(mels[0], ap, init_phase=phase[0])
+                .double().numpy()]
+    for i, w in enumerate(port):
+        for prec, lo, hi in (("float32", 0, 1e-2), ("tf32", 0.03, np.inf)):
+            ref = RG.invert(Precision(prec), ap, mels[i], phase[i],
+                            F if batched else None)
+            assert len(ref) == len(w) == (T - 1) * 256
+            err = np.linalg.norm(w - ref) / np.linalg.norm(ref)
+            assert lo < err < hi, (prec, err)

@@ -1,5 +1,6 @@
 """The frozen work counts against hand counts at tiny shapes."""
 
+from work import griffinlim as WG
 from work import hifigan as WH
 from work import peaks
 from work import tacotron as WT
@@ -61,6 +62,13 @@ def test_hifigan_by_hand():
     hand = 3 * 8 * 7 * t + 2 * 4 * 4 * 4 * t + 2 * 2 * 4 * 4 * 3 * 2 * t \
         + 4 * 7 * 2 * t
     assert WH.ops(h, 3, 1, t) == 2 * hand
+
+
+def test_griffinlim_by_hand():
+    ap = {"n_fft": 8, "hop_length": 2, "n_mels": 3, "griffinlim_iters": 2}
+    fft = 2.5 * 8 * 3
+    assert WG.ops(ap, 2, 10) == 2 * (2 * 5 * 3 * 10 + 5 * 10 * fft)
+    assert WG.ops(ap, 1, 3) == 2 * 5 * 3 * 5 + 5 * 5 * fft
 
 
 def test_bound_picks_the_larger():

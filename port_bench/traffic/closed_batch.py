@@ -1,7 +1,8 @@
 """Closed loop, one client: batches of ``batch`` sentences back to back
 through ``AdaptiveTTS.synthesize_batch`` with the mix's vocoder, each
-batch with its prenet masks (and WaveRNN noise) from its own seed.  The
-next batch is sent when the last one's waveforms are on the host."""
+batch with its prenet masks (and the vocoder's own inputs) from its own
+seed.  The next batch is sent when the last one's waveforms are on the
+host."""
 
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ class Workload:
                     rows=B, mask_seed=sub_seed(reqs[0].seed, "masks"))
         with span("inputs"):
             masks = inputs.prenet_masks(ctx.cfg, call.mask_seed, B, ctx.device)
-            noise = ctx.voc_noise(reqs) if p["vocoder"] == "wavernn" else None
+            voc_inputs = ctx.part.call_inputs(ctx, reqs)
         ctx.current = call
         call.t_start = time.perf_counter()
         for r in reqs:
@@ -49,7 +50,7 @@ class Workload:
         with span("synthesize_batch"):
             wavs = ctx.tts.synthesize_batch(
                 [r.text for r in reqs], vocoder=p["vocoder"],
-                spk_emb=ctx.spk_emb, pre_masks=masks, voc_noise=noise)
+                spk_emb=ctx.spk_emb, pre_masks=masks, **voc_inputs)
         call.t_end = time.perf_counter()
         for r, w in zip(reqs, wavs):
             r.t_done, r.wav = call.t_end, w

@@ -1,7 +1,7 @@
 """Closed loop, one client: one sentence at a time through
 ``AdaptiveTTS.synthesize`` with the mix's vocoder, each with its prenet
-masks (and WaveRNN noise) from its own seed; the next is sent when the
-last one's waveform is on the host."""
+masks (and the vocoder's own inputs) from its own seed; the next is sent
+when the last one's waveform is on the host."""
 
 from __future__ import annotations
 
@@ -20,13 +20,13 @@ class Workload(_Batch):
                     rows=1, mask_seed=r.seed)
         with span("inputs"):
             masks = inputs.prenet_masks(ctx.cfg, call.mask_seed, 1, ctx.device)
-            noise = ctx.voc_noise(reqs) if p["vocoder"] == "wavernn" else None
+            voc_inputs = ctx.part.call_inputs(ctx, reqs)
         ctx.current = call
         call.t_start = r.t_due = time.perf_counter()
         with span("synthesize"):
             r.wav = ctx.tts.synthesize(r.text, vocoder=p["vocoder"],
                                        spk_emb=ctx.spk_emb, pre_masks=masks,
-                                       voc_noise=noise)
+                                       **voc_inputs)
         call.t_end = r.t_done = time.perf_counter()
         return call
 

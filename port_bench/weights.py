@@ -1,13 +1,14 @@
 """Random weights for a configuration, made on the device from the seed.
 
-Every leaf of the three models (the Tacotron-2 acoustic model, WaveRNN,
-HiFi-GAN) is listed here from the configuration's sizes, under the
-published checkpoints' ``state_dict`` keys, with the distribution it is
-drawn from: uniform in [lo, hi), scaled by the leaf's fan-in as the
-published initialisers scale it.  All leaves of a model come from one
-``torch.rand`` call on a generator on the device, cut into views; a leaf
-that a configuration fixes (a mean filter, the gate's bias) is a
-constant.  The served system and the reference get the same tensors.
+Every leaf of each model (the Tacotron-2 acoustic model here, each
+vocoder in its part, ``parts/<vocoder>.py``) is listed from the
+configuration's sizes, under the published checkpoints' ``state_dict``
+keys, with the distribution it is drawn from: uniform in [lo, hi), scaled
+by the leaf's fan-in as the published initialisers scale it.  All leaves
+of a model come from one ``torch.rand`` call on a generator on the
+device, cut into views; a leaf that a configuration fixes (a mean filter,
+the gate's bias) is a constant.  The served system and the reference get
+the same tensors.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def _xavier(fan_in: int, fan_out: int, gain: float = 1.0):
     return (-a, a)
 
 
-def _bn(spec: dict, name: str, n: int) -> None:
+def bn(spec: dict, name: str, n: int) -> None:
     spec[f"{name}.weight"] = ((n,), (0.5, 1.5))
     spec[f"{name}.bias"] = ((n,), (-0.1, 0.1))
     spec[f"{name}.running_mean"] = ((n,), (-0.1, 0.1))
@@ -70,7 +71,7 @@ def tacotron_spec(model: dict, gate_bias: float) -> dict:
         s[f"encoder.convolutions.{i}.0.conv.weight"] = (
             (C, cin, k), _xavier(cin * k, C * k, g_relu))
         s[f"encoder.convolutions.{i}.0.conv.bias"] = ((C,), (-0.05, 0.05))
-        _bn(s, f"encoder.convolutions.{i}.1", C)
+        bn(s, f"encoder.convolutions.{i}.1", C)
     for suffix in ("_l0", "_l0_reverse"):
         _lstm(s, "encoder.lstm", C, C // 2, suffix)
     s["decoder.prenet.layers.0.linear_layer.weight"] = ((P, MR), _xavier(MR, P))
@@ -110,83 +111,7 @@ def tacotron_spec(model: dict, gate_bias: float) -> dict:
         s[f"postnet.convolutions.{i}.0.conv.weight"] = (
             (cout, cin, kp), _xavier(cin * kp, cout * kp, gain))
         s[f"postnet.convolutions.{i}.0.conv.bias"] = ((cout,), (-0.05, 0.05))
-        _bn(s, f"postnet.convolutions.{i}.1", cout)
-    return s
-
-
-def wavernn_spec(v: dict, n_mels: int) -> dict:
-    c, ro, rnn, fc = (v["compute_dims"], v["res_out_dims"], v["rnn_dims"],
-                      v["fc_dims"])
-    d = ro // 4
-    k = 2 * v["pad"] + 1
-    s = {}
-
-    def lin(name, n_out, n_in, bias=True):
-        b = 1.0 / math.sqrt(n_in)
-        s[f"{name}.weight"] = ((n_out, n_in), (-b, b))
-        if bias:
-            s[f"{name}.bias"] = ((n_out,), (-b, b))
-
-    R = "upsample.resnet."
-    b = 1.0 / math.sqrt(n_mels * k)
-    s[R + "conv_in.weight"] = ((c, n_mels, k), (-b, b))
-    _bn(s, R + "batch_norm", c)
-    for i in range(v["res_blocks"]):
-        b = 1.0 / math.sqrt(c)
-        s[f"{R}layers.{i}.conv1.weight"] = ((c, c, 1), (-b, b))
-        s[f"{R}layers.{i}.conv2.weight"] = ((c, c, 1), (-b, b))
-        _bn(s, f"{R}layers.{i}.batch_norm1", c)
-        _bn(s, f"{R}layers.{i}.batch_norm2", c)
-    b = 1.0 / math.sqrt(c)
-    s[R + "conv_out.weight"] = ((ro, c, 1), (-b, b))
-    s[R + "conv_out.bias"] = ((ro,), (-b, b))
-    for i, f in enumerate(v["upsample_factors"]):
-        s[f"upsample.up_layers.{2 * i + 1}.weight"] = (
-            (1, 1, 1, 2 * f + 1), 1.0 / (2 * f + 1))
-    lin("I", rnn, n_mels + d + 1)
-    u = (-1.0 / math.sqrt(rnn), 1.0 / math.sqrt(rnn))
-    for name, n_in in (("rnn1", rnn), ("rnn2", rnn + d)):
-        s[f"{name}.weight_ih_l0"] = ((3 * rnn, n_in), u)
-        s[f"{name}.weight_hh_l0"] = ((3 * rnn, rnn), u)
-        s[f"{name}.bias_ih_l0"] = ((3 * rnn,), u)
-        s[f"{name}.bias_hh_l0"] = ((3 * rnn,), u)
-    lin("fc1", fc, rnn + d)
-    lin("fc2", fc, fc + d)
-    lin("fc3", 30, fc)
-    # the output's bias by part: mixture weights and means near 0, the
-    # log scales near -4, so that the logistics' scales (~0.02) leave the
-    # samples inside [-1, 1] instead of clamped at its ends
-    s["fc3.bias"] = ((30,), [(20, -0.1, 0.1), (10, -4.5, -3.5)])
-    return s
-
-
-def hifigan_spec(h: dict, n_mels: int, gain: float) -> dict:
-    """Weights U(±gain/√fan_in): ``gain`` keeps the random generator's
-    waveform away from both silence and tanh's saturation."""
-    s = {}
-
-    def conv(name, shape, fan_in):
-        b = gain / math.sqrt(fan_in)
-        s[f"{name}.weight"] = (shape, (-b, b))
-        s[f"{name}.bias"] = ((shape[0] if "ups" not in name else shape[1],),
-                             (-0.01, 0.01))
-
-    ch = h["upsample_initial_channel"]
-    conv("conv_pre", (ch, n_mels, 7), n_mels * 7)
-    nk = len(h["resblock_kernel_sizes"])
-    for i, (u, k) in enumerate(zip(h["upsample_rates"],
-                                   h["upsample_kernel_sizes"])):
-        c = ch // 2 ** (i + 1)
-        conv(f"ups.{i}", (2 * c, c, k), 2 * c * k // u)
-        for j, (kk, dils) in enumerate(zip(h["resblock_kernel_sizes"],
-                                           h["resblock_dilation_sizes"])):
-            for m in range(len(dils)):
-                names = ([f"convs1.{m}", f"convs2.{m}"] if h["resblock"] == "1"
-                         else [f"convs.{m}"])
-                for nm in names:
-                    conv(f"resblocks.{i * nk + j}.{nm}", (c, c, kk), c * kk)
-    conv("conv_post", (1, ch // 2 ** len(h["upsample_rates"]), 7),
-         ch // 2 ** len(h["upsample_rates"]) * 7)
+        bn(s, f"postnet.convolutions.{i}.1", cout)
     return s
 
 
@@ -220,18 +145,30 @@ def make(spec: dict, generator: torch.Generator, device) -> dict:
     return {k: out[k] for k in spec}
 
 
+# the vocoders of the first configurations, in the order they drew their
+# weights; any other draws after these, in the configuration's order
+DRAWN_FIRST = ("wavernn", "hifigan")
+
+
+def vocoder_order(cfg: dict) -> list:
+    """The configuration's vocoders in the order their weights are
+    drawn."""
+    voc = list(cfg["vocoders"])
+    return ([n for n in DRAWN_FIRST if n in voc]
+            + [n for n in voc if n not in DRAWN_FIRST])
+
+
 def all_weights(cfg: dict, seed: int, device) -> dict:
-    """``{"tacotron": sd, "wavernn": sd, "hifigan": sd}`` for the
-    configuration's model and the vocoders it attaches."""
+    """``{"tacotron": sd, <vocoder>: sd, ...}`` for the configuration's
+    model and each vocoder that has weights (``parts/<vocoder>.py``), all
+    drawn from one generator in ``vocoder_order``."""
+    import parts
+
     g = torch.Generator(device=device).manual_seed(seed % (2 ** 63))
-    n_mels = cfg["audio_params"]["n_mels"]
     out = {"tacotron": make(tacotron_spec(model_params(cfg), cfg["gate_bias"]),
                             g, device)}
-    voc = cfg["vocoders"]
-    if "wavernn" in voc:
-        out["wavernn"] = make(wavernn_spec(voc["wavernn"], n_mels), g, device)
-    if "hifigan" in voc:
-        out["hifigan"] = make(hifigan_spec(
-            voc["hifigan"], n_mels, cfg["random_init"]["hifigan_gain"]),
-            g, device)
+    for name, part in parts.of(cfg).items():
+        spec = part.weight_spec()
+        if spec:
+            out[name] = make(spec, g, device)
     return out

@@ -11,6 +11,16 @@ from __future__ import annotations
 N_CLASSES = 30          # mixture of logistics: 10 x (weight, mean, scale)
 
 
+def fold_rows(frames: int, hop: int, target: int, overlap: int) -> tuple:
+    """(folds, folds rounded up to a multiple of 4) of a mel of
+    ``frames`` frames, as the served vocoder folds it."""
+    T = frames * hop
+    n = (T - overlap) // (target + overlap)
+    if T - (n * (overlap + target) + overlap) != 0:
+        n += 1
+    return n, -(-n // 4) * 4
+
+
 def loop_matrix_weights(v: dict) -> int:
     rnn, fc = v["rnn_dims"], v["fc_dims"]
     d = v["res_out_dims"] // 4
