@@ -22,10 +22,11 @@ Text → phonemes (``utils/g2p``) → Tacotron-2 with the decoder loop as
 the CUDA kernel on a GPU (its plain PyTorch version on the CPU) →
 Griffin-Lim, or a neural vocoder registered with ``attach_vocoder``:
 WaveRNN (its sample loop as one CUDA kernel launch for all of a batch's
-folds on a GPU) or HiFi-GAN.  ``synthesize_stream`` runs the decoder in
-segments (the CUDA segment kernel on a GPU) through a delayed-exact
-postnet and a chunked vocoder.  Each request draws its prenet dropout
-masks, its Griffin-Lim starting phase and its WaveRNN sampling noise
+folds on a GPU), HiFi-GAN or WaveGlow (bfloat16 products through cuBLAS
+and cuDNN).  ``synthesize_stream`` runs the decoder in segments (the
+CUDA segment kernel on a GPU) through a delayed-exact postnet and a
+chunked vocoder (not WaveGlow).  Each request draws its prenet dropout
+masks, its Griffin-Lim starting phase and its WaveRNN or WaveGlow noise
 from a ``torch.Generator`` seeded by the request's ``seed``; the parity
 tests inject them instead.  The mel stays on the device from the decoder
 to the vocoder.
@@ -166,6 +167,11 @@ def _hop(ap: dict) -> int:
     ``hop_size`` ("ap2" / HiFi-GAN params)."""
     return ap.get("hop_length", ap.get("hop_size"))
 
+
+# the neural vocoders ``attach_vocoder`` takes: name → the class of the
+# object it takes (``vocoders/<name>.py``)
+NEURAL_VOCODERS = {"wavernn": "WaveRNN", "hifigan": "HiFiGAN",
+                   "waveglow": "WaveGlowVocoder"}
 
 TP_WITH_DP = ("serving parallel: use {dp: N} (batch throughput) or {tp: M} "
               "(per-stream latency), not both")
@@ -545,7 +551,8 @@ class AdaptiveTTS:
         """Text → waveform as the adapted speaker (or the base model with
         an explicit ``spk_emb``).  ``pre_masks`` (S, 2, 1, P), ``gl_phase``
         and ``voc_noise`` (WaveRNN: a list with the utterance's
-        ``(noise1, noise2)`` pair) inject the noise a request would
+        ``(noise1, noise2)`` pair; WaveGlow: a list with its latent
+        noise, ``vocoders/waveglow.py``) inject the noise a request would
         otherwise draw from a generator seeded with ``seed``."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
         with annotate("tts.g2p"):
@@ -573,8 +580,9 @@ class AdaptiveTTS:
         (B, T) shape, and a ``parallel: {dp: N}`` mesh pads it to a
         multiple of N; filler rows replicate row 0 and are dropped from
         the result.  ``pre_masks`` (S, 2, Bp, P), ``gl_phase`` and
-        ``voc_noise`` (WaveRNN: one ``(noise1, noise2)`` pair per text)
-        inject the request's noise."""
+        ``voc_noise`` (WaveRNN: one ``(noise1, noise2)`` pair per text;
+        WaveGlow: one latent noise tensor per text) inject the request's
+        noise."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
         with annotate("tts.g2p"):
             seqs = [self._phonemes(t) for t in texts]
@@ -603,19 +611,19 @@ class AdaptiveTTS:
 
     # ------------------------------------------------------------ vocoders
     def attach_vocoder(self, name: str, vocoder) -> None:
-        """Register a neural vocoder: ``name`` in {"wavernn", "hifigan"},
-        ``vocoder`` a ``vocoders.wavernn.WaveRNN`` or
-        ``vocoders.hifigan.HiFiGAN``.  It is moved to this model's
-        device, so the mel never leaves it."""
-        if name not in ("wavernn", "hifigan"):
+        """Register a neural vocoder: ``name`` a key of
+        :data:`NEURAL_VOCODERS`, ``vocoder`` an object of the class it
+        names.  It is moved to this model's device, so the mel never
+        leaves it."""
+        if name not in NEURAL_VOCODERS:
             raise ValueError(f"unknown vocoder name: {name}")
         self._vocoders[name] = vocoder.to(self.device)
 
     def _attached(self, name: str):
         voc = self._vocoders.get(name)
         if voc is None:
-            cls = "WaveRNN" if name == "wavernn" else "HiFiGAN"
-            raise ValueError(f"attach_vocoder({name!r}, {cls}(...)) first")
+            raise ValueError(f"attach_vocoder({name!r}, "
+                             f"{NEURAL_VOCODERS[name]}(...)) first")
         return voc
 
     def _vocode(self, mels: list[torch.Tensor], vocoder: str,
@@ -637,6 +645,13 @@ class AdaptiveTTS:
             with annotate("tts.vocode.hifigan"):
                 wavs = (voc.inference_batch(mels) if len(mels) > 1
                         else [voc.inference(m) for m in mels])
+            with annotate("tts.to_host"):
+                return [w.cpu().numpy() for w in wavs]
+        if vocoder == "waveglow":
+            voc = self._attached("waveglow")
+            with annotate("tts.vocode.waveglow"):
+                wavs = voc.infer_batch(mels, noise=voc_noise,
+                                       generator=generator)
             with annotate("tts.to_host"):
                 return [w.cpu().numpy() for w in wavs]
         if vocoder != "griffinlim":
@@ -891,6 +906,10 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
                              pad_to=segment_steps * r + 3 * pctx)
     if vocoder == "none":
         return _StreamCursor(cfg, r, post, _MelRelay)
+    if vocoder == "waveglow":
+        raise ValueError(
+            "vocoder='waveglow' is not streamed: its flows run over the "
+            "whole mel; use synthesize or synthesize_batch")
     if vocoder not in ("griffinlim", "wavernn", "hifigan"):
         raise ValueError(f"unknown vocoder: {vocoder}")
     if vocoder != "hifigan" and vocode_ctx_frames < 1:

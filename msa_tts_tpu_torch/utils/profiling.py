@@ -25,9 +25,9 @@ profiler keeps the ranges of that thread only, so a worker thread's
 spans live in the recorder alone.  A span that crosses threads (a
 request's wait in a queue) is added with its start and end
 (:meth:`Recorder.add`).  While it is on, the decoder-loop and sample-loop
-kernels also pass their clock-stamp buffers to :meth:`Recorder.stamp`;
-they stay on the device until a reader asks for them
-(:meth:`Recorder.stamps`).
+kernels also pass their clock-stamp buffers to :meth:`Recorder.stamp`,
+and WaveGlow its calls' CUDA events; they stay on the device until a
+reader asks for them (:meth:`Recorder.stamps`).
 """
 
 from __future__ import annotations
@@ -75,10 +75,13 @@ class Span(NamedTuple):
 
 
 class Stamps(NamedTuple):
-    kind: str                   # "k1" (decoder loop) or "k3" (sample loop)
+    kind: str                   # "k1" (decoder loop), "k3" (sample loop)
+    #                             or "waveglow" (a call's flows)
     t_ns: int                   # the launch, on the trace's clock
-    steps: int                  # the steps the launch stamped
-    us: dict                    # the kernel's phase breakdown, µs a step
+    steps: int                  # the steps (WaveGlow: marks) it stamped
+    us: dict                    # the phase breakdown, µs a step (a call)
+    info: dict | None = None    # the call's shape (WaveGlow: rows,
+    #                             positions)
 
 
 def on() -> bool:
@@ -106,19 +109,22 @@ class Recorder:
         self.spans.append(Span(name, start_ns, end_ns, None,
                                next(self._ids), None, ident))
 
-    def stamp(self, kind: str, buf: torch.Tensor, steps, reduce) -> None:
+    def stamp(self, kind: str, buf, steps, reduce,
+              info: dict | None = None) -> None:
         """Keep a launch's clock-stamp buffer ``buf`` (left on the
-        device) with its step count (an int or a one-element device
-        tensor) and the kernel's ``reduce(stamps) -> dict``."""
+        device; or a call's list of marks) with its step count (an int
+        or a one-element device tensor), the kernel's ``reduce(stamps)
+        -> dict`` and the call's shape ``info``."""
         if len(self._stamped) < MAX_STAMPED:
-            self._stamped.append((kind, time.time_ns(), buf, steps, reduce))
+            self._stamped.append((kind, time.time_ns(), buf, steps, reduce,
+                                  info))
 
     def stamps(self, kind: str) -> list[Stamps]:
         """The kept launches of ``kind``, reduced (this reads the
         device, once per launch)."""
-        for k, t, buf, steps, reduce in self._stamped:
+        for k, t, buf, steps, reduce, info in self._stamped:
             n = int(steps)
-            self._reduced.append(Stamps(k, t, n, reduce(buf[:n])))
+            self._reduced.append(Stamps(k, t, n, reduce(buf[:n]), info))
         self._stamped = []
         return [s for s in self._reduced if s.kind == kind]
 
