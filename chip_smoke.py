@@ -2,9 +2,9 @@
 """Drive the PyTorch port's serving and training paths once on one CUDA
 GPU.
 
-    python3 chip_smoke.py [--only 12,13,14,15,16,17]
+    python3 chip_smoke.py [--only 12,13,14,15,16,17,18]
 
-(``--only``: phase 1, then only the training phases named.)
+(``--only``: phase 1, then only the phases named.)
 
 Phases (any failure exits non-zero):
   1. require CUDA, build the hand-written kernels from the sources in
@@ -111,7 +111,14 @@ Phases (any failure exits non-zero):
      tasks) at ``{dp: 1, tp: 2}`` over two gloo ranks sharing the card
      against world 1, the joint run resumed at tp 2 (bit for bit) and at
      world 1, each rank's peak memory and the bytes it holds, warm step
-     times.
+     times;
+ 18. hold WaveGlow's two WN passes (``vocoders/cuda_wn.py``) bit for bit
+     against their eager ops at the benchmark cell's N = 512,000
+     positions and C = 256, bfloat16 and float32, and time each beside
+     them; serve a batch through ``synthesize_batch(vocoder=
+     "waveglow")`` at NVIDIA's published width and count its WN launches
+     (192); time the cell's call (16 rows of 1,000 frames) with the
+     passes and with the eager ops, and hold its waveforms bit for bit.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -121,7 +128,8 @@ the sample loop, phase 10's scan for the cell; the decoder kernels'
 ``adapted_voice_launches`` are phase 11's, ``trained_checkpoint_launches``
 phase 12's, ``joint_`` and ``ewc_checkpoint_launches`` phase 13's; the
 sample loop's ``trained_checkpoint_launches`` phase 14's; the whole
-loop's ``dp_serving_launches`` phase 16's), its
+loop's ``dp_serving_launches`` phase 16's; the WN passes' launches phase
+18's), its
 error against the
 plain version, both times, and the least time the card could take for
 the same work (``bound_ms``: the larger of bytes over 3.35 TB/s and
@@ -4683,6 +4691,159 @@ def tp_phase(device) -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 18
+# WaveGlow's WN passes (csrc/waveglow_wn.cu) at the benchmark cell's
+# call: 16 rows of 1,000 frames, N = 512,000 group positions, C = 256
+# channels (NVIDIA's config.json: 12 flows of 8 layers).
+WG_ROWS, WG_FRAMES, WG_C, WG_LAYERS, WG_FLOWS = 16, 1000, 256, 8, 12
+
+
+def _wn_differ(got, want, what: str) -> None:
+    """Raise, naming the output and how many of its elements differ,
+    unless ``got`` equals ``want`` bit for bit."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}, the "
+                             f"eager ops {want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: {int((got != want).sum())} of "
+                             f"{got.numel()} elements differ from the eager "
+                             "ops")
+
+
+def wn_passes(device, dt, N: int, C: int) -> dict:
+    """Each WN pass against its eager ops at N positions of C channels in
+    type ``dt``: bit for bit (the residual pass of the first, a middle
+    and the last layer), then a launch of the gate and of a middle
+    layer's residual pass (7 of a flow's 8) timed with CUDA events;
+    bound: each input read and each output written once over 3.35
+    TB/s."""
+    import torch
+
+    from msa_tts_tpu_torch.vocoders import cuda_wn as CW
+
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def rnd(w):
+        return torch.randn((1, N, w), generator=g, device=device).to(dt)
+
+    zc, zd, rs, x, skip, rs_last = (rnd(w) for w in (2 * C, 2 * C, 2 * C,
+                                                     C, C, C))
+    acts = CW.gate_reference(zc, zd)
+    _wn_differ(CW.cuda_gate(zc, zd), acts, f"gate ({dt})")
+    for layer, r, s in (("first", rs, None), ("middle", rs, skip),
+                        ("last", rs_last, skip)):
+        s2 = None if s is None else s.clone()
+        kern = CW.cuda_residual(r, x.clone(), s2)
+        plain = CW.residual_reference(r, x.clone(),
+                                      None if s is None else s.clone())
+        for out, got, want in zip(("x", "skip"), kern, plain):
+            _wn_differ(got, want, f"residual pass, {layer} layer, {out} "
+                                  f"({dt})")
+    res = {}
+    for name, kern, plain, nbytes in (
+            ("gate", lambda: CW.cuda_gate(zc, zd),
+             lambda: CW.gate_reference(zc, zd), _nbytes(zc, zd, acts)),
+            # x and skip in place: each read and written
+            ("residual", lambda: CW.cuda_residual(rs, x, skip),
+             lambda: CW.residual_reference(rs, x, skip),
+             _nbytes(rs, x, skip, x, skip))):
+        kern()
+        plain()
+        ms, plain_ms = _time_ms(kern, 20), _time_ms(plain, 20)
+        bound_ms, _ = _bound(nbytes, 0, BF16_FLOPS)
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "bytes": nbytes}
+        print(f"  {name} ({dt}): kernel {1e3 * ms:.1f} us, eager ops "
+              f"{1e3 * plain_ms:.1f} us, bound {1e3 * bound_ms:.1f} us "
+              f"({nbytes / 1e9:.3f} GB; kernel at "
+              f"{100 * bound_ms / ms:.1f} % of 3.35 TB/s); bit for bit")
+    # one WN layer's pair (the last layer's residual pass is lighter)
+    return {k: res["gate"][k] + res["residual"][k]
+            for k in ("ms", "plain_ms", "bound_ms")} | res
+
+
+def waveglow_phase(device) -> dict:
+    """Phase 18: WaveGlow's WN passes alone (``wn_passes``) at the cell's
+    N and C, bfloat16 and float32; a batch served through
+    ``AdaptiveTTS.synthesize_batch(vocoder="waveglow")`` at the published
+    width, its WN launches counted from 0 (2 x layers x flows); then,
+    outside that count, the cell's call (``infer_batch`` over 16 rows of
+    1,000 frames) timed with the passes and with their eager ops in their
+    place, and its waveforms held bit for bit to the eager ops' (cuDNN
+    deterministic for that comparison: in float32 it may otherwise take
+    an algorithm for the upsampler whose sums land in another order)."""
+    import numpy as np
+    import torch
+
+    from msa_tts_tpu_torch.vocoders import cuda_wn as CW
+    from msa_tts_tpu_torch.vocoders.waveglow import WaveGlowVocoder
+    from tools.bench_waveglow import published_waveglow
+
+    hop = SHIPPED_AUDIO["hop_length"]
+    N = WG_ROWS * WG_FRAMES * hop // 8          # n_group 8
+    res = {}
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        print(f"  WN passes alone ({tag}): N {N}, C {WG_C}")
+        res[tag] = wn_passes(device, dt, N, WG_C)
+        torch.cuda.empty_cache()
+
+    # ---- the main path: every WN launch from here to the count is served
+    tts = _serving_tts(device)
+    voc = WaveGlowVocoder(published_waveglow(0), dtype="bfloat16",
+                          device=device)
+    tts.attach_vocoder("waveglow", voc)
+    emb = np.random.default_rng(0).standard_normal(
+        tts.cfg.speaker_embedding_dim).astype(np.float32)
+    n_frames = tts.cfg.max_decoder_steps * tts.cfg.n_frames_per_step
+    CW.WN_LAUNCHES = 0
+    wavs = tts.synthesize_batch(TEXTS[:2], spk_emb=emb, seed=0,
+                                vocoder="waveglow")
+    res["launches"] = CW.WN_LAUNCHES
+    want = 2 * WG_LAYERS * WG_FLOWS
+    print(f"  synthesize_batch x2 (vocoder='waveglow'): {res['launches']} "
+          f"WN launches (want {want})")
+    if res["launches"] != want:
+        raise AssertionError(f"{res['launches']} WN launches in one served "
+                             f"WaveGlow call, want {want}")
+    for w in wavs:
+        if w.shape != (n_frames * hop,) or not np.isfinite(w).all():
+            raise AssertionError(f"waveglow: wav of shape {w.shape} (want "
+                                 f"{n_frames * hop}) or not finite")
+    del tts, wavs
+
+    # ---- the cell's call, not counted above
+    g = torch.Generator().manual_seed(1)
+    mels = [torch.randn((80, WG_FRAMES), generator=g)
+            for _ in range(WG_ROWS)]
+    noise = [torch.randn((8, WG_FRAMES * hop // 8), generator=g)
+             for _ in range(WG_ROWS)]
+    passes = CW.cuda_gate, CW.cuda_residual
+    eager = CW.gate_reference, CW.residual_reference
+    det = torch.backends.cudnn.deterministic
+    out = {}
+    try:
+        for side, (gate, residual) in (("kernels", passes),
+                                       ("eager", eager)):
+            CW.cuda_gate, CW.cuda_residual = gate, residual
+            voc.infer_batch(mels, noise)
+            res["call_ms" if side == "kernels" else "plain_call_ms"] = (
+                _time_ms(lambda: voc.infer_batch(mels, noise), 3))
+            torch.backends.cudnn.deterministic = True
+            out[side] = torch.stack(voc.infer_batch(mels, noise))
+            torch.backends.cudnn.deterministic = det
+    finally:
+        CW.cuda_gate, CW.cuda_residual = passes
+        torch.backends.cudnn.deterministic = det
+    _wn_differ(out["kernels"], out["eager"], "the cell's call, waveforms")
+    print(f"  the cell's call ({WG_ROWS} x {WG_FRAMES} frames, bf16): "
+          f"{res['call_ms']:.1f} ms with the passes, "
+          f"{res['plain_call_ms']:.1f} ms with the eager ops; waveforms "
+          "bit for bit")
+    return res
+
+
 def main(argv=None) -> int:
     import shutil
 
@@ -4700,8 +4861,8 @@ def _run(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--only", default=None,
-                    help="comma-separated phases (12, 13, 14, 15, 16, 17) to "
-                         "run "
+                    help="comma-separated phases (12, 13, 14, 15, 16, 17, "
+                         "18) to run "
                          "after phase 1 instead of all phases; the kernels "
                          "line is then not printed")
     only = ap.parse_args(argv).only
@@ -4719,7 +4880,8 @@ def _run(argv=None) -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    build.prebuild(["decoder_loop", "wavernn_loop", "lstm_cell"])
+    build.prebuild(["decoder_loop", "wavernn_loop", "lstm_cell",
+                    "waveglow_wn"])
     CD._lib()
     print(f"phase 1: kernels built/loaded in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -4754,7 +4916,8 @@ def _run(argv=None) -> int:
             t0 = time.perf_counter()
             res = {"12": maml_phase, "13": train_phase,
                    "14": vocoder_phase, "15": cli_phase,
-                   "16": parallel_phase, "17": tp_phase}[phase](device)
+                   "16": parallel_phase, "17": tp_phase,
+                   "18": waveglow_phase}[phase](device)
             print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
             print(gpu)
             print(json.dumps({phase: res}))
@@ -4886,6 +5049,14 @@ def _run(argv=None) -> int:
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
     print(gpu)
     print(json.dumps({"tp": tpp}))
+    print("phase 18: WaveGlow's WN passes alone at the cell's shape, a "
+          "batch served with WaveGlow attached, and the cell's call "
+          "against the eager ops")
+    t0 = time.perf_counter()
+    wg = waveglow_phase(device)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    print(gpu)
+    print(json.dumps({"waveglow": wg}))
 
     def dec_entry(name, line, res, n_launch):
         """One decoder kernel's entry: float32 at the top (B = 4, T_in
@@ -4959,6 +5130,21 @@ def _run(argv=None) -> int:
         "source": "msa_tts_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "msa_tts_tpu/experimental/pallas_lstm_cell.py:87",
         **ck,
+    }, {
+        # one WN layer's gate and residual pass, each a launch at the
+        # cell's call (N 512,000, C 256), bf16 as served (f32 under
+        # "f32"); launches: phase 18's served batch, 2 a layer
+        "name": "waveglow_wn",
+        "route": "cuda",
+        "source": "msa_tts_tpu_torch/csrc/waveglow_wn.cu",
+        "replaces": None,
+        "launches": wg["launches"],
+        "max_abs_err": 0.0,
+        **wg["bf16"],
+        "library_ms": None,
+        "f32": wg["f32"],
+        "call_ms": wg["call_ms"],
+        "plain_call_ms": wg["plain_call_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

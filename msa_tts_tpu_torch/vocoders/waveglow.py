@@ -31,7 +31,10 @@ is drawn standard normal from ``generator``.
 **Layout.** Activations are positions-major, ``(B, L, C)``: a 1×1
 convolution is one cuBLAS product over ``B·L`` rows (``F.linear``, bias
 in its epilogue), a dilated one a cuDNN convolution on the channels-last
-view, and the last flow's ``(B, L, n_group)`` is the waveform.
+view, and the last flow's ``(B, L, n_group)`` is the waveform.  What
+lies between a WN layer's products, the gate and the residual and skip
+sums, is two hand-written passes on CUDA tensors (``cuda_wn``,
+``csrc/waveglow_wn.cu``) and eager ops on the CPU, with the same bits.
 
 **Precision** (``dtype="bfloat16"``; ``"float32"`` computes everything
 in float32).  R(·) is rounding to bfloat16.
@@ -77,6 +80,7 @@ from torch import nn
 from ..utils import profiling
 from ..utils.backend import load_device
 from ..utils.profiling import annotate
+from . import cuda_wn
 
 UPSAMPLE_KERNEL = 1024
 HOP = 256
@@ -252,25 +256,25 @@ class WaveGlowVocoder:
 
     def wn(self, f: _Flow, a0: torch.Tensor, spect: torch.Tensor,
            pad: torch.Tensor | None) -> torch.Tensor:
-        """The flow's WN: ``end``'s output (B, L, 2·n_half), float32."""
-        nc = f.start_w.shape[0]
+        """The flow's WN: ``end``'s output (B, L, 2·n_half), float32.
+        Between a layer's products, the gate and the residual pass
+        (``cuda_wn``): one kernel launch each on CUDA tensors, the eager
+        ops on the CPU."""
+        if a0.is_cuda:
+            gate, residual = cuda_wn.cuda_gate, cuda_wn.cuda_residual
+        else:
+            gate, residual = cuda_wn.gate_reference, cuda_wn.residual_reference
         x = F.linear(a0.to(self._dt), f.start_w, f.start_b)
+        if pad is not None:
+            x = x.masked_fill(pad, 0.0)
         skip = None
-        n = len(f.in_w)
-        for i in range(n):
-            if pad is not None:
-                x = x.masked_fill(pad, 0.0)
+        for i in range(len(f.in_w)):
             z = F.linear(spect, f.cond_w[i], f.cond_b[i])
-            z += self._dilated(x, f.in_w[i], 2 ** i)
-            acts = torch.tanh(z[..., :nc]) * torch.sigmoid(z[..., nc:])
+            acts = gate(z, self._dilated(x, f.in_w[i], 2 ** i))
             rs = F.linear(acts, f.rs_w[i], f.rs_b[i])
-            if i < n - 1:
-                x = x + rs[..., :nc]
-                s = rs[..., nc:]
-            else:
-                s = rs
-            skip = s if skip is None else skip + s
-        return F.linear(skip.float(), f.end_w, f.end_b)
+            # zeroes x's padded positions for the next layer
+            x, skip = residual(rs, x, skip, pad)
+        return F.linear(skip, f.end_w, f.end_b)
 
     def reverse_flow(self, k: int, audio: torch.Tensor, spect: torch.Tensor,
                      pad: torch.Tensor | None = None) -> torch.Tensor:

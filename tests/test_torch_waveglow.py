@@ -236,3 +236,27 @@ def test_spans_and_stamps(tts, monkeypatch):
     assert st.us["total"] == pytest.approx(st.us["upsample"] + st.us["flows"])
     assert voc.calls == calls + 2
     RECORDER.clear()
+
+
+def test_cpu_takes_the_eager_ops(voc, monkeypatch):
+    """On the CPU the WN passes neither build nor load their library and
+    launch nothing; the kernels' wrappers refuse CPU tensors."""
+    from msa_tts_tpu_torch.kernels import build
+    from msa_tts_tpu_torch.vocoders import cuda_wn as CW
+
+    def refuse(*a, **kw):
+        raise AssertionError("the WN library was asked for on the CPU")
+
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(CW, "_lib", refuse)
+    mels, noise = mels_and_noise(8, [4, 6])
+    wavs = voc.infer_batch(mels, noise)
+    assert CW.WN_LAUNCHES == 0
+    for mel, z, w in zip(mels, noise, wavs):
+        assert rel(w, ref_wave(voc.model, mel, z)) < RTOL
+    zc = torch.zeros((1, 3, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        CW.cuda_gate(zc, zc)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        CW.cuda_residual(zc, zc[..., :4].contiguous(), None)
+    assert CW.WN_LAUNCHES == 0
