@@ -469,11 +469,11 @@ class TTSServer:
 
     # ------------------------------------------------------ device call
     def servable_vocoders(self) -> set:
-        """Vocoders this server can return as audio: Griffin-Lim always,
-        plus whatever was attached.  The library-level ``"none"`` (raw
+        """Vocoders this server can return as audio: those attached
+        (Griffin-Lim by default).  The library-level ``"none"`` (raw
         mel) is excluded: flattened mel bytes under an audio/wav content
         type would be well-formed garbage."""
-        return {"griffinlim"} | set(self.tts._vocoders)
+        return set(self.tts._vocoders)
 
     def _resolve_voice(self, voice_name):
         """Voice-name → (Voice | None, default spk_emb | None); raises

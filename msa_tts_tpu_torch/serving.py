@@ -19,17 +19,15 @@ never touches the serving model's tensors.  Voices and ``.ckpt``
 checkpoints are the JAX package's msgpack files (``utils/checkpoint.py``).
 
 Text → phonemes (``utils/g2p``) → Tacotron-2 with the decoder loop as
-the CUDA kernel on a GPU (its plain PyTorch version on the CPU) →
-Griffin-Lim, or a neural vocoder registered with ``attach_vocoder``:
-WaveRNN (its sample loop as one CUDA kernel launch for all of a batch's
-folds on a GPU), HiFi-GAN or WaveGlow (bfloat16 products through cuBLAS
-and cuDNN).  ``synthesize_stream`` runs the decoder in segments (the
-CUDA segment kernel on a GPU) through a delayed-exact postnet and a
-chunked vocoder (not WaveGlow).  Each request draws its prenet dropout
-masks, its Griffin-Lim starting phase and its WaveRNN or WaveGlow noise
-from a ``torch.Generator`` seeded by the request's ``seed``; the parity
-tests inject them instead.  The mel stays on the device from the decoder
-to the vocoder.
+the CUDA kernel on a GPU (its plain PyTorch version on the CPU) → a
+vocoder attached by name (``attach_vocoder``, the seam of
+``vocoders/__init__.py``: Griffin-Lim by default, WaveRNN, HiFi-GAN,
+WaveGlow).  ``synthesize_stream`` runs the decoder in segments (the CUDA
+segment kernel on a GPU) through a delayed-exact postnet and a chunked
+vocoder.  Each request draws its prenet dropout masks, then its
+vocoder's noise, from a ``torch.Generator`` seeded by the request's
+``seed``; the parity tests inject them instead.  The mel stays on the
+device from the decoder to the vocoder.
 
 ``infer_dtype: bfloat16`` casts the model (parameters, batch-norm
 state) and the speaker vector to bfloat16, as the JAX package's
@@ -103,7 +101,7 @@ from .models.tacotron2nv import (
     postnet_residual,
     tacotron2nv_infer,
 )
-from .ops.audio import griffinlim_logmelspec, load_wav, trim_margin_silence
+from .ops.audio import load_wav, trim_margin_silence
 from .optim import make_optimizer
 from .parallel.mesh import Mesh, make_mesh
 from .parallel.tp import (
@@ -115,6 +113,7 @@ from .parallel.tp import (
     tp_shardings,
 )
 from .utils.backend import load_device, resolve_kernel_backend
+from .utils.batching import pad_mel_batch
 from .utils.checkpoint import (
     load_checkpoint,
     load_model_checkpoint,
@@ -123,6 +122,8 @@ from .utils.checkpoint import (
 from .utils.convert import jax_from_state_dict, state_dict_from_jax
 from .utils.g2p import N_SYMBOLS, Grapheme2Phoneme
 from .utils.profiling import RECORDER, annotate
+from .vocoders import SEAM
+from .vocoders.griffinlim import GriffinLim
 
 
 @dataclass(eq=False)
@@ -161,17 +162,6 @@ def teacher_forced_loss_fn(cfg, crit: dict):
 
     return loss_fn
 
-
-def _hop(ap: dict) -> int:
-    """The hop in samples: ``hop_length`` ("ap" params), else
-    ``hop_size`` ("ap2" / HiFi-GAN params)."""
-    return ap.get("hop_length", ap.get("hop_size"))
-
-
-# the neural vocoders ``attach_vocoder`` takes: name → the class of the
-# object it takes (``vocoders/<name>.py``)
-NEURAL_VOCODERS = {"wavernn": "WaveRNN", "hifigan": "HiFiGAN",
-                   "waveglow": "WaveGlowVocoder"}
 
 TP_WITH_DP = ("serving parallel: use {dp: N} (batch throughput) or {tp: M} "
               "(per-stream latency), not both")
@@ -269,6 +259,7 @@ class AdaptiveTTS:
             check_supported(self.cfg.decoder_config())
         self.g2p = Grapheme2Phoneme()
         self._vocoders: dict = {}
+        self.attach_vocoder(GriffinLim.name, GriffinLim(params["audio_params"]))
         self._voice_cache: weakref.WeakKeyDictionary = (
             weakref.WeakKeyDictionary()
         )
@@ -550,9 +541,8 @@ class AdaptiveTTS:
                    gl_phase=None, voc_noise=None) -> np.ndarray:
         """Text → waveform as the adapted speaker (or the base model with
         an explicit ``spk_emb``).  ``pre_masks`` (S, 2, 1, P), ``gl_phase``
-        and ``voc_noise`` (WaveRNN: a list with the utterance's
-        ``(noise1, noise2)`` pair; WaveGlow: a list with its latent
-        noise, ``vocoders/waveglow.py``) inject the noise a request would
+        (Griffin-Lim's starting phase) and ``voc_noise`` (a list of one
+        noise, as the vocoder takes it) inject the noise a request would
         otherwise draw from a generator seeded with ``seed``."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
         with annotate("tts.g2p"):
@@ -580,9 +570,7 @@ class AdaptiveTTS:
         (B, T) shape, and a ``parallel: {dp: N}`` mesh pads it to a
         multiple of N; filler rows replicate row 0 and are dropped from
         the result.  ``pre_masks`` (S, 2, Bp, P), ``gl_phase`` and
-        ``voc_noise`` (WaveRNN: one ``(noise1, noise2)`` pair per text;
-        WaveGlow: one latent noise tensor per text) inject the request's
-        noise."""
+        ``voc_noise`` (the vocoder's, one a text) inject the noise."""
         emb = voice.spk_emb if voice else np.asarray(spk_emb, np.float32)
         with annotate("tts.g2p"):
             seqs = [self._phonemes(t) for t in texts]
@@ -611,19 +599,19 @@ class AdaptiveTTS:
 
     # ------------------------------------------------------------ vocoders
     def attach_vocoder(self, name: str, vocoder) -> None:
-        """Register a neural vocoder: ``name`` a key of
-        :data:`NEURAL_VOCODERS`, ``vocoder`` an object of the class it
-        names.  It is moved to this model's device, so the mel never
-        leaves it."""
-        if name not in NEURAL_VOCODERS:
-            raise ValueError(f"unknown vocoder name: {name}")
+        """Serve ``vocoder`` (the seam of ``vocoders/__init__.py``) as
+        ``vocoder=name``, on this model's device: the mel stays there."""
+        missing = [a for a in SEAM if not hasattr(vocoder, a)]
+        if missing:
+            raise ValueError(f"{type(vocoder).__name__} is not a vocoder: "
+                             f"it has no {', '.join(missing)}")
         self._vocoders[name] = vocoder.to(self.device)
 
     def _attached(self, name: str):
         voc = self._vocoders.get(name)
         if voc is None:
-            raise ValueError(f"attach_vocoder({name!r}, "
-                             f"{NEURAL_VOCODERS[name]}(...)) first")
+            raise ValueError(f"no vocoder {name!r}: attach_vocoder({name!r}, "
+                             f"...) first (attached: {sorted(self._vocoders)})")
         return voc
 
     def _vocode(self, mels: list[torch.Tensor], vocoder: str,
@@ -631,61 +619,16 @@ class AdaptiveTTS:
                 voc_noise=None):
         """Device mels (n_mel, T_i) → host waveforms (or host mels for
         ``vocoder="none"``)."""
-        if vocoder == "none":
-            with annotate("tts.to_host"):
-                return [m.cpu().numpy() for m in mels]
-        if vocoder == "wavernn":
-            # one sample loop over every fold of every mel
-            with annotate("tts.vocode.wavernn"):
-                return self._attached("wavernn").generate_batch(
-                    mels, generator=generator, noises=voc_noise,
-                    verbose=False)
-        if vocoder == "hifigan":
-            voc = self._attached("hifigan")
-            with annotate("tts.vocode.hifigan"):
-                wavs = (voc.inference_batch(mels) if len(mels) > 1
-                        else [voc.inference(m) for m in mels])
-            with annotate("tts.to_host"):
-                return [w.cpu().numpy() for w in wavs]
-        if vocoder == "waveglow":
-            voc = self._attached("waveglow")
-            with annotate("tts.vocode.waveglow"):
-                wavs = voc.infer_batch(mels, noise=voc_noise,
-                                       generator=generator)
-            with annotate("tts.to_host"):
-                return [w.cpu().numpy() for w in wavs]
-        if vocoder != "griffinlim":
-            raise ValueError(f"unknown vocoder: {vocoder}")
-        ap = self.params["audio_params"]
-        phase = (None if init_phase is None else
-                 torch.as_tensor(init_phase, dtype=torch.float32,
-                                 device=self.device))
-        if len(mels) == 1:
-            with annotate("tts.vocode.griffinlim"):
-                wav = griffinlim_logmelspec(
-                    mels[0], ap, init_phase=phase, generator=generator,
-                )
-            with annotate("tts.to_host"):
-                return [wav.cpu().numpy()]
-        # one batched inversion: pad every mel with its own silence floor
-        # to a common frame count (a multiple of 32, as the JAX package
-        # does), then cut each wav to hop·(T−1) samples — the length the
-        # single-mel path produces
-        with annotate("tts.vocode.griffinlim"):
-            t_max = -(-max(m.shape[1] for m in mels) // 32) * 32
-            batch = torch.stack([
-                torch.cat([m, m.min().expand(m.shape[0],
-                                             t_max - m.shape[1])], dim=1)
-                for m in mels
-            ])
-            wavs = griffinlim_logmelspec(
-                batch, ap, init_phase=phase, generator=generator,
-            )
+        wavs = mels
+        if vocoder != "none":
+            voc = self._attached(vocoder)
+            with annotate(f"tts.vocode.{vocoder}"):
+                wavs = voc.vocode(mels, generator, phase=init_phase,
+                                  noise=voc_noise)
+            if not any(isinstance(w, torch.Tensor) for w in wavs):
+                return wavs             # copied inside the call
         with annotate("tts.to_host"):
-            wavs = wavs.cpu().numpy()
-        hop = _hop(ap)
-        return [wavs[i][: (m.shape[1] - 1) * hop]
-                for i, m in enumerate(mels)]
+            return [w.cpu().numpy() for w in wavs]
 
 
 def decode_sharded(mesh: Mesh, models: list, cfg, inputs, in_len, emb,
@@ -804,20 +747,16 @@ class _StreamingPostnet:
 
 class _StreamingVocoder:
     """Chunked vocoding with ±ctx frames of context, trimmed from the
-    output.  How close the chunks come to the offline waveform depends on
-    the vocoder: HiFi-GAN (feed-forward convolutions) reproduces it
-    wherever its receptive field fits inside the context; Griffin-Lim
-    estimates the phase per window; WaveRNN is autoregressive per sample,
-    so each window is a generation of its own from zero state."""
+    output: offline-exact for a feed-forward vocoder whose receptive
+    field fits inside the context (HiFi-GAN), each window its own else."""
 
     def __init__(self, vocode_fn, hop: int, chunk: int, ctx: int,
                  tail_frames: int = 0):
-        # (n_mel, W) device -> (n,) device tensor or host array
+        # (n_mel, W) device -> (n,) host array
         self.vocode = vocode_fn
         self.hop, self.chunk, self.ctx = int(hop), int(chunk), int(ctx)
-        # frames the vocoder comes up short per window (Griffin-Lim
-        # returns (W-1)·hop samples for W frames): a padded final window
-        # trims them explicitly so the streamed total is the offline one
+        # the vocoder's tail_frames: a padded final window trims them so
+        # that the streamed total is the offline one
         self.tail_frames = int(tail_frames)
         self.buf: torch.Tensor | None = None   # all emitted mel frames
         self.done = 0                          # frames already vocoded
@@ -844,10 +783,7 @@ class _StreamingVocoder:
             win = self.buf[:, a:b]
             padded = b - a < W
             if padded:
-                win = torch.cat(
-                    [win, win.min().expand(win.shape[0], W - (b - a))],
-                    dim=1,
-                )
+                win = pad_mel_batch([win], W)[0]
             wav = self.vocode(win)
             if padded:
                 wav = wav[: (b - a - self.tail_frames) * self.hop]
@@ -856,8 +792,6 @@ class _StreamingVocoder:
             chunk = wav[o: o + n]
             self.done = e
             if len(chunk):
-                if isinstance(chunk, torch.Tensor):
-                    chunk = chunk.cpu().numpy()
                 yield chunk.astype(np.float32, copy=False)
             if e >= T:
                 break
@@ -882,18 +816,12 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
     """One stream's host-side stage stack (postnet → vocoder →
     :class:`_StreamCursor`), shared by :meth:`AdaptiveTTS.
     synthesize_stream` and the multiplexer so both run identical
-    per-stream pipelines.
-
-    ``gl_phase``: Griffin-Lim's starting phase for every window — a
-    tensor, or a callable ``(n_freqs, n_frames) -> phase``; None draws
-    U(-π, π) from a generator seeded with ``seed`` (the same phase for
-    every window of a shape, as the JAX package uses one key).
-    ``voc_noise``: WaveRNN's ``[(noise1, noise2)]`` for every window;
-    None draws it per window from a generator seeded with ``seed``."""
+    per-stream pipelines.  Each window goes through
+    :meth:`AdaptiveTTS._vocode` with the noise the vocoder's
+    ``stream_noise`` gives it from ``seed``, ``gl_phase`` (a tensor, or a
+    callable ``(n_freqs, n_frames) -> phase``) and ``voc_noise``."""
     cfg = tts.cfg
     r = cfg.n_frames_per_step
-    ap = tts.params["audio_params"]
-    hop = _hop(ap)
     pctx = _postnet_ctx(cfg)
 
     def post_fn(x, width):
@@ -906,58 +834,19 @@ def _stream_cursor(tts, model, vocoder: str, seed: int, gl_phase,
                              pad_to=segment_steps * r + 3 * pctx)
     if vocoder == "none":
         return _StreamCursor(cfg, r, post, _MelRelay)
-    if vocoder == "waveglow":
-        raise ValueError(
-            "vocoder='waveglow' is not streamed: its flows run over the "
-            "whole mel; use synthesize or synthesize_batch")
-    if vocoder not in ("griffinlim", "wavernn", "hifigan"):
-        raise ValueError(f"unknown vocoder: {vocoder}")
-    if vocoder != "hifigan" and vocode_ctx_frames < 1:
-        # Griffin-Lim and WaveRNN both come up one hop short per window
-        # ((W-1)·hop samples for W frames): with zero context every
-        # non-final chunk would silently lose a hop
-        raise ValueError(
-            f"vocoder={vocoder!r} needs vocode_ctx_frames >= 1")
-    if vocoder != "griffinlim":
-        tts._attached(vocoder)          # raises now, not at the first chunk
-
-        def vocode_neural(mel):
-            # every window restarts from the stream's seed, as the JAX
-            # package hands every window the same key
-            g = torch.Generator().manual_seed(seed)
-            return tts._vocode([mel], vocoder, g, voc_noise=voc_noise)[0]
-
-        # HiFi-GAN emits exactly W·hop samples, the other two (W-1)·hop
-        voc = _StreamingVocoder(
-            vocode_neural, hop, chunk_frames,
-            vocode_ctx_frames, tail_frames=0 if vocoder == "hifigan" else 1)
-        return _StreamCursor(cfg, r, post, voc)
-
-    n_freqs = ap["n_fft"] // 2 + 1
-    min_frames = ap["n_fft"] // hop + 1
-    phases: dict = {}
-
-    def phase_for(n_frames: int) -> torch.Tensor:
-        if n_frames not in phases:
-            if callable(gl_phase):
-                ph = gl_phase(n_freqs, n_frames)
-            elif gl_phase is not None:
-                ph = gl_phase
-            else:
-                g = torch.Generator().manual_seed(seed)
-                ph = torch.rand((n_freqs, n_frames), generator=g)
-                ph = ph * (2.0 * np.pi) - np.pi
-            phases[n_frames] = torch.as_tensor(
-                ph, dtype=torch.float32, device=tts.device)
-        return phases[n_frames]
-
-    def vocode(mel):
-        phase = phase_for(max(mel.shape[-1], min_frames))
-        return griffinlim_logmelspec(mel, ap, init_phase=phase)
-
-    voc = _StreamingVocoder(vocode, hop, chunk_frames,
-                            vocode_ctx_frames, tail_frames=1)
-    return _StreamCursor(cfg, r, post, voc)
+    voc = tts._attached(vocoder)        # raises now, not at the first chunk
+    if not voc.streams:
+        raise ValueError(f"vocoder={vocoder!r} is not streamed: it runs over "
+                         "the whole mel; use synthesize or synthesize_batch")
+    if voc.tail_frames and vocode_ctx_frames < 1:
+        raise ValueError(f"vocoder={vocoder!r} needs vocode_ctx_frames >= 1")
+    noise_for = voc.stream_noise(seed, phase=gl_phase, noise=voc_noise)
+    ap = tts.params["audio_params"]
+    return _StreamCursor(cfg, r, post, _StreamingVocoder(
+        lambda mel: tts._vocode([mel], vocoder,
+                                *noise_for(mel.shape[-1]))[0],
+        ap.get("hop_length", ap.get("hop_size")), chunk_frames,
+        vocode_ctx_frames, voc.tail_frames))
 
 
 class _StreamCursor:
@@ -1084,15 +973,14 @@ def synthesize_stream(self, text: str, voice: Voice | None = None, *,
     One encode → the decoder in ``segment_steps``-step segments (the
     CUDA segment kernel on a GPU, its plain version on the CPU; chained
     segments reproduce the offline decode) → delayed-exact streaming
-    postnet → chunked vocoder (Griffin-Lim, or an attached WaveRNN or
-    HiFi-GAN).  The mel path is :meth:`synthesize`'s:
+    postnet → chunked vocoder (one that streams).  The mel path is
+    :meth:`synthesize`'s:
     ``vocoder="none"`` streams the offline mel in pieces.
 
     Noise: the prenet masks are the (S, 2, 1, P) draw :meth:`synthesize`
-    makes for ``seed`` (or ``pre_masks``), sliced per segment.
-    ``gl_phase`` (a tensor, or a callable ``(n_freqs, n_frames) ->
-    phase``) is every window's Griffin-Lim start phase; ``voc_noise``
-    (``[(noise1, noise2)]``) every window's WaveRNN sampling noise.
+    makes for ``seed`` (or ``pre_masks``), sliced per segment; each
+    window's is the vocoder's ``stream_noise`` of ``seed``, ``gl_phase``
+    and ``voc_noise`` (``_stream_cursor``).
 
     Mels and windows stay on the device; each segment brings its step,
     not_finished and mel_lengths to the host in one transfer, and each

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..utils.backend import load_device
 from ..utils.batching import pad_mel_batch, pow2_bucket
+from . import Vocoder
 
 LRELU_SLOPE = 0.1
 
@@ -210,9 +211,11 @@ def load_torch_generator(checkpoint_path: str, h: dict) -> Generator:
         {k: v.numpy() for k, v in sd.items()}, h)
 
 
-class HiFiGAN:
+class HiFiGAN(Vocoder):
     """Reference-API wrapper: config JSON + checkpoint →
     ``inference(mel)``."""
+
+    name = "hifigan"
 
     def __init__(self, config_path: str, checkpoint_path: str,
                  device="cuda"):
@@ -269,3 +272,6 @@ class HiFiGAN:
         wavs = generator_apply(self.gen, self.h,
                                pad_mel_batch(mels, fill="zero"), lens)
         return [wavs[i, : t * hop] for i, t in enumerate(n)]
+
+    def vocode(self, mels, generator=None, *, phase=None, noise=None):
+        return self.inference_batch(mels)

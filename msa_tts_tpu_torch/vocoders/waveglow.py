@@ -80,7 +80,7 @@ from torch import nn
 from ..utils import profiling
 from ..utils.backend import load_device
 from ..utils.profiling import annotate
-from . import cuda_wn
+from . import Vocoder, cuda_wn
 
 UPSAMPLE_KERNEL = 1024
 HOP = 256
@@ -202,9 +202,12 @@ def phase_breakdown(marks: list) -> dict:
     return out
 
 
-class WaveGlowVocoder:
+class WaveGlowVocoder(Vocoder):
     """Serves a :class:`WaveGlow` (module docstring): ``dtype``
     ``"bfloat16"`` or ``"float32"``, ``sigma`` the noise's scale."""
+
+    name = "waveglow"
+    streams = False         # its flows run over the whole mel
 
     def __init__(self, model: WaveGlow, *, dtype: str = "bfloat16",
                  sigma: float = 0.6, device=None):
@@ -352,3 +355,6 @@ class WaveGlowVocoder:
                 info={"rows": len(mels), "positions": sum(P)})
         wav = audio.flatten(1)
         return [wav[i, : t * HOP] for i, t in enumerate(T)]
+
+    def vocode(self, mels, generator=None, *, phase=None, noise=None):
+        return self.infer_batch(mels, noise=noise, generator=generator)

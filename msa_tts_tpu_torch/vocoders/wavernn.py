@@ -41,7 +41,9 @@ from torch import nn
 from ..ops.nn import batchnorm1d, batchnorm1d_train, uniform_
 from ..ops.rnn import init_gru_
 from ..utils.backend import load_device, resolve_kernel_backend
+from ..utils.batching import pad_mel_batch
 from ..utils.profiling import annotate
+from . import Vocoder
 
 LOG_SCALE_MIN = float(np.log(1e-14))
 LOG_STD_MIN = -7.0
@@ -657,7 +659,7 @@ _DTYPES = {None: None, "float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
 
-class WaveRNN:
+class WaveRNN(Vocoder):
     """Reference-API vocoder wrapper with batched generation.
 
     ``gen_dtype``: the sample loop's weight matrices (``bfloat16`` by
@@ -670,6 +672,9 @@ class WaveRNN:
     model's device.  When the vocoder builds its own model (from ``cfg``
     or the reference's ``ref_params``) it goes onto the GPU, raising
     without one, unless ``device="cpu"`` is asked for."""
+
+    name = "wavernn"
+    tail_frames = 1
 
     def __init__(self, model: WaveRNNModel | None = None,
                  cfg: WaveRNNConfig | None = None, *,
@@ -764,13 +769,9 @@ class WaveRNN:
         2·pad)`` as the upsampling network takes them, and the common
         bucketed length T.  0.0 is full-scale energy in the log-mel
         domain, so each mel is padded with its own floor, which the
-        upsampler's convs may read."""
-        T = -(-max(m.shape[-1] for m in mels_list)
-              // bucket_frames) * bucket_frames
-        mels = torch.stack([
-            torch.cat([m, m.min().expand(m.shape[0], T - m.shape[1])], dim=1)
-            for m in mels_list])
-        return F.pad(mels, (self.cfg.pad, self.cfg.pad)), T
+        upsampler's convs may read (``pad_mel_batch``)."""
+        mels = pad_mel_batch(mels_list, bucket_frames)[: len(mels_list)]
+        return F.pad(mels, (self.cfg.pad, self.cfg.pad)), mels.shape[-1]
 
     def generate_batch(self, mels_list, target: int = 2_750,
                        overlap: int = 550, generator=None, generators=None,
@@ -824,6 +825,11 @@ class WaveRNN:
                   f"{rate_khz:.1f} kHz -- x_realtime: "
                   f"{rate_khz * 1000 / cfg.sample_rate:.2f}")
         return outs
+
+    def vocode(self, mels, generator=None, *, phase=None, noise=None):
+        """``noise``: one ``(noise1, noise2)`` pair a mel."""
+        return self.generate_batch(mels, generator=generator, noises=noise,
+                                   verbose=False)
 
     def generate(self, mels, batched: bool = True, target: int = 11_000,
                  overlap: int = 550, generator=None, noise=None,

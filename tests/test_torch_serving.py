@@ -159,7 +159,8 @@ def test_not_ported_features_raise(both):
     for voc in ("wavernn", "hifigan"):
         with pytest.raises(ValueError, match="attach_vocoder"):
             tts.synthesize("hi", spk_emb=EMB, vocoder=voc)
-    with pytest.raises(ValueError, match="unknown vocoder name"):
+    # and an object without the vocoder seam is not attached
+    with pytest.raises(ValueError, match="object is not a vocoder"):
         tts.attach_vocoder("melgan", object())
     with pytest.raises(ValueError):
         AdaptiveTTS(dict(base, decode_backend="cuda"), tts.model)
